@@ -1,0 +1,231 @@
+"""Merge workloads for the port, generated with the port's own oracle.
+
+``make_merge_workload`` and its op generators are copies of the JAX
+package's (``peritext_tpu/bench/workloads.py`` and ``peritext_tpu/fuzz.py``):
+the same seed gives the same changes.  ``make_writer_rounds`` extends the
+same generator to chained rounds, and ``build_device_batch`` encodes a
+workload into the stacked device batch the merge kernels take.
+"""
+from __future__ import annotations
+
+import math
+import random
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from peritext_tpu_torch.ids import ActorRegistry
+from peritext_tpu_torch.ops import kernels as K
+from peritext_tpu_torch.ops.encode import (
+    AttrRegistry,
+    bucket_length,
+    encode_changes,
+    fuse_insert_runs,
+    pad_buffer,
+    pad_rows,
+    split_rows,
+)
+from peritext_tpu_torch.ops.state import make_empty_state, map_state
+from peritext_tpu_torch.oracle import Doc
+
+MARK_TYPES = ["strong", "em", "link", "comment"]
+EXAMPLE_URLS = [f"{c}.com" for c in "ABCDEFGHIJKLMNOPQRSTUVWXYZ"]
+
+
+def _text_len(doc: Any) -> int:
+    """Visible length of the list at path ["text"] (robust to the root
+    'text' key being LWW-overwritten with a plain value)."""
+    t = doc.root.get("text")
+    if isinstance(t, list):
+        return len(t)
+    return sum(len(s["text"]) for s in doc.get_text_with_formatting(["text"]))
+
+
+def _random_add_mark(rng: random.Random, doc: Doc, comment_history: List[str]) -> Dict[str, Any]:
+    length = _text_len(doc)
+    start = rng.randrange(length)
+    end = start + rng.randrange(length - start) + 1
+    mark_type = rng.choice(MARK_TYPES)
+    op: Dict[str, Any] = {
+        "path": ["text"],
+        "action": "addMark",
+        "startIndex": start,
+        "endIndex": end,
+        "markType": mark_type,
+    }
+    if mark_type == "link":
+        op["attrs"] = {"url": rng.choice(EXAMPLE_URLS)}
+    elif mark_type == "comment":
+        comment_id = f"comment-{rng.randrange(1 << 16):04x}"
+        comment_history.append(comment_id)
+        op["attrs"] = {"id": comment_id}
+    return op
+
+
+def _random_insert(rng: random.Random, doc: Doc, max_chars: int) -> Optional[Dict[str, Any]]:
+    length = _text_len(doc)
+    index = rng.randrange(length) if length else 0
+    num = rng.randrange(max_chars)
+    values = [rng.choice("0123456789abcdef") for _ in range(num)]
+    return {"path": ["text"], "action": "insert", "index": index, "values": values}
+
+
+def _random_delete(rng: random.Random, doc: Doc) -> Optional[Dict[str, Any]]:
+    length = _text_len(doc)
+    # The reference fuzzer's bounds (fuzz.ts:128-129): never the whole doc.
+    index = rng.randrange(length) + 1
+    count = math.ceil(rng.random() * (length - index))
+    if count <= 0:
+        return None
+    return {"path": ["text"], "action": "delete", "index": index, "count": count}
+
+
+def _writer_changes(
+    rng: random.Random, writer: Doc, op_budget: int, with_marks: bool
+) -> List[Dict[str, Any]]:
+    """One writer's concurrent changes worth ``op_budget`` internal ops."""
+    changes: List[Dict[str, Any]] = []
+    while op_budget > 0:
+        kinds = ["insert", "remove"] + (["addMark"] if with_marks else [])
+        kind = rng.choice(kinds)
+        if kind == "insert":
+            op = _random_insert(rng, writer, 4)
+        elif kind == "remove":
+            op = _random_delete(rng, writer)
+        else:
+            op = _random_add_mark(rng, writer, [])
+        if op is None:
+            continue
+        if op["action"] == "insert":
+            cost = len(op["values"])
+            if cost == 0:
+                continue
+        elif op["action"] == "delete":
+            cost = op["count"]
+        else:
+            cost = 1
+        cost = min(cost, op_budget)
+        if op["action"] == "insert":
+            op["values"] = op["values"][:cost]
+        elif op["action"] == "delete":
+            op["count"] = cost
+        change, _ = writer.change([op])
+        changes.append(change)
+        op_budget -= cost
+    return changes
+
+
+def _genesis(rng: random.Random, doc_len: int) -> Dict[str, Any]:
+    base = Doc("base")
+    text = "".join(rng.choice("abcdefghijklmnopqrstuvwxyz ") for _ in range(doc_len))
+    genesis, _ = base.change(
+        [
+            {"path": [], "action": "makeList", "key": "text"},
+            {"path": ["text"], "action": "insert", "index": 0, "values": list(text)},
+        ]
+    )
+    return genesis
+
+
+def make_merge_workload(
+    doc_len: int = 1000,
+    ops_per_merge: int = 64,
+    num_streams: int = 4,
+    with_marks: bool = True,
+    seed: int = 0,
+) -> Dict[str, Any]:
+    """A genesis change building a ``doc_len``-char doc, plus
+    ``num_streams`` concurrent change streams of ``ops_per_merge`` internal
+    ops each, written by oracle replicas (the JAX package's benchmark
+    workload, change for change)."""
+    rng = random.Random(seed)
+    genesis = _genesis(rng, doc_len)
+    streams: List[List[Dict[str, Any]]] = []
+    for s in range(num_streams):
+        writer = Doc(f"writer{s}")
+        writer.apply_change(genesis)
+        streams.append(_writer_changes(rng, writer, ops_per_merge, with_marks))
+    return {"genesis": genesis, "streams": streams}
+
+
+def make_writer_rounds(
+    doc_len: int = 1000,
+    ops_per_round: int = 64,
+    num_writers: int = 4,
+    rounds: int = 8,
+    with_marks: bool = True,
+    seed: int = 0,
+) -> Dict[str, Any]:
+    """Chained rounds: each round, each writer makes ``ops_per_round``
+    concurrent ops on its own copy (writers never see each other).
+    Returns ``genesis`` and ``rounds`` ([round][writer] -> changes)."""
+    rng = random.Random(seed)
+    genesis = _genesis(rng, doc_len)
+    writers = [Doc(f"writer{s}") for s in range(num_writers)]
+    for w in writers:
+        w.apply_change(genesis)
+    per_round = [
+        [_writer_changes(rng, w, ops_per_round, with_marks) for w in writers]
+        for _ in range(rounds)
+    ]
+    return {"genesis": genesis, "rounds": per_round}
+
+
+def build_device_batch(
+    workload: Dict[str, Any],
+    num_replicas: int,
+    capacity: int,
+    max_mark_ops: int = 64,
+    device: str | torch.device = "cpu",
+) -> Dict[str, Any]:
+    """Encode a ``make_merge_workload`` workload into a stacked batch:
+    replica r holds the genesis document and gets stream r % S.  Text rows
+    are fused into insert runs (at most MAX_RUN_LEN) with their char
+    buffers, as the universe's exact path feeds the kernels.
+
+    Returns ``states`` [R, ...], ``text_ops`` [R, L, F], ``char_buf``
+    [R, B], ``mark_ops`` [R, Lm, F] and ``ranks`` [A] on ``device``."""
+    actors = ActorRegistry()
+    attrs = AttrRegistry()
+    genesis_rows, _, _ = encode_changes([workload["genesis"]], actors, attrs)
+    text_obj = workload["genesis"]["ops"][0]["opId"]  # the makeList op
+    text_streams, mark_streams = [], []
+    for stream in workload["streams"]:
+        rows, _, _ = encode_changes(stream, actors, attrs, text_obj=text_obj)
+        t, m = split_rows(rows)
+        text_streams.append(fuse_insert_runs(t))
+        mark_streams.append(m)
+    ranks_np = np.zeros(64, np.int32)
+    rk = actors.ranks()
+    ranks_np[: len(rk)] = rk
+    ranks = torch.from_numpy(ranks_np).to(device)
+
+    # The genesis document: one fused merge on a single replica, then tiled.
+    g_text, g_marks = split_rows(genesis_rows)
+    fr, fb = fuse_insert_runs(g_text)
+    single = map_state(lambda x: x.unsqueeze(0), make_empty_state(capacity, max_mark_ops, device))
+    base = K.merge_step_plain(
+        single,
+        torch.from_numpy(fr[None]).to(device),
+        torch.from_numpy(pad_rows(g_marks, max(g_marks.shape[0], 1))[None]).to(device),
+        ranks,
+        torch.from_numpy(pad_buffer(fb, max(fb.shape[0], K.MAX_RUN_LEN))[None]).to(device),
+    )
+    states = map_state(lambda x: x.expand(num_replicas, *x.shape[1:]).contiguous(), base)
+
+    text_pad = max(max(t.shape[0] for t, _ in text_streams), 1)
+    buf_pad = bucket_length(max(max(b.shape[0] for _, b in text_streams), K.MAX_RUN_LEN))
+    mark_pad = max(max(m.shape[0] for m in mark_streams), 1)
+    s = len(text_streams)
+    pick = [r % s for r in range(num_replicas)]
+    text_ops = np.stack([pad_rows(text_streams[i][0], text_pad) for i in pick])
+    char_buf = np.stack([pad_buffer(text_streams[i][1], buf_pad) for i in pick])
+    mark_ops = np.stack([pad_rows(mark_streams[i], mark_pad) for i in pick])
+    return {
+        "states": states,
+        "text_ops": torch.from_numpy(text_ops).to(device),
+        "char_buf": torch.from_numpy(char_buf).to(device),
+        "mark_ops": torch.from_numpy(mark_ops).to(device),
+        "ranks": ranks,
+    }
