@@ -229,3 +229,54 @@ def build_device_batch(
         "mark_ops": torch.from_numpy(mark_ops).to(device),
         "ranks": ranks,
     }
+
+
+def insert_heavy_text_ops(rng: np.random.Generator, st, num_ops: int, buf_len: int):
+    """Random text rows for the states ``st`` [R, C], mixed as
+    ``tests/test_torch_cuda.py::_text_ops`` mixes them but drawn with numpy
+    over all replicas at once: a quarter each of pads, inserts, deletes and
+    runs of 1..MAX_RUN_LEN chars; the reference (or delete target) is HEAD
+    (15%), an absent id (10%) or a live element.  Returns ``(text_ops [R,
+    num_ops, OP_FIELDS], char_buf [R, buf_len])`` as CPU int32 tensors."""
+    ec = st.elem_ctr.cpu().numpy()
+    ea = st.elem_act.cpu().numpy()
+    length = st.length.cpu().numpy()
+    r, c = ec.shape
+    ops = np.zeros((r, num_ops, K.OP_FIELDS), np.int32)
+    kind = rng.choice([K.KIND_PAD, K.KIND_INSERT, K.KIND_DELETE, K.KIND_INSERT_RUN], size=(r, num_ops))
+    ops[..., K.K_KIND] = kind
+    ops[..., K.K_CTR] = rng.integers(1, 8 * c, size=(r, num_ops))
+    ops[..., K.K_ACT] = rng.integers(0, 5, size=(r, num_ops))
+    pick = (rng.random((r, num_ops)) * np.maximum(length, 1)[:, None]).astype(np.int64)
+    ref_ctr = np.take_along_axis(ec, pick, 1)
+    ref_act = np.take_along_axis(ea, pick, 1)
+    u = rng.random((r, num_ops))
+    head = (u < 0.15) | (length[:, None] == 0)
+    absent = ~head & (u < 0.25)
+    ops[..., K.K_REF_CTR] = np.where(head, 0, np.where(absent, 999999, ref_ctr))
+    ops[..., K.K_REF_ACT] = np.where(head, 0, np.where(absent, 3, ref_act))
+    run = kind == K.KIND_INSERT_RUN
+    ops[..., K.K_RUN_LEN] = np.where(run, rng.integers(1, K.MAX_RUN_LEN + 1, size=(r, num_ops)), 0)
+    ops[..., K.K_PAYLOAD] = np.where(
+        run, rng.integers(0, buf_len + 20, size=(r, num_ops)), rng.integers(32, 127, size=(r, num_ops))
+    )
+    char_buf = rng.integers(32, 0x10FFFF, size=(r, buf_len)).astype(np.int32)
+    return torch.from_numpy(ops), torch.from_numpy(char_buf)
+
+
+def text_row_mix(text_ops: torch.Tensor, char_buf: Optional[torch.Tensor]) -> str:
+    """A batch's text rows per replica, each count as min-max over replicas:
+    deletes, inserts, runs (no-ops without a ``char_buf``), chars inserted,
+    and the most rows any replica has."""
+    kind = text_ops[:, :, K.K_KIND]
+    runs = (kind == K.KIND_INSERT_RUN) if char_buf is not None else torch.zeros_like(kind, dtype=torch.bool)
+    inserts = kind == K.KIND_INSERT
+    chars = inserts.sum(1) + torch.where(runs, text_ops[:, :, K.K_RUN_LEN], 0).sum(1)
+    rows = (kind != K.KIND_PAD).sum(1)
+
+    def span(x):
+        return f"{int(x.min().item())}-{int(x.max().item())}"
+
+    return (f"deletes {span((kind == K.KIND_DELETE).sum(1))}, inserts {span(inserts.sum(1))}, "
+            f"runs {span(runs.sum(1))}, chars inserted {span(chars)} per replica; "
+            f"most rows in a replica {int(rows.max().item())} of {text_ops.shape[1]}")

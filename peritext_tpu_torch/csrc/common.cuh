@@ -29,7 +29,8 @@ constexpr int KIND_MARK = 3;
 constexpr int KIND_INSERT_RUN = 4;
 constexpr int MAX_RUN_LEN = 64;
 
-// Threads per block of both kernels (a multiple of 32, at most 1024).
+// Threads per block of the mark kernel (a multiple of 32, at most 1024);
+// the text kernel takes its block size from the launch.
 constexpr int THREADS = 512;
 // Shared ints each block keeps for the reductions below.
 constexpr int SCRATCH_INTS = 64;

@@ -30,7 +30,8 @@
 // slot): the known cost of keeping the slot-major [2C, W] layout that the
 // rest of the port and the JAX package share.  Definedness and the element
 // ids live in shared memory, so anchor resolution and the carry searches
-// read no device memory.
+// read no device memory: 10 bytes per element (ids 8, definedness one byte
+// per slot), so C = 16384 with W = 32 takes 164,352 bytes.
 
 #include "common.cuh"
 
@@ -46,12 +47,12 @@ __global__ void __launch_bounds__(THREADS) mark_phase_kernel(
     int* mask_out, int cap, int words) {
   extern __shared__ int smem[];
   const int two_c = 2 * cap;
-  int* def = smem;
-  int* ec = def + two_c;
+  int* ec = smem;
   int* ea = ec + cap;
   int* row_s = ea + cap;
   int* row_e = row_s + words;
   int* scratch = row_e + words;
+  uint8_t* def = reinterpret_cast<uint8_t*>(scratch + SCRATCH_INTS);  // one byte per slot
 
   const int r = blockIdx.x;
   const int tid = threadIdx.x;
@@ -160,8 +161,9 @@ __global__ void __launch_bounds__(THREADS) mark_phase_kernel(
 }  // namespace
 
 extern "C" size_t pt_mark_phase_smem(int cap, int words) {
-  return (4 * static_cast<size_t>(cap) + 2 * static_cast<size_t>(words) + SCRATCH_INTS) *
-         sizeof(int);
+  return (2 * static_cast<size_t>(cap) + 2 * static_cast<size_t>(words) + SCRATCH_INTS) *
+             sizeof(int) +
+         2 * static_cast<size_t>(cap);
 }
 
 // Launches the mark phase on ``stream``; returns the CUDA error code of the

@@ -11,7 +11,8 @@ A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain PyTorch version from ``kernels.py``, which the
 kernels are held byte-for-byte against.  Nothing falls back from the card
 to the plain version.  ``LAUNCHES`` counts the kernel launches of each
-wrapper (only launches on the card count).
+wrapper (only launches on the card count).  Both kernels hold C <= 16384
+(a 10k-character document) in one block's shared memory; larger C raises.
 """
 from __future__ import annotations
 
@@ -37,12 +38,28 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def _text_tile_rows(capacity: int) -> int:
+    return 32 if capacity <= 4096 else 128
+
+
 def text_phase_smem_bytes(capacity: int) -> int:
-    return (6 * capacity + _SCRATCH_INTS) * 4
+    """Id (8 B) and source word (4 B) per slot, two staged op tiles of 6
+    int fields per row, a hash table of 4 * tile slots (12 B each) and two
+    32-int reduction areas (``csrc/text_phase.cu``)."""
+    return 12 * capacity + _text_tile_rows(capacity) * (2 * 6 * 4 + 4 * 12) + 2 * 32 * 4
 
 
 def mark_phase_smem_bytes(capacity: int, words: int) -> int:
-    return (4 * capacity + 2 * words + _SCRATCH_INTS) * 4
+    """Element ids (8 B per element), definedness (one byte per slot, two
+    slots per element), two carry rows and the reduction scratch."""
+    return (2 * capacity + 2 * words + _SCRATCH_INTS) * 4 + 2 * capacity
+
+
+def _largest_fitting(smem_bytes) -> int:
+    c = 1
+    while smem_bytes(2 * c) <= MAX_SHARED_BYTES:
+        c *= 2
+    return c
 
 
 def _on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
@@ -66,17 +83,34 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "pt_text_phase": [_P] * 6 + [_I, _P, _I, _P, _I] + [_P] * 6 + [_I, _I, _P],
+    "pt_mark_phase": [_P] * 7 + [_I, _P, _P, _I, _I, _I, _P],
+}
+_fns: Dict[str, ctypes._CFuncPtr] = {}
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _fn(kernel: str, symbol: str) -> ctypes._CFuncPtr:
+    """A kernel library's C function with its argument types set (once per
+    process)."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load(kernel), symbol)
+        fn.argtypes = _ARGTYPES[symbol]
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return fn
 
 
-def _raise_on_error(lib: ctypes.CDLL, kernel: str, err: int) -> None:
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _raise_on_error(kernel: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: {_build.error_string(lib, err)}")
+        msg = _build.error_string(_build.load(kernel), err)
+        raise RuntimeError(f"{kernel} kernel launch failed: {msg}")
 
 
 def text_phase(
@@ -90,7 +124,8 @@ def text_phase(
     char_buf: Optional[torch.Tensor] = None,  # [R, BUF] int32, BUF >= MAX_RUN_LEN
 ) -> Tuple[torch.Tensor, ...]:
     """Apply a batch's text ops; returns ``(elem_ctr, elem_act, deleted,
-    chars, orig_idx, length)`` (see ``kernels.text_phase_plain``)."""
+    chars, orig_idx, length)`` (see ``kernels.text_phase_plain``).  Run
+    lengths must be >= 0, as the encoder emits them (1..MAX_RUN_LEN)."""
     if _on_cpu(elem_ctr, elem_act, deleted, chars, length, text_ops, ranks, char_buf):
         return K.text_phase_plain(
             elem_ctr, elem_act, deleted, chars, length, text_ops, ranks, char_buf
@@ -116,28 +151,25 @@ def text_phase(
     if smem > MAX_SHARED_BYTES:
         raise ValueError(
             f"text_phase: capacity {c} needs {smem} bytes of shared memory, over the "
-            f"{MAX_SHARED_BYTES}-byte limit of one block (C <= 8192 fits)"
+            f"{MAX_SHARED_BYTES}-byte limit of one block "
+            f"(C <= {_largest_fitting(text_phase_smem_bytes)} fits)"
         )
+    if c + K.MAX_RUN_LEN * num_ops >= 2**31:
+        raise ValueError(f"text_phase: {num_ops} op rows at capacity {c} overflow a source word")
     ec = torch.empty_like(elem_ctr)
     ea = torch.empty_like(elem_act)
     dl = torch.empty_like(deleted)
     ch = torch.empty_like(chars)
     oi = torch.empty_like(elem_ctr)
     ln = torch.empty_like(length)
-    lib = _build.load("text_phase")
-    fn = lib.pt_text_phase
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6 + [
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(
-        _ptr(elem_ctr), _ptr(elem_act), _ptr(deleted), _ptr(chars), _ptr(length),
-        _ptr(text_ops), num_ops, _ptr(ranks), ranks.shape[0],
-        _ptr(char_buf) if char_buf is not None else None, buf_len,
-        _ptr(ec), _ptr(ea), _ptr(dl), _ptr(ch), _ptr(oi), _ptr(ln),
+    err = _fn("text_phase", "pt_text_phase")(
+        elem_ctr.data_ptr(), elem_act.data_ptr(), deleted.data_ptr(), chars.data_ptr(),
+        length.data_ptr(), text_ops.data_ptr(), num_ops, ranks.data_ptr(), ranks.shape[0],
+        char_buf.data_ptr() if char_buf is not None else None, buf_len,
+        ec.data_ptr(), ea.data_ptr(), dl.data_ptr(), ch.data_ptr(), oi.data_ptr(), ln.data_ptr(),
         r, c, _stream(),
     )
-    _raise_on_error(lib, "text_phase", err)
+    _raise_on_error("text_phase", err)
     LAUNCHES["text_phase"] += 1
     return ec, ea, dl, ch, oi, ln
 
@@ -171,21 +203,17 @@ def mark_phase(
     if smem > MAX_SHARED_BYTES:
         raise ValueError(
             f"mark_phase: capacity {c} with {words} mask words needs {smem} bytes of "
-            f"shared memory, over the {MAX_SHARED_BYTES}-byte limit of one block"
+            f"shared memory, over the {MAX_SHARED_BYTES}-byte limit of one block "
+            f"(C <= {_largest_fitting(lambda cap: mark_phase_smem_bytes(cap, words))} fits)"
         )
     new_def = torch.empty_like(bnd_def)
     new_mask = torch.empty_like(bnd_mask)  # the kernel copies the input in
-    lib = _build.load("mark_phase")
-    fn = lib.pt_mark_phase
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(
-        _ptr(bnd_def), _ptr(bnd_mask), _ptr(elem_ctr), _ptr(elem_act), _ptr(length),
-        _ptr(mark_count), _ptr(mark_ops), num_ops, _ptr(new_def), _ptr(new_mask),
-        r, c, words, _stream(),
+    err = _fn("mark_phase", "pt_mark_phase")(
+        bnd_def.data_ptr(), bnd_mask.data_ptr(), elem_ctr.data_ptr(), elem_act.data_ptr(),
+        length.data_ptr(), mark_count.data_ptr(), mark_ops.data_ptr(), num_ops,
+        new_def.data_ptr(), new_mask.data_ptr(), r, c, words, _stream(),
     )
-    _raise_on_error(lib, "mark_phase", err)
+    _raise_on_error("mark_phase", err)
     LAUNCHES["mark_phase"] += 1
     return new_def, new_mask
 

@@ -18,6 +18,8 @@ from peritext_tpu.ops import kernels as JK
 from peritext_tpu.ops import pallas_kernels as JP
 from peritext_tpu.ops.encode import fuse_insert_runs, pad_buffer, pad_rows
 from peritext_tpu.schema import allow_multiple_array
+from peritext_tpu_torch.bench import bounds
+from peritext_tpu_torch.bench.workloads import insert_heavy_text_ops, text_row_mix
 from peritext_tpu_torch.ops import _build, cuda_kernels
 from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops.state import DocState, state_from_numpy, state_to_numpy
@@ -311,6 +313,82 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_shared_memory_limits():
-    assert cuda_kernels.text_phase_smem_bytes(8192) <= cuda_kernels.MAX_SHARED_BYTES
-    assert cuda_kernels.text_phase_smem_bytes(16384) > cuda_kernels.MAX_SHARED_BYTES
-    assert cuda_kernels.mark_phase_smem_bytes(8192, 32) <= cuda_kernels.MAX_SHARED_BYTES
+    """Both kernels hold C = 16384 (the 10k-char document) in one block;
+    the text kernel does not hold C = 32768.  At C = 2048 the text kernel
+    leaves room for eight blocks per SM (228 KiB, 1 KiB reserved each)."""
+    limit = cuda_kernels.MAX_SHARED_BYTES
+    assert cuda_kernels.text_phase_smem_bytes(16384) <= limit
+    assert cuda_kernels.text_phase_smem_bytes(32768) > limit
+    assert cuda_kernels.mark_phase_smem_bytes(16384, 32) <= limit
+    assert cuda_kernels.mark_phase_smem_bytes(32768, 32) > limit
+    assert 8 * (cuda_kernels.text_phase_smem_bytes(2048) + 1024) <= 228 * 1024
+    # The footprints per element: 12 bytes (text) and 10 bytes (mark).
+    assert cuda_kernels.text_phase_smem_bytes(4096) - cuda_kernels.text_phase_smem_bytes(2048) == 12 * 2048
+    assert cuda_kernels.mark_phase_smem_bytes(4096, 32) - cuda_kernels.mark_phase_smem_bytes(2048, 32) == 10 * 2048
+
+
+def test_text_phase_bound_counts_what_each_row_kind_reads():
+    """The text kernel's byte bound: all four planes, length and ranks in,
+    the five planes and length out, and per op row only the fields its kind
+    reads (pad 4 B, delete 12 B, insert 24 B, run 28 B plus its clamped
+    chars; a run is a pad without a char buffer)."""
+    r, c, a = 2, 8, 4
+    planes = [torch.zeros((r, c), dtype=torch.int32) for _ in range(2)]
+    deleted = torch.zeros((r, c), dtype=torch.bool)
+    chars = torch.zeros((r, c), dtype=torch.int32)
+    length = torch.zeros(r, dtype=torch.int32)
+    ops = torch.zeros((r, 5, K.OP_FIELDS), dtype=torch.int32)
+    ops[:, :, K.K_KIND] = torch.tensor(
+        [K.KIND_PAD, K.KIND_DELETE, K.KIND_INSERT, K.KIND_INSERT_RUN, K.KIND_INSERT_RUN])
+    ops[:, 3, K.K_RUN_LEN] = 3
+    ops[:, 4, K.K_RUN_LEN] = 100  # reads MAX_RUN_LEN chars at most
+    ranks = torch.zeros(a, dtype=torch.int32)
+    buf = torch.zeros((r, K.MAX_RUN_LEN), dtype=torch.int32)
+    args = (*planes, deleted, chars, length, ops, ranks)
+    out = bounds.nbytes(*K.text_phase_plain(*args, buf))
+    assert out == 4 * r * c * 4 + r * c + 4 * r
+    inputs = 3 * 4 * r * c + r * c + 4 * r + 4 * a
+    rows = 4 + 12 + 24 + (28 + 4 * 3) + (28 + 4 * K.MAX_RUN_LEN)
+    assert bounds.text_phase_bytes(*args, buf) == inputs + r * rows + out
+    assert bounds.text_phase_bytes(*args) == inputs + r * (4 + 12 + 24 + 4 + 4) + out
+    assert bounds.bound(bounds.HBM_BYTES_PER_S * 1e-3, 0) == (1.0, "bytes")
+    assert bounds.bound(0, bounds.CORE_OPS_PER_S * 2e-3) == (2.0, "operations")
+
+
+def test_text_row_mix_counts_per_replica():
+    ops = torch.zeros((2, 4, K.OP_FIELDS), dtype=torch.int32)
+    ops[0, :, K.K_KIND] = torch.tensor([K.KIND_DELETE, K.KIND_DELETE, K.KIND_INSERT, K.KIND_PAD])
+    ops[1, :, K.K_KIND] = torch.tensor([K.KIND_INSERT_RUN, K.KIND_DELETE, K.KIND_PAD, K.KIND_PAD])
+    ops[1, 0, K.K_RUN_LEN] = 7
+    buf = torch.zeros((2, K.MAX_RUN_LEN), dtype=torch.int32)
+    assert text_row_mix(ops, buf) == (
+        "deletes 1-2, inserts 0-1, runs 0-1, chars inserted 1-7 per replica; "
+        "most rows in a replica 3 of 4")
+    assert text_row_mix(ops, None).startswith("deletes 1-2, inserts 0-1, runs 0-0, chars inserted 0-1")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_insert_heavy_rows_match_xla(seed):
+    """The insert-heavy rows chip_smoke times (a quarter each of pads,
+    inserts, deletes and runs; HEAD, absent and live references; run
+    payloads past the char window; runs that push the length past C)
+    through the port's plain text phase and the XLA merge the JAX universe
+    runs."""
+    batch = _batch(seed, replicas=8)
+    st = batch["states"]
+    pst = _port_state(st)
+    ops, char_buf = insert_heavy_text_ops(np.random.default_rng(seed), pst, 24, 128)
+    kinds = ops[..., K.K_KIND]
+    assert all((kinds == k).any() for k in (K.KIND_INSERT, K.KIND_DELETE, K.KIND_INSERT_RUN))
+    out = K.text_phase_plain(
+        pst.elem_ctr, pst.elem_act, pst.deleted, pst.chars, pst.length, ops,
+        torch.from_numpy(batch["ranks"]), char_buf,
+    )
+    xla = JK.merge_step_fused_batch(
+        st, jnp.asarray(ops.numpy()), jnp.asarray(batch["mark_ops"][:, :0]),
+        jnp.asarray(batch["ranks"]), jnp.asarray(char_buf.numpy()),
+    )
+    for name, b in zip(("elem_ctr", "elem_act", "deleted", "chars"), out[:4]):
+        assert (b.numpy() == _np(getattr(xla, name))).all(), f"{name} diverged from XLA"
+    assert (out[5].numpy() == _np(xla.length)).all()
+    assert (out[5] > pst.elem_ctr.shape[1]).any()  # some replica grew past C

@@ -83,6 +83,23 @@ def test_universe_matches_tpu_universe_scan_path(monkeypatch, seed, capacity):
     assert len(set(port.digests().tolist())) == 1
 
 
+def test_universe_matches_tpu_universe_across_16384_growth(monkeypatch):
+    """An 8300-char genesis re-buckets both universes from C = 8192 to
+    16384 (the size the port's kernels now hold); two concurrent writers'
+    rounds then merge across the two replicas."""
+    monkeypatch.setenv("PERITEXT_MERGE_PATH", "scan")
+    wl = make_writer_rounds(doc_len=8300, ops_per_round=16, num_writers=2, rounds=1, seed=7)
+    (w0, w1), = wl["rounds"]
+    tpu = TpuUniverse(["a", "b"], capacity=8192, max_mark_ops=32)
+    port = TorchUniverse(["a", "b"], capacity=8192, max_mark_ops=32, device="cpu")
+    _ingest_both(tpu, port, [[wl["genesis"]]] * 2)
+    assert port.capacity == 16384 and port.stats["capacity_growths"] == 1
+    assert max(port.lengths) > 8192
+    _ingest_both(tpu, port, [w0, w1])
+    _ingest_both(tpu, port, [w1, w0])
+    assert len(set(port.digests().tolist())) == 1
+
+
 def test_universe_without_a_device_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
