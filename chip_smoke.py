@@ -26,7 +26,24 @@ Phases, in order; any failure exits non-zero:
 5. The main path past 8192 characters: 64 replicas start at C = 8192,
    ingest an 8300-char genesis (growing to C = 16384), 2 chained rounds of
    2 writers and the all-to-all merge, with the checks of phase 4.
-6. Print the kernels' JSON summary (launches summed over phases 4 and 5;
+6. The patch path (``apply_changes_with_patches``, the exact per-op loop in
+   plain torch on the card) at phase 4's width: 1024 replicas load the
+   genesis and rounds 1-4 through the kernels, then ingest rounds 5-8 with
+   patches.  Four oracle observers, one per writer class, ingest the same
+   changes in the gate's order; every replica's stream must equal its
+   class's, patch for patch, and the accumulated stream its spans.  Then
+   64 replicas (a depth cut) take the all-to-all through patches, checked
+   the same way, and 8 replicas take round 5 with a span cap of 1, which
+   must overflow into the planes readback with the same stream.  Prints
+   the median ms per patched call (device loop, record readback, host
+   assembly) beside phase 4's ``apply_changes`` on the same rounds.
+7. ``TorchDoc`` on the card: three TorchDocs and an oracle Doc make 200
+   random edits with marks on a 1000-char genesis, syncing every 10; each
+   change and applied change must return the patches of an oracle twin,
+   and the docs converge.  Prints the median and p95 ms of ``change()``
+   and ``apply_change()``.  Neither phase may call a kernel's plain
+   version or launch a merge kernel.
+8. Print the kernels' JSON summary (launches summed over phases 4 and 5;
    ``ms`` per wrapper call between CUDA events, ``device_ms`` the kernel
    alone with a cold L2, both at phase 2), the card, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -36,6 +53,8 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
+import statistics
 import subprocess
 import sys
 import time
@@ -43,11 +62,12 @@ import time
 import numpy as np
 import torch
 
-from peritext_tpu_torch import TorchUniverse
+from peritext_tpu_torch import TorchDoc, TorchUniverse
 from peritext_tpu_torch.bench.bounds import bound, nbytes, text_phase_bytes
 from peritext_tpu_torch.bench.timing import call_ms, device_ms
 from peritext_tpu_torch.bench.workloads import (
     build_device_batch,
+    doc_session,
     insert_heavy_text_ops,
     make_merge_workload,
     make_writer_rounds,
@@ -56,7 +76,8 @@ from peritext_tpu_torch.bench.workloads import (
 from peritext_tpu_torch.ops import _build, cuda_kernels
 from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops.state import FIELDS
-from peritext_tpu_torch.oracle import Doc
+from peritext_tpu_torch.oracle import Doc, accumulate_patches
+from peritext_tpu_torch.runtime.sync import causal_order
 
 DOC_LEN = 1000
 OPS_PER_ROUND = 64
@@ -283,7 +304,245 @@ def phase_main_path(label: str, replicas: int, doc_len: int, writers: int, round
         f"state bytes on device={state_bytes} text chars={len(expect_text)} "
         f"spans={len(expect_spans)} digest={int(digests[0])}")
     return {"launches": launches, "capacity": uni.capacity, "max_length": max(uni.lengths),
-            "growths": uni.stats["capacity_growths"]}
+            "growths": uni.stats["capacity_growths"], "round_seconds": times}
+
+
+PLAIN_CALLS = {"text_phase_plain": 0, "mark_phase_plain": 0}
+
+
+def count_plain_calls() -> None:
+    """Count every call of the kernels' plain versions from here on (the
+    wrappers and this script reach them through the module attribute)."""
+    for name in PLAIN_CALLS:
+        fn = getattr(K, name)
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            PLAIN_CALLS[_name] += 1
+            return _fn(*args, **kwargs)
+
+        setattr(K, name, counted)
+
+
+def no_kernel_or_plain_calls(label: str) -> None:
+    """The patch path and TorchDoc run neither merge kernel nor either
+    kernel's plain version: the counts must still be 0."""
+    if any(cuda_kernels.LAUNCHES.values()) or any(PLAIN_CALLS.values()):
+        raise AssertionError(f"[{label}] launches {cuda_kernels.LAUNCHES}, plain calls {PLAIN_CALLS}")
+
+
+def reset_counts() -> None:
+    cuda_kernels.reset_launch_counts()
+    for name in PLAIN_CALLS:
+        PLAIN_CALLS[name] = 0
+
+
+def median_p95(xs) -> str:
+    xs = sorted(xs)
+    return f"median {statistics.median(xs):.4f} p95 {xs[min(len(xs) - 1, int(0.95 * len(xs)))]:.4f}"
+
+
+def observer_streams(wl: dict, writers: int, cut: int):
+    """One oracle observer per writer class ingests the genesis and every
+    round in the gate's order.  Returns the observers, each class's stream
+    of the genesis and rounds before ``cut`` (loaded without patches) and
+    its stream per round from ``cut`` on."""
+    observers = [Doc(f"observer{w}") for w in range(writers)]
+    prefix = [list(o.apply_change(wl["genesis"])) for o in observers]
+    per_round = [[] for _ in range(writers)]
+    for k, rnd in enumerate(wl["rounds"]):
+        for w, obs in enumerate(observers):
+            patches = [p for c in causal_order(rnd[w], dict(obs.clock)) for p in obs.apply_change(c)]
+            if k < cut:
+                prefix[w] += patches
+            else:
+                per_round[w].append(patches)
+    return observers, prefix, per_round
+
+
+def load_universe(names, wl, rounds, writers, capacity, max_marks) -> TorchUniverse:
+    """A universe that took the genesis and the first ``rounds`` rounds
+    through ``apply_changes`` (the kernels); their launches must equal the
+    merges."""
+    uni = TorchUniverse(names, capacity=capacity, max_mark_ops=max_marks, device=DEVICE)
+    reset_counts()
+    uni.apply_changes([[wl["genesis"]]] * len(names))
+    for rnd in wl["rounds"][:rounds]:
+        uni.apply_changes([rnd[r % writers] for r in range(len(names))])
+    merges = uni.stats["launches"]
+    if any(n != merges for n in cuda_kernels.LAUNCHES.values()):
+        raise AssertionError(f"launch counts {cuda_kernels.LAUNCHES} != merges {merges}")
+    return uni
+
+
+def check_streams(label: str, uni: TorchUniverse, out: dict, expect, writers: int) -> None:
+    bad = [r for r, name in enumerate(uni.replica_ids) if out[name] != expect[r % writers]]
+    if bad:
+        r = bad[0]
+        got, want = out[uni.replica_ids[r]], expect[r % writers]
+        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+        raise AssertionError(f"[{label}] {len(bad)} replicas' patch streams differ from their observer's; "
+                             f"replica {r}: {len(got)} vs {len(want)} patches, first difference at {first}")
+
+
+def profile_patched_call(label: str, names, wl: dict, cut: int, ms: dict) -> None:
+    """Round ``cut + 1`` once more on a fresh universe, under torch.profiler:
+    the device-side events of the patched call (kernels, and copies apart),
+    against the unprofiled calls' median loop and total, and the kernels
+    that take most of the time.  CPU-side operator rows are left out: they
+    repeat the device time of the kernels they launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    uni = load_universe(names, wl, cut, WRITERS, 2048, 1024)
+    batch = [wl["rounds"][cut][r % WRITERS] for r in range(len(names))]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        uni.apply_changes_with_patches(batch)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in device if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in device if e not in copies]
+    if not kernels:
+        log(f"  [{label}] profiler: no device time recorded; device busy share not measured")
+        return
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    copy_ms = sum(e.self_device_time_total for e in copies) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    log(f"  [{label}] profiler, one patched call at R={len(names)}: {sum(e.count for e in kernels)} "
+        f"kernel launches, {kernel_ms:.4f} ms kernel time (busy {100 * kernel_ms / ms['patch_loop_seconds']:.1f}% "
+        f"of the unprofiled loop's median {ms['patch_loop_seconds']:.4f} ms); {sum(e.count for e in copies)} "
+        f"copies, {copy_ms:.4f} ms; kernels and copies {100 * (kernel_ms + copy_ms) / ms['total']:.1f}% of "
+        f"the call's median {ms['total']:.4f} ms; top kernels: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3:.4f} ms x{e.count}" for e in top))
+
+
+def phase_patch_path(replicas: int, a2a_replicas: int, main_round_seconds, samples: int) -> dict:
+    label = "phase 6"
+    t0 = time.perf_counter()
+    wl = make_writer_rounds(DOC_LEN, OPS_PER_ROUND, WRITERS, ROUNDS, True, seed=1)
+    cut = ROUNDS // 2
+    observers, prefix, per_round = observer_streams(wl, WRITERS, cut)
+    log(f"{label}: workload + {WRITERS} oracle observers built in {time.perf_counter() - t0:.2f} s (host)")
+
+    names = [f"replica{i}" for i in range(replicas)]
+    uni = load_universe(names, wl, cut, WRITERS, 2048, 1024)
+    merges = uni.stats["launches"]
+    reset_counts()
+    streams = {r: [] for r in range(0, replicas, max(1, replicas // samples))}
+    calls = []
+    for k in range(cut, ROUNDS):
+        before = {key: uni.stats[key] for key in ("patch_loop_seconds", "patch_readback_seconds",
+                                                   "patch_assemble_seconds")}
+        t = time.perf_counter()
+        out = uni.apply_changes_with_patches([wl["rounds"][k][r % WRITERS] for r in range(replicas)])
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+        check_streams(label, uni, out, [per_round[w][k - cut] for w in range(WRITERS)], WRITERS)
+        for r in streams:
+            streams[r] += out[names[r]]
+        calls.append({"total": total, **{key: uni.stats[key] - v for key, v in before.items()}})
+    no_kernel_or_plain_calls(label)
+    for r, stream in streams.items():
+        spans = uni.spans(r)
+        if spans != observers[r % WRITERS].get_text_with_formatting(["text"]):
+            raise AssertionError(f"[{label}] replica {r}'s spans differ from its observer's")
+        if accumulate_patches(prefix[r % WRITERS] + stream) != spans:
+            raise AssertionError(f"[{label}] replica {r}'s accumulated stream differs from its spans")
+    n_patches = sum(len(per_round[w][k]) for w in range(WRITERS) for k in range(ROUNDS - cut))
+    ms = {key: 1e3 * statistics.median(c[key] for c in calls) for key in calls[0]}
+    merge_ms = 1e3 * statistics.median(main_round_seconds[1 + cut : 1 + ROUNDS])
+    log(f"  R={replicas} C={uni.capacity} M={uni.max_mark_ops}: rounds {cut + 1}-{ROUNDS} through "
+        f"patches, {OPS_PER_ROUND} ops per replica per call; every replica's stream equals its "
+        f"observer's ({n_patches} patches over the 4 classes); patch-path launches "
+        f"{uni.stats['launches'] - merges} after {merges} merges, "
+        f"rows padded {uni.stats['rows_padded']}, readback overflows {uni.stats['readback_overflows']}")
+    log(f"  patched call, median of {len(calls)}: {ms['total']:.4f} ms (device loop, synchronized, "
+        f"{ms['patch_loop_seconds']:.4f}; record readback {ms['patch_readback_seconds']:.4f}; "
+        f"host assembly {ms['patch_assemble_seconds']:.4f}); apply_changes on the same rounds "
+        f"(phase 4) {merge_ms:.4f} ms")
+    log("  per call ms (total, loop, readback, assembly): " + "; ".join(
+        f"{1e3 * c['total']:.4f}, {1e3 * c['patch_loop_seconds']:.4f}, "
+        f"{1e3 * c['patch_readback_seconds']:.4f}, {1e3 * c['patch_assemble_seconds']:.4f}" for c in calls))
+    del uni
+    torch.cuda.empty_cache()
+    profile_patched_call(label, names, wl, cut, ms)
+
+    # The all-to-all through patches, cut to a2a_replicas replicas.
+    a2a_names = names[:a2a_replicas]
+    uni = load_universe(a2a_names, wl, ROUNDS, WRITERS, 2048, 1024)
+    history = [[c for rnd in wl["rounds"] for c in rnd[w]] for w in range(WRITERS)]
+    batch = [[c for w in range(WRITERS) if w != r % WRITERS for c in history[w]]
+             for r in range(a2a_replicas)]
+    expect = [[p for c in causal_order(batch[w], dict(obs.clock)) for p in obs.apply_change(c)]
+              for w, obs in enumerate(observers)]
+    reset_counts()
+    t = time.perf_counter()
+    out = uni.apply_changes_with_patches(batch)
+    torch.cuda.synchronize()
+    a2a_s = time.perf_counter() - t
+    no_kernel_or_plain_calls(label)
+    check_streams(label, uni, out, expect, WRITERS)
+    for r in range(min(WRITERS, a2a_replicas)):
+        full = prefix[r] + [p for rnd in per_round[r] for p in rnd] + out[a2a_names[r]]
+        if accumulate_patches(full) != uni.spans(r):
+            raise AssertionError(f"[{label}] all-to-all replica {r}'s accumulated stream differs from its spans")
+    if len(set(uni.digests().tolist())) != 1:
+        raise AssertionError(f"[{label}] all-to-all replicas disagree")
+    rows = max(sum(len(c["ops"]) for c in b) for b in batch)
+    passes = 1 + uni.stats["readback_overflows"]
+    log(f"  all-to-all through patches on {a2a_replicas} of the {replicas} replicas (depth cut: each "
+        f"replica takes up to {rows} ops, one loop step per op row): "
+        f"{1e3 * a2a_s:.4f} ms, device loop {1e3 * uni.stats['patch_loop_seconds']:.4f} "
+        f"({1e3 * uni.stats['patch_loop_seconds'] / (rows * passes):.4f} per row over {passes} "
+        f"pass(es)), readback "
+        f"{1e3 * uni.stats['patch_readback_seconds']:.4f}, assembly "
+        f"{1e3 * uni.stats['patch_assemble_seconds']:.4f}; {sum(map(len, expect))} patches over the "
+        f"4 classes equal the observers'; readback overflows {uni.stats['readback_overflows']}; "
+        f"one digest")
+    del uni
+
+    # One small batch with a span cap of 1: it must overflow into planes.
+    os.environ["PERITEXT_PATCH_SPAN_CAP"] = "1"
+    try:
+        small = load_universe(names[:8], wl, cut, WRITERS, 2048, 1024)
+        reset_counts()
+        out = small.apply_changes_with_patches([wl["rounds"][cut][r % WRITERS] for r in range(8)])
+    finally:
+        del os.environ["PERITEXT_PATCH_SPAN_CAP"]
+    no_kernel_or_plain_calls(label)
+    if small.stats["readback_overflows"] < 1:
+        raise AssertionError(f"[{label}] a span cap of 1 did not overflow")
+    check_streams(label, small, out, [per_round[w][0] for w in range(WRITERS)], WRITERS)
+    log(f"  span cap 1 on 8 replicas, round {cut + 1}: {small.stats['readback_overflows']} overflow, "
+        f"planes readback, the same streams; cap grew to {small._span_cap}")
+    return {"patched_ms": ms, "merge_ms": merge_ms, "a2a_ms": 1e3 * a2a_s}
+
+
+def phase_doc(edits: int, sync_every: int) -> dict:
+    label = "phase 7"
+    genesis = make_writer_rounds(DOC_LEN, 1, 1, 0, False, seed=3)["genesis"]
+    docs = [TorchDoc(f"torch{i}", capacity=2048, max_mark_ops=256, device=DEVICE) for i in range(3)]
+    docs.append(Doc("oracle"))
+    reset_counts()
+    t = time.perf_counter()
+    out = doc_session(docs, genesis, edits=edits, sync_every=sync_every, seed=7)
+    total = time.perf_counter() - t
+    no_kernel_or_plain_calls(label)
+    for d in docs[:3]:
+        if d._uni.states.elem_ctr.device.type != torch.device(DEVICE).type:
+            raise AssertionError(f"[{label}] {d.actor_id} is not on the card")
+    if not any(span["marks"] for span in out["spans"]):
+        raise AssertionError(f"[{label}] the session ended with no marks: the check proves nothing")
+    n_torch_changes = len(out["change_ms"])
+    log(f"{label}: 3 TorchDocs + 1 oracle Doc, {edits} edits from a {DOC_LEN}-char genesis, sync every "
+        f"{sync_every}: every change and applied change equals its oracle twin's; converged at "
+        f"{sum(len(s['text']) for s in out['spans'])} chars, {len(out['spans'])} spans; {total:.2f} s")
+    log(f"  change() ms over {n_torch_changes} calls (all four docs): {median_p95(out['change_ms'])}; "
+        f"apply_change() ms over {len(out['apply_ms'])} calls: {median_p95(out['apply_ms'])}")
+    torch_change = [ms for ms, who in zip(out["change_ms"], out["change_by"]) if who < 3]
+    torch_apply = [ms for ms, who in zip(out["apply_ms"], out["apply_by"]) if who < 3]
+    log(f"  TorchDoc only: change() {median_p95(torch_change)} over {len(torch_change)}; "
+        f"apply_change() {median_p95(torch_apply)} over {len(torch_apply)}")
+    return out
 
 
 def main() -> int:
@@ -311,6 +570,9 @@ def main() -> int:
     if past["capacity"] != LARGE_CAPACITY or past["growths"] < 1 or past["max_length"] <= 8192:
         raise AssertionError(f"phase 5 did not grow past 8192 elements: {past}")
     launches = {name: main["launches"][name] + past["launches"][name] for name in results}
+    count_plain_calls()
+    phase_patch_path(REPLICAS, 64, main["round_seconds"], samples=8)
+    phase_doc(edits=200, sync_every=10)
 
     replaces = {
         "text_phase": "peritext_tpu/ops/pallas_kernels.py:152",

@@ -3,14 +3,17 @@
 ``make_merge_workload`` and its op generators are copies of the JAX
 package's (``peritext_tpu/bench/workloads.py`` and ``peritext_tpu/fuzz.py``):
 the same seed gives the same changes.  ``make_writer_rounds`` extends the
-same generator to chained rounds, and ``build_device_batch`` encodes a
-workload into the stacked device batch the merge kernels take.
+same generator to chained rounds, ``build_device_batch`` encodes a
+workload into the stacked device batch the merge kernels take, and
+``doc_session`` drives live document replicas through random edits, each
+held against an oracle twin.
 """
 from __future__ import annotations
 
 import math
 import random
-from typing import Any, Dict, List, Optional
+import time
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,7 +30,7 @@ from peritext_tpu_torch.ops.encode import (
     split_rows,
 )
 from peritext_tpu_torch.ops.state import make_empty_state, map_state
-from peritext_tpu_torch.oracle import Doc
+from peritext_tpu_torch.oracle import Doc, accumulate_patches
 
 MARK_TYPES = ["strong", "em", "link", "comment"]
 EXAMPLE_URLS = [f"{c}.com" for c in "ABCDEFGHIJKLMNOPQRSTUVWXYZ"]
@@ -170,6 +173,92 @@ def make_writer_rounds(
         for _ in range(rounds)
     ]
     return {"genesis": genesis, "rounds": per_round}
+
+
+def doc_session(
+    docs: Sequence[Any],
+    genesis: Dict[str, Any],
+    edits: int,
+    sync_every: int,
+    seed: int,
+    max_chars: int = 4,
+) -> Dict[str, Any]:
+    """Drive document replicas (``TorchDoc``, oracle ``Doc`` or any peer)
+    through ``edits`` random single-op changes with marks, each by a random
+    replica, syncing every replica to the full change log every
+    ``sync_every`` edits and at the end.
+
+    Each replica has an oracle twin with its actor id that sees the same
+    operations: every ``change()`` must return the twin's change and
+    patches, and every ``apply_change()`` the twin's patches.  At the end
+    each replica's accumulated patch stream must equal its spans, and all
+    replicas must agree.  Raises AssertionError on the first difference.
+    Returns the wall milliseconds of each ``change()`` and
+    ``apply_change()`` call (``change_ms``, ``apply_ms``), the index of the
+    replica that made each (``change_by``, ``apply_by``) and the final
+    spans."""
+    rng = random.Random(seed)
+    twins = [Doc(d.actor_id) for d in docs]
+    streams: List[List[Dict[str, Any]]] = []
+    for d, twin in zip(docs, twins):
+        got = d.apply_change(genesis)
+        if got != twin.apply_change(genesis):
+            raise AssertionError(f"{d.actor_id}: genesis patches differ from the oracle's")
+        streams.append(list(got))
+    log = [genesis]
+    change_ms: List[float] = []
+    apply_ms: List[float] = []
+    change_by: List[int] = []
+    apply_by: List[int] = []
+
+    def sync() -> None:
+        for i, (d, twin) in enumerate(zip(docs, twins)):
+            for c in log:
+                if c["seq"] <= d.clock.get(c["actor"], 0):
+                    continue
+                t = time.perf_counter()
+                got = d.apply_change(c)
+                apply_ms.append(1e3 * (time.perf_counter() - t))
+                apply_by.append(i)
+                if got != twin.apply_change(c):
+                    raise AssertionError(
+                        f"{d.actor_id}: apply_change of {c['actor']}#{c['seq']} differs from the oracle's"
+                    )
+                streams[i] += got
+
+    made = 0
+    while made < edits:
+        i = rng.randrange(len(docs))
+        d = docs[i]
+        kind = rng.choice(["insert", "delete", "mark"]) if _text_len(d) > 1 else "insert"
+        if kind == "insert":
+            op = _random_insert(rng, d, max_chars)
+        elif kind == "delete":
+            op = _random_delete(rng, d)
+        else:
+            op = _random_add_mark(rng, d, [])
+        if op is None or (op["action"] == "insert" and not op["values"]):
+            continue
+        t = time.perf_counter()
+        change, patches = d.change([op])
+        change_ms.append(1e3 * (time.perf_counter() - t))
+        change_by.append(i)
+        if (change, patches) != twins[i].change([op]):
+            raise AssertionError(f"{d.actor_id}: change {op['action']} differs from the oracle's")
+        streams[i] += patches
+        log.append(change)
+        made += 1
+        if made % sync_every == 0:
+            sync()
+    sync()
+    spans = [d.get_text_with_formatting(["text"]) for d in docs]
+    for d, stream, sp in zip(docs, streams, spans):
+        if accumulate_patches(stream) != sp:
+            raise AssertionError(f"{d.actor_id}: accumulated patches differ from its spans")
+    if any(sp != spans[0] for sp in spans):
+        raise AssertionError("the replicas did not converge")
+    return {"change_ms": change_ms, "apply_ms": apply_ms, "change_by": change_by,
+            "apply_by": apply_by, "spans": spans[0], "changes": len(log)}
 
 
 def build_device_batch(

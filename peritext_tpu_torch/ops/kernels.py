@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from peritext_tpu_torch.ops.state import MASK_WORD_BITS, DocState, map_state
@@ -79,6 +80,33 @@ def _roll_rows(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, src)
 
 
+def _rga_insert_position(
+    elem_ctr: torch.Tensor,  # [R, C] int32
+    elem_act: torch.Tensor,
+    length: torch.Tensor,  # [R] int32
+    op: torch.Tensor,  # [R, OP_FIELDS] int32
+    ranks: torch.Tensor,
+) -> torch.Tensor:
+    """RGA insert position per replica (``kernels._rga_insert_position``,
+    reference micromerge.ts:614-635): after the reference element (HEAD
+    when the reference is 0@0), past the contiguous run of elements whose
+    (ctr, actor rank) exceeds the op's.  Returns t [R] int32; t == C means
+    the element falls off the end.  An absent reference counts as element 0
+    (the ``argmax``-over-all-False rule)."""
+    r, c = elem_ctr.shape
+    ar = torch.arange(c, dtype=torch.int32, device=elem_ctr.device)[None, :]
+    live = ar < length[:, None]
+    is_head = (op[:, K_REF_CTR] == 0) & (op[:, K_REF_ACT] == 0)
+    match = live & (elem_ctr == op[:, K_REF_CTR, None]) & (elem_act == op[:, K_REF_ACT, None])
+    idx = torch.where(is_head, -1, _first_match(match))
+    ctr = op[:, K_CTR, None]
+    op_rank = _gather_clamped(ranks, op[:, K_ACT])[:, None]
+    elem_rank = _gather_clamped(ranks, elem_act.reshape(-1)).reshape(r, c)
+    gt = (elem_ctr > ctr) | ((elem_ctr == ctr) & (elem_rank > op_rank))
+    stop = (ar > idx[:, None]) & ~(live & gt)
+    return torch.where(stop, ar, c).amin(dim=1).to(torch.int32)
+
+
 def text_phase_plain(
     elem_ctr: torch.Tensor,  # [R, C] int32
     elem_act: torch.Tensor,  # [R, C] int32
@@ -118,16 +146,8 @@ def text_phase_plain(
         if not bool(any_ins.any()):
             continue
 
-        # RGA position (kernels._rga_insert_position): after the reference
-        # element, past the contiguous run of elements with a greater id.
-        is_head = (op[:, K_REF_CTR] == 0) & (op[:, K_REF_ACT] == 0)
-        idx = torch.where(is_head, -1, _first_match(match))
         ctr = op[:, K_CTR, None]
-        op_rank = _gather_clamped(ranks, op[:, K_ACT])[:, None]
-        elem_rank = _gather_clamped(ranks, ea.reshape(-1)).reshape(r, c)
-        gt = (ec > ctr) | ((ec == ctr) & (elem_rank > op_rank))
-        stop = (ar > idx[:, None]) & ~(live & gt)
-        t = torch.where(stop, ar, c).amin(dim=1, keepdim=True)
+        t = _rga_insert_position(ec, ea, ln, op, ranks)[:, None]
         k = torch.where(is_run, op[:, K_RUN_LEN], 1).to(torch.int32)
         keep = ar < t
         block = (ar >= t) & (ar < t + k[:, None])
@@ -317,6 +337,554 @@ def merge_step_plain(
         bnd_def=bnd_def, bnd_mask=bnd_mask,
     )
     return append_mark_table(out, mark_ops)
+
+
+# ---------------------------------------------------------------------------
+# The exact per-op path with patch records (kernels.apply_op /
+# apply_ops_patched).  No TPU kernel lies on it: the JAX package runs it as
+# an XLA ``lax.scan``, and here it is plain torch on whatever device the
+# states are on.  It never calls the two kernels' plain versions.
+# ---------------------------------------------------------------------------
+
+_NEG = -(2**31) + 1
+# Elements of the [R, D, M'] winner temporaries held at once.
+_WINNER_CHUNK_ELEMS = 1 << 24
+
+
+def _find_elem(elem_ctr, elem_act, length, ctr, act):
+    """Position of the element created by op (ctr@act) per replica and
+    whether it is live (``kernels._find_elem``); position 0 when absent."""
+    ar = torch.arange(elem_ctr.shape[1], device=elem_ctr.device)[None, :]
+    match = (ar < length[:, None]) & (elem_ctr == ctr[:, None]) & (elem_act == act[:, None])
+    return _first_match(match), match.any(dim=1)
+
+
+@dataclasses.dataclass
+class _Walk:
+    """The working state of a per-op loop over [R, ...] replicas (the JAX
+    scan's carry).  Element planes and ``bdef`` are positional and splice
+    on every insert as in JAX.  The [R, 2C, W] mask plane does not move:
+    ``phys`` maps each position to its element's row pair in ``mask``, a
+    working copy with ``spare`` zero pairs appended for the elements this
+    loop inserts, so an insert shifts [R, C] indices, not the plane.
+    ``mask``, ``bdef`` and the table columns are private copies, updated in
+    place; ``_finish_walk`` gathers the plane back into positional order."""
+
+    ec: torch.Tensor
+    ea: torch.Tensor
+    dl: torch.Tensor
+    ch: torch.Tensor
+    bdef: torch.Tensor  # [R, 2C] bool
+    phys: torch.Tensor  # [R, C] int64 row-pair index of each position
+    mask: torch.Tensor  # [R, 2 * (C + spare), W] int32
+    next_phys: torch.Tensor  # [R] int64
+    length: torch.Tensor
+    mark_count: torch.Tensor
+    table: dict
+    moved: bool = False
+
+
+def _begin_walk(states: DocState, spare: int) -> _Walk:
+    r, c = states.elem_ctr.shape
+    dev = states.elem_ctr.device
+    pad = states.bnd_mask.new_zeros(r, 2 * spare, states.bnd_mask.shape[-1])
+    return _Walk(
+        ec=states.elem_ctr, ea=states.elem_act, dl=states.deleted, ch=states.chars,
+        bdef=states.bnd_def.clone(),
+        phys=torch.arange(c, device=dev).expand(r, c).clone(),
+        mask=torch.cat([states.bnd_mask, pad], dim=1),
+        next_phys=torch.full((r,), c, dtype=torch.int64, device=dev),
+        length=states.length, mark_count=states.mark_count,
+        table={name: getattr(states, name).clone() for name, _ in _TABLE_FIELDS},
+    )
+
+
+def _finish_walk(w: _Walk) -> DocState:
+    r, two_c = w.bdef.shape
+    if w.moved:
+        slots = torch.arange(two_c, device=w.bdef.device).expand(r, two_c)
+        idx = _mask_rows(w, slots)[:, :, None].expand(r, two_c, w.mask.shape[-1])
+        mask = torch.gather(w.mask, 1, idx)
+    else:
+        mask = w.mask[:, :two_c].contiguous()
+    return DocState(
+        elem_ctr=w.ec, elem_act=w.ea, deleted=w.dl, chars=w.ch,
+        bnd_def=w.bdef, bnd_mask=mask, length=w.length, mark_count=w.mark_count,
+        **w.table,
+    )
+
+
+def _mask_rows(w: _Walk, slots: torch.Tensor) -> torch.Tensor:
+    """Rows of ``w.mask`` holding the boundary slots ``slots`` [R, K]."""
+    slots = slots.long()
+    return 2 * torch.gather(w.phys, 1, slots // 2) + slots % 2
+
+
+def _defined(w: _Walk) -> torch.Tensor:
+    two_c = w.bdef.shape[1]
+    slots = torch.arange(two_c, dtype=torch.int32, device=w.bdef.device)[None, :]
+    return w.bdef & (slots < 2 * w.length[:, None])
+
+
+def _carry_rows(w: _Walk, defined: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The nearest defined set at or left of slot ``p`` [R] per replica (the
+    mark walk's carried ``currentOps``), zero where there is none."""
+    r, two_c = defined.shape
+    slots = torch.arange(two_c, dtype=torch.int32, device=defined.device)[None, :]
+    src = torch.where(defined & (slots <= p[:, None]), slots, -1).amax(dim=1)
+    rows = torch.arange(r, device=defined.device)
+    row = w.mask[rows, _mask_rows(w, src.clamp(min=0)[:, None])[:, 0]]
+    return torch.where((src >= 0)[:, None], row, 0)
+
+
+def _splice(x, keep, here, value, sel):
+    """Insert ``value`` at each row's position (``keep`` before it, ``here``
+    at it), shifting the rest right by one, in the rows ``sel`` [R, 1]."""
+    out = torch.where(keep, x, torch.where(here, value, torch.roll(x, 1, dims=1)))
+    return torch.where(sel, out, x).to(x.dtype)
+
+
+def _apply_insert(w: _Walk, op: torch.Tensor, t: torch.Tensor, sel: torch.Tensor) -> None:
+    """RGA insert at position t (``kernels._apply_insert``, reference
+    micromerge.ts:614-672) in the replicas ``sel``.  The two new boundary
+    slots are undefined; the mask plane is not moved."""
+    c = w.ec.shape[1]
+    dev = w.ec.device
+    ar = torch.arange(c, device=dev)[None, :]
+    keep = ar < t[:, None]
+    here = ar == t[:, None]
+    s = sel[:, None]
+    w.ec = _splice(w.ec, keep, here, op[:, K_CTR, None], s)
+    w.ea = _splice(w.ea, keep, here, op[:, K_ACT, None], s)
+    w.dl = _splice(w.dl, keep, here, False, s)
+    w.ch = _splice(w.ch, keep, here, op[:, K_PAYLOAD, None], s)
+    w.phys = _splice(w.phys, keep, here, w.next_phys[:, None], s)
+    slots = torch.arange(2 * c, device=dev)[None, :]
+    moved = s & (slots >= 2 * t[:, None])
+    w.bdef = torch.where(
+        moved, (slots // 2 != t[:, None]) & torch.roll(w.bdef, 2, dims=1), w.bdef
+    )
+    w.next_phys = w.next_phys + sel
+    w.length = (w.length + sel).to(torch.int32)
+    w.moved = True
+
+
+def _apply_delete(w: _Walk, op: torch.Tensor, sel: torch.Tensor) -> None:
+    """Tombstone every live element matching the target (``kernels.
+    _apply_delete``; re-deleting is a no-op, micromerge.ts:689)."""
+    ar = torch.arange(w.ec.shape[1], device=w.ec.device)[None, :]
+    match = (ar < w.length[:, None]) & (w.ec == op[:, K_REF_CTR, None]) & (w.ea == op[:, K_REF_ACT, None])
+    w.dl = w.dl | (match & sel[:, None])
+
+
+def _mark_slot_context(w: _Walk, op: torch.Tensor):
+    """``(s_slot, e_slot, defined)`` of a mark op (``kernels.
+    _mark_slot_context``): anchors resolve to their first live match (slot 0
+    when absent); endOfText, and an end on the start's slot, become the
+    sentinel 2C + 2 (the walk's start branch fires first, peritext.ts:236-241)."""
+    c = w.ec.shape[1]
+    ar = torch.arange(c, device=w.ec.device)[None, :]
+    live = ar < w.length[:, None]
+    s_match = live & (w.ec == op[:, K_SCTR, None]) & (w.ea == op[:, K_SACT, None])
+    e_match = live & (w.ec == op[:, K_ECTR, None]) & (w.ea == op[:, K_EACT, None])
+    s_slot = 2 * _first_match(s_match) + op[:, K_SKIND]
+    e_slot = torch.where(
+        op[:, K_EKIND] == 2, 2 * c + 2, 2 * _first_match(e_match) + op[:, K_EKIND].clamp(max=1)
+    )
+    e_slot = torch.where(e_slot == s_slot, 2 * c + 2, e_slot).to(torch.int32)
+    return s_slot.to(torch.int32), e_slot, _defined(w)
+
+
+def _apply_mark(w: _Walk, op: torch.Tensor, ctx, sel: torch.Tensor) -> None:
+    """Write a mark op into the boundary sets (``kernels._apply_mark_ctx``,
+    reference peritext.ts:154-223) in the replicas ``sel``: defined slots
+    inside [s, e) OR in the op's bit, slot s takes its pre-op carry | bit,
+    slot e its pre-op carry (unless endOfText), and the op fills table entry
+    mark_count.  A bit or entry past the table drops, as JAX's scatter does."""
+    s_slot, e_slot, defined = ctx
+    r, two_c = defined.shape
+    words = w.mask.shape[-1]
+    dev = defined.device
+    rows = torch.arange(r, device=dev)
+    m = w.mark_count
+    bit = _mask_bit(m)
+    word = (m // MASK_WORD_BITS).long()
+    op_bit_row = torch.where(
+        torch.arange(words, device=dev)[None, :] == word[:, None], bit[:, None], 0
+    )
+    write_s = sel & (s_slot < e_slot) & (s_slot < two_c)
+    e_cl = e_slot.clamp(max=two_c - 1)
+    write_e = sel & (e_slot < two_c)
+    row_s = _carry_rows(w, defined, s_slot) | op_bit_row
+    row_e = _carry_rows(w, defined, e_cl)
+
+    slots = torch.arange(two_c, device=dev)[None, :]
+    col_sel = (
+        (slots >= s_slot[:, None]) & (slots < e_slot[:, None]) & write_s[:, None]
+        & defined & (word < words)[:, None]
+    )
+    flat = w.mask.view(-1)
+    idx = ((rows[:, None] * w.mask.shape[1] + _mask_rows(w, slots.expand(r, two_c))) * words
+           + word.clamp(max=words - 1)[:, None])
+    col = flat[idx]
+    flat[idx] = torch.where(col_sel, col | bit[:, None], col)
+
+    for slot, write, row in ((s_slot.clamp(max=two_c - 1), write_s, row_s), (e_cl, write_e, row_e)):
+        p = _mask_rows(w, slot[:, None])[:, 0]
+        w.mask[rows, p] = torch.where(write[:, None], row, w.mask[rows, p])
+        w.bdef[rows, slot.long()] = w.bdef[rows, slot.long()] | write
+
+    m_cap = w.table["mark_ctr"].shape[1]
+    ok = sel & (m < m_cap)
+    mc = m.clamp(max=m_cap - 1).long()
+    for name, field in _TABLE_FIELDS:
+        col = w.table[name]
+        col[rows, mc] = torch.where(ok, op[:, field], col[rows, mc])
+    w.mark_count = (m + sel).to(torch.int32)
+
+
+def _op_kinds(ops: torch.Tensor) -> torch.Tensor:
+    """Kinds as JAX's ``kernels.apply_op`` dispatches them: clipped to
+    [0, 3], so a fused run row (kind 4) would apply as a mark, as in JAX;
+    the per-op path takes unfused rows only."""
+    return ops[..., K_KIND].clamp(0, 3)
+
+
+def _apply_row(w: _Walk, op, kind, ranks, present, t=None, ctx=None) -> None:
+    """One op row on every replica; ``present`` [4] (host bools) says which
+    kinds occur in the row, so absent kinds cost nothing."""
+    if present[KIND_INSERT]:
+        if t is None:
+            t = _rga_insert_position(w.ec, w.ea, w.length, op, ranks)
+        _apply_insert(w, op, t, kind == KIND_INSERT)
+    if present[KIND_DELETE]:
+        _apply_delete(w, op, kind == KIND_DELETE)
+    if present[KIND_MARK]:
+        _apply_mark(w, op, ctx if ctx is not None else _mark_slot_context(w, op), kind == KIND_MARK)
+
+
+def _rows_present(kinds_np: np.ndarray) -> np.ndarray:
+    """[L, 4] bool: which kinds occur in each op row over all replicas."""
+    return (kinds_np[:, :, None] == np.arange(4)[None, None, :]).any(axis=0)
+
+
+def apply_ops(states: DocState, ops: torch.Tensor, ranks: torch.Tensor) -> DocState:
+    """Apply causally ordered op rows [R, L, OP_FIELDS] in order
+    (``kernels.apply_ops_batch``, a scan of ``kernels.apply_op``)."""
+    kinds = _op_kinds(ops)
+    kinds_np = kinds.cpu().numpy()
+    present = _rows_present(kinds_np)
+    w = _begin_walk(states, int((kinds_np == KIND_INSERT).sum(axis=1).max(initial=0)))
+    for l in range(ops.shape[1]):
+        _apply_row(w, ops[:, l], kinds[:, l], ranks, present[l])
+    return _finish_walk(w)
+
+
+def _walk_signals(ctx, visible: torch.Tensor):
+    """written / during / visibleIndex planes of the reference mark walk
+    (``kernels._walk_signals``, peritext.ts:181-214) and the visible length."""
+    s_slot, e_slot, defined = ctx
+    r, c = visible.shape
+    slots = torch.arange(2 * c, dtype=torch.int32, device=visible.device)[None, :]
+    s, e = s_slot[:, None], e_slot[:, None]
+    during = (slots >= s) & (slots < e) & (s < e)
+    written = (during & ((slots == s) | defined)) | (slots == e)
+    vis, final_vis = _visible_index(visible)
+    return written, during, vis, final_vis
+
+
+def _visible_index(visible: torch.Tensor):
+    """visibleIndex per boundary slot: the before-slot of element i sees the
+    visible elements before i, its after-slot those through i."""
+    v = visible.to(torch.int32)
+    vcum = torch.cumsum(v, dim=1).to(torch.int32)
+    vis = torch.stack([vcum - v, vcum], dim=2).reshape(v.shape[0], -1)
+    final = vcum[:, -1] if v.shape[1] else torch.zeros(v.shape[0], dtype=torch.int32, device=v.device)
+    return vis, final
+
+
+def _changed_vs_winner(op, op_rank, w_ctr, w_rank, w_action, w_attr, has_winner):
+    """``opsToMarks(current) != opsToMarks(new)`` restricted to the op's
+    group (``kernels._changed_vs_winner``, peritext.ts:294-326): the op must
+    win the LWW tie-break and flip the effective value."""
+    ctr = op[:, K_CTR, None]
+    op_wins = ~has_winner | (ctr > w_ctr) | ((ctr == w_ctr) & (op_rank[:, None] > w_rank))
+    old_active = has_winner & (w_action == 0)
+    new_active = (op[:, K_MACTION] == 0)[:, None]
+    value_differs = (old_active != new_active) | (
+        old_active & new_active & (w_attr != op[:, K_MATTR, None])
+    )
+    return op_wins & value_differs
+
+
+def _first_k_set(mask: torch.Tensor, k: int):
+    """Positions of the first ``k`` set entries of each row of ``mask``
+    [R, N], ascending (``kernels._first_k_set``: one cumsum, then binary
+    searches).  Returns ``(idx [R, k] int64 clamped into range, ok [R, k],
+    total [R])``."""
+    r, n = mask.shape
+    cs = torch.cumsum(mask.to(torch.int32), dim=1).to(torch.int32)
+    q = torch.arange(1, k + 1, dtype=torch.int32, device=mask.device).expand(r, k).contiguous()
+    idx = torch.searchsorted(cs, q)
+    return idx.clamp(max=n - 1), q <= cs[:, -1:], cs[:, -1]
+
+
+def _group_winners(w: _Walk, op, defined, ranks, multi, cand: int, mp: int):
+    """Per boundary slot, the pre-op winner of the op's resolution group
+    among the slot's inherited set (``kernels._mark_patch_signals``): returns
+    ``(w_ctr, w_rank, w_action, w_attr, has_winner)`` [R, 2C].
+
+    JAX expands the carried set of every slot into [2C, M] presence bits.
+    Here the winner is found once per defined slot, since every slot
+    inherits the set of the nearest defined slot at or left of it: defined
+    slots number at most ``cand`` (a bound the caller takes from this
+    batch), and only the table's first ``mp`` columns are live."""
+    r, two_c = defined.shape
+    dev = defined.device
+    out = []
+    step = max(1, _WINNER_CHUNK_ELEMS // max(cand * mp, 1))
+    for lo in range(0, r, step):
+        sl = slice(lo, lo + step)
+        n = defined[sl].shape[0]
+        pos, ok, _ = _first_k_set(defined[sl], cand)
+        sub_rows = torch.arange(lo, lo + n, device=dev)[:, None]
+        phys = 2 * torch.gather(w.phys[sl], 1, pos // 2) + pos % 2
+        words = w.mask[sub_rows, phys, : mp // MASK_WORD_BITS]  # [n, cand, W']
+        present = expand_mask_bits(words, mp) & ok[:, :, None]
+        mtype = w.table["mark_type"][sl, :mp]
+        attr = w.table["mark_attr"][sl, :mp]
+        ctr = w.table["mark_ctr"][sl, :mp][:, None, :]
+        action = w.table["mark_action"][sl, :mp][:, None, :]
+        rank = _gather_clamped(ranks, w.table["mark_act"][sl, :mp].reshape(-1)).reshape(n, 1, mp)
+        m_live = torch.arange(mp, device=dev)[None, :] < w.mark_count[sl, None]
+        o = op[sl]
+        is_multi = _gather_clamped(multi, o[:, K_MTYPE]).to(torch.bool)[:, None]
+        group = m_live & (mtype == o[:, K_MTYPE, None]) & (~is_multi | (attr == o[:, K_MATTR, None]))
+        cand_m = present & group[:, None, :]
+        max_ctr = torch.where(cand_m, ctr, _NEG).amax(dim=2)
+        tie = cand_m & (ctr == max_ctr[:, :, None])
+        max_rank = torch.where(tie, rank, _NEG).amax(dim=2)
+        win = tie & (rank == max_rank[:, :, None])
+        has = cand_m.any(dim=2)
+        out.append((
+            torch.where(has, max_ctr, -1),
+            torch.where(has, max_rank, -1),
+            torch.where(win, action, 0).sum(dim=2),
+            torch.where(win, attr[:, None, :], 0).sum(dim=2),
+            has,
+        ))
+    per_def = [torch.cat(parts) for parts in zip(*out)]
+    # Slot p inherits from the (cs[p] - 1)-th defined slot; none when cs[p] == 0.
+    cs = torch.cumsum(defined.to(torch.int32), dim=1)
+    src = (cs - 1).clamp(min=0, max=cand - 1).long()
+    has_src = cs > 0
+    fills = (-1, -1, 0, 0, False)
+    return tuple(
+        torch.where(has_src, torch.gather(x, 1, src), fill) for x, fill in zip(per_def, fills)
+    )
+
+
+def compact_mark_records(written, during, changed, vis, obj_len, span_cap: int):
+    """Run tables of one op row's mark patches (``kernels.
+    compact_mark_records`` with ``cand_def=None``, the instant-coordinate
+    form the per-op scan uses), from [R, 2C] planes.  A patch opens at every
+    written DURING slot whose effective marks change and ends at the next
+    written slot's visibleIndex (or ``obj_len``); the finishPartialPatch
+    filters (peritext.ts:269-281) leave a lane at (0, 0).  Returns
+    ``(run_start [R, span_cap], run_end [R, span_cap], count [R])``;
+    ``count`` is the true open-slot count, so the caller can tell when the
+    cap cut a row."""
+    r, d = written.shape
+    dev = written.device
+    k = min(span_cap, d)
+    sel, lane_ok, count = _first_k_set(written & during & changed, k)
+    start = torch.gather(vis, 1, sel)
+    cs_w = torch.cumsum(written.to(torch.int32), dim=1).to(torch.int32)
+    wk = torch.gather(cs_w, 1, sel)
+    nxt = torch.searchsorted(cs_w, (wk + 1).contiguous())
+    end_raw = torch.where(nxt < d, torch.gather(vis, 1, nxt.clamp(max=d - 1)), obj_len[:, None])
+    ok = lane_ok & (end_raw > start) & (start < obj_len[:, None])
+    run_start = torch.where(ok, start, 0).to(torch.int32)
+    run_end = torch.where(ok, torch.minimum(end_raw, obj_len[:, None]), 0).to(torch.int32)
+    if span_cap > k:
+        pad = torch.zeros(r, span_cap - k, dtype=torch.int32, device=dev)
+        run_start = torch.cat([run_start, pad], dim=1)
+        run_end = torch.cat([run_end, pad], dim=1)
+    return run_start, run_end, count
+
+
+_COMPACT_FIELDS = ("index", "valid", "ins_mask", "mstart", "mend", "mcount")
+_PLANE_FIELDS = ("written", "during", "changed", "vis")
+
+
+def apply_ops_patched(
+    states: DocState,
+    ops: torch.Tensor,  # [R, L, OP_FIELDS] int32, unfused rows
+    ranks: torch.Tensor,
+    multi: torch.Tensor,
+    readback: str = "planes",
+    span_cap: int = 8,
+):
+    """Apply op rows in order and emit one patch record per row
+    (``kernels.apply_ops_patched_batch``, the faithful incremental path).
+    Returns ``(new_states, records)``.
+
+    With ``readback="compact"`` the records are ``index``, ``valid``,
+    ``ins_mask`` [R, L] / [R, L, W] and the mark run tables ``mstart`` /
+    ``mend`` [R, L, span_cap] with ``mcount`` [R, L], built row by row
+    inside the loop (JAX compacts after its scan; the rows are independent,
+    so the tables are the same), on the states' device.  With ``"planes"``
+    they are JAX's full record: ``kind``, ``index``, ``valid``, ``char``,
+    ``obj_len``, ``ins_mask`` and the [R, L, 2C] planes ``written``,
+    ``during``, ``changed`` and ``vis``, which are copied to host memory row
+    by row as the loop goes, so [R, L, 2C] never lives on the device.
+
+    Mark signals are computed only on rows where some replica has a mark,
+    over the table's live columns only (M' = the batch's largest mark count,
+    rounded up to 32).  Consecutive equal all-pad rows share one record."""
+    if readback not in ("compact", "planes"):
+        raise ValueError(f"readback must be 'compact' or 'planes', got {readback!r}")
+    r, n_ops, _ = ops.shape
+    c = states.capacity
+    dev = ops.device
+    words = states.bnd_mask.shape[-1]
+    kinds = _op_kinds(ops)
+    ops_np = ops.cpu().numpy()
+    kinds_np = np.clip(ops_np[:, :, K_KIND], 0, 3)
+    present = _rows_present(kinds_np)
+    n_marks = int((kinds_np == KIND_MARK).sum(axis=1).max(initial=0))
+    # Defined slots never outnumber the set bnd_def flags, and every mark
+    # op sets at most its two anchor slots: a bound on the winner rows.
+    head = torch.stack([states.bnd_def.sum(dim=1).max(), states.mark_count.max().long()])
+    max_flags, max_count = (int(x) for x in head.cpu()) if r else (0, 0)
+    cand = max(1, min(2 * c, max_flags + 2 * n_marks))
+    mp = min(states.max_mark_ops, max(MASK_WORD_BITS, -(-(max_count + n_marks) // MASK_WORD_BITS) * MASK_WORD_BITS))
+
+    def zeros(*shape, dtype=torch.int32, device=dev):
+        return torch.zeros((r, n_ops) + shape, dtype=dtype, device=device)
+
+    rec = {"index": zeros(), "valid": zeros(dtype=torch.bool), "ins_mask": zeros(words)}
+    if readback == "compact":
+        rec.update(mstart=zeros(span_cap), mend=zeros(span_cap), mcount=zeros())
+    else:
+        rec.update(kind=kinds.to(torch.int32), char=ops[:, :, K_PAYLOAD].clone(), obj_len=zeros())
+        rec.update({f: zeros(2 * c, dtype=torch.bool, device="cpu") for f in _PLANE_FIELDS[:3]})
+        rec["vis"] = zeros(2 * c, device="cpu")
+
+    w = _begin_walk(states, int((kinds_np == KIND_INSERT).sum(axis=1).max(initial=0)))
+    ar = torch.arange(c, dtype=torch.int32, device=dev)[None, :]
+    rows = torch.arange(r, device=dev)
+    for l in range(n_ops):
+        if (l and not present[l, 1:].any() and not present[l - 1, 1:].any()
+                and (ops_np[:, l] == ops_np[:, l - 1]).all()):
+            for v in rec.values():  # pad rows change nothing: same record
+                v[:, l] = v[:, l - 1]
+            continue
+        op = ops[:, l]
+        kind = kinds[:, l]
+        is_ins, is_del, is_mark = (kind == KIND_INSERT), (kind == KIND_DELETE), (kind == KIND_MARK)
+        visible = (ar < w.length[:, None]) & ~w.dl
+        defined = _defined(w)
+
+        # Insert: visible position, and the marks it inherits from the
+        # nearest defined boundary left of its gap (peritext.ts:328-330).
+        t = _rga_insert_position(w.ec, w.ea, w.length, op, ranks)
+        ins_index = (visible & (ar < t[:, None])).sum(dim=1)
+        rec["ins_mask"][:, l] = _carry_rows(w, defined, 2 * t - 1)
+        # Delete: visible position of the target; valid if not tombstoned.
+        d_idx, d_found = _find_elem(w.ec, w.ea, w.length, op[:, K_REF_CTR], op[:, K_REF_ACT])
+        del_valid = d_found & ~w.dl[rows, d_idx.long()]
+        del_index = (visible & (ar < d_idx[:, None])).sum(dim=1)
+        rec["index"][:, l] = torch.where(is_ins, ins_index, del_index)
+        rec["valid"][:, l] = is_ins | (is_del & del_valid) | is_mark
+
+        ctx = None
+        if present[l, KIND_MARK] or readback == "planes":
+            ctx = _mark_slot_context(w, op)
+            written, during, vis, final_vis = _walk_signals(ctx, visible)
+            if present[l, KIND_MARK]:
+                wins = _group_winners(w, op, defined, ranks, multi, cand, mp)
+                changed = _changed_vs_winner(op, _gather_clamped(ranks, op[:, K_ACT]), *wins)
+                m = is_mark[:, None]
+                written, during, changed = written & m, during & m, changed & m
+            if readback == "compact":
+                ms, me, mc = compact_mark_records(written, during, changed, vis, final_vis, span_cap)
+                rec["mstart"][:, l], rec["mend"][:, l], rec["mcount"][:, l] = ms, me, mc
+            else:
+                rec["obj_len"][:, l] = final_vis
+                rec["vis"][:, l] = vis.cpu()
+                if present[l, KIND_MARK]:
+                    for f, plane in zip(_PLANE_FIELDS, (written, during, changed)):
+                        rec[f][:, l] = plane.cpu()
+        _apply_row(w, op, kind, ranks, present[l], t=t, ctx=ctx)
+    return _finish_walk(w), rec
+
+
+# ---------------------------------------------------------------------------
+# Views: cursors and anchors
+# ---------------------------------------------------------------------------
+
+
+def visible_elem_ids(states: DocState, index: torch.Tensor, peek: bool = False):
+    """Element ids of the ``index``-th visible elements (``kernels.
+    visible_elem_id``, reference getListElementId, micromerge.ts:762-805):
+    ``index`` is [R, K], one row of indices per replica.  Returns ``(ctr,
+    act, found)`` [R, K]; an absent index reads element 0, as JAX's
+    ``argmax`` over all-False does.
+
+    With ``peek``, the anchor moves past the run of tombstones right after
+    the target to the last of them that carries an after-boundary, so new
+    characters land after a non-growing span end (test/micromerge.ts:
+    520-566).  The k-th visible element is found by a binary search of the
+    visible count, and the peek by a running max, so nothing is [R, K, C]."""
+    r, c = states.elem_ctr.shape
+    dev = states.elem_ctr.device
+    ar = torch.arange(c, dtype=torch.int64, device=dev)[None, :]
+    live = ar < states.length[:, None]
+    visible = live & ~states.deleted
+    vcum = torch.cumsum(visible.to(torch.int32), dim=1).to(torch.int32)
+    index = index.to(torch.int32)
+    found = (index >= 0) & (index < vcum[:, -1:])
+    i0 = torch.searchsorted(vcum, (index + 1).contiguous())
+    i0 = torch.where(found, i0, 0)
+    i = i0
+    if peek:
+        # Last tombstone with a defined after-slot at or before each position.
+        cand = live & states.deleted & states.bnd_def[:, 1::2]
+        last = torch.cummax(torch.where(cand, ar, -1), dim=1).values
+        nxt = torch.searchsorted(vcum, (torch.gather(vcum, 1, i0) + 1).contiguous())
+        j = torch.gather(last, 1, (nxt - 1).clamp(min=0))
+        j_peek = torch.where(j > i0, j, -1)
+        i = torch.where(j_peek > 0, j_peek, i0)
+    return torch.gather(states.elem_ctr, 1, i), torch.gather(states.elem_act, 1, i), found
+
+
+def cursor_elems(states: DocState, index: torch.Tensor):
+    """Element id of each replica's ``index`` [R]-th visible element, no
+    peek (``kernels.cursor_elems_batch``; cursors use the plain form,
+    micromerge.ts:465-472).  Returns ``(ctr, act, found)`` [R]."""
+    ctr, act, found = visible_elem_ids(states, index[:, None])
+    return ctr[:, 0], act[:, 0], found[:, 0]
+
+
+def resolve_cursor_indices(states: DocState, ctr: torch.Tensor, act: torch.Tensor):
+    """Visible index of element (ctr, act) [R] per replica: the visible
+    elements before it, so a deleted target resolves to where it was
+    (``kernels.resolve_cursor_indices_batch``, findListElement,
+    micromerge.ts:731-755).  Returns ``(index, found)`` [R]."""
+    c = states.elem_ctr.shape[1]
+    ar = torch.arange(c, dtype=torch.int32, device=states.elem_ctr.device)[None, :]
+    visible = (ar < states.length[:, None]) & ~states.deleted
+    i, found = _find_elem(states.elem_ctr, states.elem_act, states.length, ctr, act)
+    before = (visible & (ar < i[:, None])).sum(dim=1).to(torch.int32)
+    return before, found
+
+
+def visible_length(states: DocState) -> torch.Tensor:
+    """Visible characters per replica [R] int32."""
+    c = states.elem_ctr.shape[1]
+    ar = torch.arange(c, device=states.elem_ctr.device)[None, :]
+    return ((ar < states.length[:, None]) & ~states.deleted).sum(dim=1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

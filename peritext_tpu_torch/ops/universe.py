@@ -6,7 +6,10 @@ holds R replica states stacked into one [R, ...] ``DocState`` of torch
 tensors, shares actor/attr interning across the batch, and ingests
 causally-gated change batches with one merge per call: the text kernel,
 the boundary permute, the mark kernel and the mark-table append
-(``cuda_kernels.merge_step_full``).
+(``cuda_kernels.merge_step_full``).  ``apply_changes_with_patches`` also
+emits each replica's reference patch stream, through the per-op loop
+``kernels.apply_ops_patched`` (plain torch on the universe's device: the
+JAX package runs that path as an XLA scan, with no Pallas kernel).
 
 Host responsibilities (the control plane): causal ordering and the
 seq/deps gate per replica, wire-op encoding and interning, capacity
@@ -14,15 +17,18 @@ pre-checks with re-bucketing, the host object store, and span decoding.
 Device responsibilities (the data plane): all per-op document mutation,
 boundary-set algebra, mark resolution and digests.
 
-Not here yet (the JAX universe has them): patch emission, the sorted and
-windowed merges, launch retries, degradation, fault injection, breakers,
-telemetry and fleet elasticity.  A failed launch raises.
+Not here yet (the JAX universe has them): the sorted and windowed merges
+and patch paths, launch retries, degradation, fault injection, breakers,
+telemetry and fleet elasticity.  A failed launch raises, and the control
+plane commits nothing.
 """
 from __future__ import annotations
 
 import copy
 import hashlib
 import json
+import math
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 
 from peritext_tpu_torch import schema
-from peritext_tpu_torch.ids import ActorRegistry, make_op_id
+from peritext_tpu_torch.ids import ActorRegistry, make_op_id, parse_op_id
 from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops.cuda_kernels import merge_step_full
 from peritext_tpu_torch.ops.encode import (
@@ -41,7 +47,15 @@ from peritext_tpu_torch.ops.encode import (
     prepare_sorted_batch,
     split_rows,
 )
+from peritext_tpu_torch.ops.patches import (
+    assemble_patches,
+    copy_jsonlike,
+    initial_span_cap,
+    patch_readback,
+    strip_pos,
+)
 from peritext_tpu_torch.ops.state import (
+    FIELDS,
     DocState,
     grow_state,
     make_empty_state,
@@ -49,6 +63,7 @@ from peritext_tpu_torch.ops.state import (
 )
 from peritext_tpu_torch.oracle.doc import (
     ObjectStore,
+    get_list_element_id,
     get_text_with_formatting as oracle_spans,
     op_from_wire,
     ops_to_marks,
@@ -89,7 +104,17 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class TorchUniverse:
+    # Process-wide floor of the compact readback's span capacity: an
+    # overflow in any universe raises it, so later universes start wide
+    # enough.  An explicit PERITEXT_PATCH_SPAN_CAP ignores it.
+    _span_cap_floor = 1
+
     def __init__(
         self,
         replica_ids: Sequence[str],
@@ -124,6 +149,13 @@ class TorchUniverse:
         self._store_version_counter = 0
         self.text_objs: List[Optional[str]] = [None] * n
         self._ranks_cache: Optional[Tuple[Tuple[int, int], torch.Tensor]] = None
+        self._multi_cache: Optional[Tuple[bytes, torch.Tensor]] = None
+        # Per-mark-row span capacity of the compact patch readback; grows
+        # when a batch overflows it (_span_overflow).
+        if "PERITEXT_PATCH_SPAN_CAP" in os.environ:
+            self._span_cap = initial_span_cap()
+        else:
+            self._span_cap = max(initial_span_cap(), TorchUniverse._span_cap_floor)
         self.stats: Dict[str, Any] = {
             "launches": 0,
             "ops_applied": 0,
@@ -131,9 +163,16 @@ class TorchUniverse:
             "capacity_growths": 0,
             "changes_ingested": 0,
             "duplicates_dropped": 0,
+            "readback_overflows": 0,
             # Wall time of the host control plane (gate, encode, fuse, pad,
             # upload, commit); the merge itself is asynchronous on the card.
             "host_seconds": 0.0,
+            # The patch path's split: the per-op loop on the device (timed
+            # to a synchronize), the record readback to the host, and the
+            # host's patch assembly.
+            "patch_loop_seconds": 0.0,
+            "patch_readback_seconds": 0.0,
+            "patch_assemble_seconds": 0.0,
         }
 
     # -- capacity management ------------------------------------------------
@@ -167,6 +206,15 @@ class TorchUniverse:
             ranks = torch.from_numpy(self._ranks()).to(self.device)
             self._ranks_cache = ((len(self.actors.actors), self.max_actors), ranks)
         return self._ranks_cache[1]
+
+    def _multi_device(self) -> torch.Tensor:
+        """Device allowMultiple flags, uploaded again only when the mark
+        type registry changes."""
+        arr = allow_multiple_array()
+        key = arr.tobytes()
+        if self._multi_cache is None or self._multi_cache[0] != key:
+            self._multi_cache = (key, torch.from_numpy(arr).to(self.device))
+        return self._multi_cache[1]
 
     # -- the causal gate (host) --------------------------------------------
 
@@ -238,6 +286,7 @@ class TorchUniverse:
                         "dupes": dupes,
                         "rows": rows,
                         "host_ops": host_ops,
+                        "row_pos": counts["row_pos"],
                         "text_obj": counts["text_obj"],
                         "inserts": counts["insert"],
                         "marks": counts["mark"],
@@ -248,8 +297,11 @@ class TorchUniverse:
 
         # Host structural ops dry-run against store copies, one per (group,
         # store version) class; a bad op raises here, before any commit.
+        # Their patches are kept per class, tagged with each op's position
+        # in the batch stream, for the patch path to interleave.
         new_stores: Dict[int, ObjectStore] = {}
         new_versions: Dict[int, int] = {}
+        host_patches: Dict[int, List[Any]] = {}
         by_class: Dict[Any, Any] = {}
         for r in range(n):
             g = groups[group_of[r]]
@@ -259,13 +311,14 @@ class TorchUniverse:
             hit = by_class.get(key)
             if hit is None:
                 store = copy.deepcopy(self.stores[r])
-                for _, op in g["host_ops"]:
-                    apply_host_op(store, op)
+                emitted: List[Any] = []
+                for pos, op in g["host_ops"]:
+                    emitted.extend((pos, p) for p in apply_host_op(store, op))
                 if g["text_obj"] is not None:
                     store.device_objects.add(g["text_obj"])
                 self._store_version_counter += 1
-                hit = by_class[key] = (store, self._store_version_counter)
-            new_stores[r], new_versions[r] = hit
+                hit = by_class[key] = (store, self._store_version_counter, emitted)
+            new_stores[r], new_versions[r], host_patches[r] = hit
 
         ins = np.asarray([g["inserts"] for g in groups], np.int64)[group_of]
         mks = np.asarray([g["marks"] for g in groups], np.int64)[group_of]
@@ -276,6 +329,7 @@ class TorchUniverse:
             "group_of": group_of,
             "new_stores": new_stores,
             "new_store_versions": new_versions,
+            "host_patches": host_patches,
             "new_lengths": lengths,
             "new_mark_counts": mark_counts,
             "ingested": n_ingested,
@@ -302,6 +356,13 @@ class TorchUniverse:
         sizes = np.bincount(group_of, minlength=len(groups))
         dupes = np.asarray([g["dupes"] for g in groups], np.int64)
         self.stats["duplicates_dropped"] += int((dupes * sizes).sum())
+
+    def _account_rows(self, groups, group_of):
+        """Replicas per group and rows per group; tallies ops_applied."""
+        sizes = np.bincount(group_of, minlength=len(groups))
+        row_counts = np.asarray([g["rows"].shape[0] for g in groups], np.int64)
+        self.stats["ops_applied"] += int((row_counts * sizes).sum())
+        return sizes, row_counts
 
     def _normalize_batches(
         self, per_replica: Dict[str, Sequence[Change]] | List[Sequence[Change]]
@@ -339,10 +400,7 @@ class TorchUniverse:
             text_rows, mark_rows = split_rows(g["rows"])
             text_rows_list.append(text_rows)
             mark_rows_list.append(mark_rows)
-        sizes = np.bincount(group_of, minlength=len(groups))
-        row_counts = np.asarray([g["rows"].shape[0] for g in groups], np.int64)
-        self.stats["ops_applied"] += int((row_counts * sizes).sum())
-
+        sizes, row_counts = self._account_rows(groups, group_of)
         self._ensure_capacity(prep["need_len"], prep["need_marks"])
         if not row_counts.any():
             self._commit(prep)
@@ -376,6 +434,135 @@ class TorchUniverse:
         t_host = time.perf_counter()
         self._commit(prep)
         self.stats["host_seconds"] += time.perf_counter() - t_host
+
+    # -- patch-emitting ingestion -------------------------------------------
+
+    @staticmethod
+    def _patch_chunk(n: int) -> int:
+        """Replicas per patch-path launch (``PERITEXT_PATCH_CHUNK``, 0 or
+        unset = all), equalized so the chunks differ by at most one."""
+        raw = os.environ.get("PERITEXT_PATCH_CHUNK", "0")
+        try:
+            chunk = int(raw)
+        except ValueError:
+            raise ValueError(f"PERITEXT_PATCH_CHUNK must be an integer, got {raw!r}")
+        if chunk < 0:
+            raise ValueError(f"PERITEXT_PATCH_CHUNK must be >= 0, got {chunk}")
+        chunk = chunk or n
+        return math.ceil(n / math.ceil(n / chunk))
+
+    def _span_overflow(self, record_chunks: List[Dict[str, np.ndarray]], span_cap: int) -> bool:
+        """Did a mark row's true span count exceed the compact tables?  If
+        so, count it and grow the cap (pow2) to the largest count seen, and
+        the class floor unless the cap is pinned by the environment."""
+        overflow = max((int(rec["mcount"].max(initial=0)) for rec in record_chunks), default=0)
+        if overflow <= span_cap:
+            return False
+        self.stats["readback_overflows"] += 1
+        self._span_cap = bucket_length(overflow, minimum=1)
+        if "PERITEXT_PATCH_SPAN_CAP" not in os.environ:
+            TorchUniverse._span_cap_floor = max(TorchUniverse._span_cap_floor, self._span_cap)
+        return True
+
+    def apply_changes_with_patches(
+        self,
+        per_replica: Dict[str, Sequence[Change]] | List[Sequence[Change]],
+        with_positions: bool = False,
+    ) -> Dict[str, List[Any]]:
+        """Causally gated ingestion that also returns each replica's
+        reference patch stream (micromerge.ts:25-30), on the exact per-op
+        path (``TpuUniverse._patched_scan``).
+
+        ``PERITEXT_PATCH_READBACK`` picks the record format ("compact", the
+        default, or "planes"); a compact batch whose span counts overflow
+        the adaptive cap is run again with planes.  Both give the same
+        stream, and it equals every JAX patch path's stream.
+
+        With ``with_positions`` each list holds ``(pos, patch)`` pairs,
+        ``pos`` being the patch's op's flat index in the replica's gated
+        batch stream; stripping the positions gives the default return."""
+        batches = self._normalize_batches(per_replica)
+        prep = self._prepare(batches)
+        groups, group_of = prep["groups"], prep["group_of"]
+        group_sizes, row_counts = self._account_rows(groups, group_of)
+        max_rows = int(row_counts.max(initial=0))
+        self._ensure_capacity(prep["need_len"], prep["need_marks"])
+
+        def host_patches_for(r: int) -> List[Any]:
+            return [(pos, copy_jsonlike(p)) for pos, p in prep["host_patches"].get(r, [])]
+
+        if max_rows == 0:
+            self._commit(prep)
+            return {
+                name: strip_pos(sorted(host_patches_for(r), key=lambda t: t[0]), with_positions)
+                for r, name in enumerate(self.replica_ids)
+            }
+        return self._patched_scan(prep, host_patches_for, group_sizes, max_rows, with_positions)
+
+    def _patched_scan(self, prep, host_patches_for, group_sizes, max_rows, with_positions):
+        """The exact interleaved per-op patch path, in replica chunks of
+        ``_patch_chunk``; each chunk's records come back to the host before
+        the next chunk runs.  The committed states are not touched until
+        every chunk has succeeded."""
+        groups, group_of = prep["groups"], prep["group_of"]
+        pad = bucket_length(max_rows)
+        g_ops = np.stack([pad_rows(g["rows"], pad) for g in groups])
+        ops = g_ops[group_of]
+        pad_per_group = (g_ops[:, :, K.K_KIND] == K.KIND_PAD).sum(axis=1)
+        self.stats["rows_padded"] += int((pad_per_group * group_sizes).sum())
+        idx = torch.from_numpy(group_of.astype(np.int64)).to(self.device)
+        d_ops = torch.from_numpy(g_ops).to(self.device).index_select(0, idx)
+        ranks = self._ranks_device()
+        multi = self._multi_device()
+        n = len(self.replica_ids)
+        chunk = self._patch_chunk(n)
+        span_cap = self._span_cap
+
+        def launch(readback: str):
+            state_slices: List[DocState] = []
+            record_chunks: List[Dict[str, np.ndarray]] = []
+            for i in range(0, n, chunk):
+                sl = slice(i, min(i + chunk, n))
+                t = time.perf_counter()
+                st, rec = K.apply_ops_patched(
+                    map_state(lambda x: x[sl], self.states), d_ops[sl], ranks, multi,
+                    readback=readback, span_cap=span_cap,
+                )
+                _synchronize(self.device)
+                t_read = time.perf_counter()
+                record_chunks.append({k: _numpy(v) for k, v in rec.items()})
+                self.stats["patch_readback_seconds"] += time.perf_counter() - t_read
+                self.stats["patch_loop_seconds"] += t_read - t
+                state_slices.append(st)
+            if len(state_slices) == 1:
+                return state_slices[0], record_chunks
+            return DocState(**{
+                f: torch.cat([getattr(s, f) for s in state_slices]) for f in FIELDS
+            }), record_chunks
+
+        readback = patch_readback()
+        new_states, record_chunks = launch(readback)
+        launches = len(record_chunks)
+        if readback == "compact" and self._span_overflow(record_chunks, span_cap):
+            # A mark row emitted more spans than the tables hold: run the
+            # batch again from the same states, reading the planes.
+            new_states, record_chunks = launch("planes")
+            launches += len(record_chunks)
+        self.states = new_states
+        self.stats["launches"] += launches
+        self._commit(prep)
+
+        t = time.perf_counter()
+        tables = self._mark_tables(range(n))
+        out: Dict[str, List[Any]] = {}
+        for r, name in enumerate(self.replica_ids):
+            rec = record_chunks[r // chunk]
+            g = groups[group_of[r]]
+            dev = assemble_patches(rec, r % chunk, ops[r], tables[r], self.attrs, row_pos=g["row_pos"])
+            merged = sorted(dev + host_patches_for(r), key=lambda p: p[0])
+            out[name] = strip_pos(merged, with_positions)
+        self.stats["patch_assemble_seconds"] += time.perf_counter() - t
+        return out
 
     # -- materialization ----------------------------------------------------
 
@@ -539,6 +726,89 @@ class TorchUniverse:
 
     def digests(self) -> np.ndarray:
         """Per-replica convergence digests (uint32), computed on device."""
-        ranks = torch.from_numpy(self._ranks()).to(self.device)
-        multi = torch.from_numpy(allow_multiple_array()).to(self.device)
-        return _numpy(K.convergence_digest(self.states, ranks, multi)).astype(np.uint32)
+        digests = K.convergence_digest(self.states, self._ranks_device(), self._multi_device())
+        return _numpy(digests).astype(np.uint32)
+
+    # -- cursors -------------------------------------------------------------
+
+    def _row(self, r: int) -> DocState:
+        return map_state(lambda x: x[r : r + 1], self.states)
+
+    def _elem_op_id(self, ctr: int, act: int) -> str:
+        return make_op_id(int(ctr), self.actors.actor(int(act)))
+
+    def get_cursor(self, replica: str | int, index: int) -> Dict[str, Any]:
+        """Stable cursor for a visible index (reference micromerge.ts:465-472)."""
+        r = replica if isinstance(replica, int) else self.index_of[replica]
+        host = self._text_source(r)
+        if host is not None:
+            return {
+                "objectId": host,
+                "elemId": get_list_element_id(self.stores[r].metadata[host], index),
+            }
+        idx = torch.tensor([index], dtype=torch.int32, device=self.device)
+        ctr, act, found = (_numpy(x)[0] for x in K.cursor_elems(self._row(r), idx))
+        if not found:
+            raise IndexError(f"List index out of bounds: {index}")
+        return {"objectId": self.text_objs[r], "elemId": self._elem_op_id(ctr, act)}
+
+    def _cursor_target(self, cursor: Dict[str, Any]) -> Tuple[int, int]:
+        ctr, actor = parse_op_id(cursor["elemId"])
+        if actor not in self.actors:
+            raise KeyError(f"List element not found: {cursor['elemId']}")
+        return ctr, self.actors.id_of(actor)
+
+    def resolve_cursor(self, replica: str | int, cursor: Dict[str, Any]) -> int:
+        """Current visible index of a cursor (reference micromerge.ts:475-477)."""
+        r = replica if isinstance(replica, int) else self.index_of[replica]
+        obj = cursor.get("objectId")
+        if obj is not None and obj != self.text_objs[r]:
+            # A cursor into a host-side list.
+            _, visible = self.stores[r].find_list_element(obj, cursor["elemId"])
+            return visible
+        ctr, act = self._cursor_target(cursor)
+        index, found = K.resolve_cursor_indices(
+            self._row(r),
+            torch.tensor([ctr], dtype=torch.int32, device=self.device),
+            torch.tensor([act], dtype=torch.int32, device=self.device),
+        )
+        if not bool(found[0]):
+            raise KeyError(f"List element not found: {cursor['elemId']}")
+        return int(index[0])
+
+    def get_cursors(self, indices: Sequence[int]) -> List[Dict[str, Any]]:
+        """One cursor per replica, from one batched query."""
+        if len(indices) != len(self.replica_ids):
+            raise ValueError("need one index per replica")
+        if any(self._text_source(r) is not None for r in range(len(indices))):
+            return [self.get_cursor(r, i) for r, i in enumerate(indices)]
+        idx = torch.from_numpy(np.asarray(indices, np.int32)).to(self.device)
+        ctrs, acts, founds = (_numpy(x) for x in K.cursor_elems(self.states, idx))
+        if not founds.all():
+            bad = int(np.flatnonzero(~founds)[0])
+            raise IndexError(f"List index out of bounds: {indices[bad]} (replica {bad})")
+        return [
+            {"objectId": self.text_objs[r], "elemId": self._elem_op_id(ctrs[r], acts[r])}
+            for r in range(len(self.replica_ids))
+        ]
+
+    def resolve_cursors(self, cursors: Sequence[Dict[str, Any]]) -> List[int]:
+        """Current visible index of one cursor per replica, from one query."""
+        if len(cursors) != len(self.replica_ids):
+            raise ValueError("need one cursor per replica")
+        if any(
+            c.get("objectId") is not None and c.get("objectId") != self.text_objs[r]
+            for r, c in enumerate(cursors)
+        ):
+            return [self.resolve_cursor(r, c) for r, c in enumerate(cursors)]
+        targets = np.asarray([self._cursor_target(c) for c in cursors], np.int32).reshape(-1, 2)
+        t = torch.from_numpy(targets).to(self.device)
+        idxs, founds = (_numpy(x) for x in K.resolve_cursor_indices(self.states, t[:, 0], t[:, 1]))
+        if not founds.all():
+            bad = int(np.flatnonzero(~founds)[0])
+            raise KeyError(f"List element not found: {cursors[bad]['elemId']}")
+        return [int(i) for i in idxs]
+
+    def clock(self, replica: str | int) -> Dict[str, int]:
+        r = replica if isinstance(replica, int) else self.index_of[replica]
+        return dict(self.clocks[r])

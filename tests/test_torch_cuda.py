@@ -3,8 +3,10 @@ edge-case inputs the benchmark workload never reaches: unresolved
 references, runs that push elements off the end, capacities that are not a
 multiple of the block size, mark tables that overflow, end anchors left of
 start anchors, long delete runs across op tiles with duplicate ids and ids
-inserted later in the batch, and C = 16384.  Byte-equal or fail.  Last, a
-``TorchUniverse`` on the card grows past 8192 elements against the oracle.
+inserted later in the batch, and C = 16384.  Byte-equal or fail.  Then a
+``TorchUniverse`` on the card grows past 8192 elements against the oracle,
+the per-op patch path's records on the card equal those on the CPU, and a
+``TorchDoc`` session on the card equals the oracle.
 
 Needs a CUDA device; without one every test skips.  This file imports no
 JAX, so it runs where JAX is absent:
@@ -15,11 +17,15 @@ import numpy as np
 import pytest
 import torch
 
-from peritext_tpu_torch import TorchUniverse
-from peritext_tpu_torch.bench.workloads import make_writer_rounds
+from peritext_tpu_torch import TorchDoc, TorchUniverse, state_to_numpy
+from peritext_tpu_torch.bench.workloads import doc_session, make_merge_workload, make_writer_rounds
+from peritext_tpu_torch.ids import ActorRegistry
 from peritext_tpu_torch.ops import cuda_kernels
 from peritext_tpu_torch.ops import kernels as K
+from peritext_tpu_torch.ops.encode import AttrRegistry, encode_changes, pad_rows
+from peritext_tpu_torch.ops.state import make_empty_state, map_state
 from peritext_tpu_torch.oracle import Doc
+from peritext_tpu_torch.schema import allow_multiple_array
 
 pytestmark = pytest.mark.cuda
 
@@ -270,3 +276,49 @@ def test_universe_on_the_card_grows_past_8192(card):
     assert uni.texts() == ["".join(s["text"] for s in expect)] * 2
     assert uni.spans_batch() == [expect, expect]
     assert len(set(uni.digests().tolist())) == 1
+
+
+@pytest.mark.parametrize("readback", ["compact", "planes"])
+def test_patch_records_on_the_card_equal_the_cpus(card, readback):
+    """Six replicas hold the genesis plus writer (r + 1) % 4's stream and
+    take writer r % 4's as unfused op rows: the per-op patch loop gives the
+    same records and states from CUDA tensors as from CPU tensors."""
+    wl = make_merge_workload(60, 20, 4, True, seed=4)
+    actors, attrs = ActorRegistry(), AttrRegistry()
+    text_obj = wl["genesis"]["ops"][0]["opId"]
+    g_rows, _, _ = encode_changes([wl["genesis"]], actors, attrs)
+    streams = [encode_changes(s, actors, attrs, text_obj=text_obj)[0] for s in wl["streams"]]
+    ranks = np.zeros(64, np.int32)
+    ranks[: len(actors.ranks())] = actors.ranks()
+    pad = max(s.shape[0] for s in streams)
+    first = np.stack([np.concatenate([g_rows, pad_rows(streams[(r + 1) % 4], pad)]) for r in range(6)])
+    empty = map_state(lambda x: x.expand(6, *x.shape).contiguous(), make_empty_state(256, 64))
+    base = K.apply_ops(empty, torch.from_numpy(first), torch.from_numpy(ranks))
+    ops = torch.from_numpy(np.stack([pad_rows(streams[r % 4], pad) for r in range(6)]))
+    multi = torch.from_numpy(allow_multiple_array())
+    want_state, want = K.apply_ops_patched(base, ops, torch.from_numpy(ranks), multi, readback=readback)
+    got_state, got = K.apply_ops_patched(
+        map_state(lambda x: x.to(card), base), ops.to(card), torch.from_numpy(ranks).to(card),
+        multi.to(card), readback=readback,
+    )
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype, name
+        assert torch.equal(got[name].cpu(), want[name]), f"record {name} differs on the card"
+    a, b = state_to_numpy(got_state), state_to_numpy(want_state)
+    assert all((a[f] == b[f]).all() for f in a)
+    assert got_state.elem_ctr.device.type == "cuda"
+
+
+def test_torchdoc_session_on_the_card_equals_the_oracle(card):
+    """Two TorchDocs on the card and an oracle Doc make 40 random edits
+    with marks, syncing every 5: every change and every applied change
+    returns the oracle twin's patches, and the docs converge."""
+    genesis, _ = Doc("author").change([
+        {"path": [], "action": "makeList", "key": "text"},
+        {"path": ["text"], "action": "insert", "index": 0, "values": list("collaborative text on a card")},
+    ])
+    docs = [TorchDoc("t1", device=card), TorchDoc("t2", device=card), Doc("o1")]
+    out = doc_session(docs, genesis, edits=40, sync_every=5, seed=2)
+    assert any(span["marks"] for span in out["spans"])
+    assert docs[0]._uni.states.elem_ctr.device.type == "cuda"
