@@ -17,18 +17,20 @@ Phases, in order; any failure exits non-zero:
 3. The same at the 10k-character latency shape (``make_merge_workload(
    10_000, 64, 2)``; 1024 replicas, C = 16384, M = 128), insert-heavy
    input included.
-4. The main path: ``TorchUniverse.apply_changes`` on 1024 replicas ingests
-   the genesis change, 8 chained rounds in which replica r takes writer
+4. The main path: ``TorchUniverse.apply_changes`` (its default route, the
+   exact per-op merge with both kernels) on 1024 replicas ingests the
+   genesis change, 8 chained rounds in which replica r takes writer
    r % 4's 64 new ops, then an all-to-all merge of the other writers'
    histories.  Every replica's digest must agree, the texts and sampled
    spans must equal an oracle Doc that merged all four writers, and both
    kernels' launch counts must equal the merges the universe ran.
-5. The main path past 8192 characters: 64 replicas start at C = 8192,
+5. The exact path past 8192 characters: 64 replicas start at C = 8192,
    ingest an 8300-char genesis (growing to C = 16384), 2 chained rounds of
    2 writers and the all-to-all merge, with the checks of phase 4.
 6. The patch path (``apply_changes_with_patches``, the exact per-op loop in
    plain torch on the card) at phase 4's width: 1024 replicas load the
-   genesis and rounds 1-4 through the kernels, then ingest rounds 5-8 with
+   genesis and rounds 1-4 through the kernels (the scan path), then ingest
+   rounds 5-8 with
    patches.  Four oracle observers, one per writer class, ingest the same
    changes in the gate's order; every replica's stream must equal its
    class's, patch for patch, and the accumulated stream its spans.  Then
@@ -43,15 +45,35 @@ Phases, in order; any failure exits non-zero:
    and the docs converge.  Prints the median and p95 ms of ``change()``
    and ``apply_change()``.  Neither phase may call a kernel's plain
    version or launch a merge kernel.
-8. Print the kernels' JSON summary (launches summed over phases 4 and 5;
-   ``ms`` per wrapper call between CUDA events, ``device_ms`` the kernel
-   alone with a cold L2, both at phase 2), the card, and as the last line
-   ``{"ok": true, "device": {...}}``.
+8. The sorted route at full width: phase 4's workload through
+   ``apply_changes`` under ``PERITEXT_MERGE_PATH=sorted`` (sort-based
+   placement and the batched mark phase, the census window where it bounds
+   a batch, the kernels only for a batch deeper than
+   ``PERITEXT_SORTED_MAX_ROUNDS``).  All 13 state fields must equal phase
+   4's byte for byte, the oracle checks of phase 4 hold, each kernel
+   launched once per counted scan fallback and no plain version ran.
+   Prints per-round seconds beside phase 4's, the route stats and the
+   device-busy share of one round under torch.profiler.
+9. The window at the 10k-char shape: 1024 replicas at C = 16384, M = 128
+   take a 10,000-char genesis and 8 rounds in which replica r takes writer
+   r % 4's 64 ops, each writer's indices inside one 256-char hotspot per
+   round, on the sorted route.  The window must engage; digests, texts and
+   sampled spans must equal the writers'.  The same rounds on the default
+   route (the kernels) on all 1024 replicas, and a full-table leg
+   (``PERITEXT_MERGE_WINDOW=0``) on the first 64, must equal the windowed
+   universe's rows on all 13 fields.  Prints per-round ms of the three
+   legs.
+10. Print the kernels' JSON summary (launches summed over phases 4, 5, 8
+   and 9; ``ms`` per wrapper call between CUDA events, ``device_ms`` the
+   kernel alone with a cold L2, both at phase 2), the card, and as the
+   last line ``{"ok": true, "device": {...}}``.  Peak device memory is
+   printed after every phase.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -62,7 +84,7 @@ import time
 import numpy as np
 import torch
 
-from peritext_tpu_torch import TorchDoc, TorchUniverse
+from peritext_tpu_torch import TorchDoc, TorchUniverse, state_to_numpy
 from peritext_tpu_torch.bench.bounds import bound, nbytes, text_phase_bytes
 from peritext_tpu_torch.bench.timing import call_ms, device_ms
 from peritext_tpu_torch.bench.workloads import (
@@ -75,7 +97,7 @@ from peritext_tpu_torch.bench.workloads import (
 )
 from peritext_tpu_torch.ops import _build, cuda_kernels
 from peritext_tpu_torch.ops import kernels as K
-from peritext_tpu_torch.ops.state import FIELDS
+from peritext_tpu_torch.ops.state import FIELDS, map_state
 from peritext_tpu_torch.oracle import Doc, accumulate_patches
 from peritext_tpu_torch.runtime.sync import causal_order
 
@@ -87,11 +109,37 @@ ROUNDS = 8
 # The JAX latency bench's 10k-character shape (time_merge_latency).
 LARGE_DOC_LEN = 10_000
 LARGE_CAPACITY = 16384
+# Phase 9: each writer's edits stay in one hotspot of this many chars per round.
+HOTSPOT = 256
 DEVICE = "cuda"
+# Selects the JAX package's default route (phases 8-9).
+SORTED = {"PERITEXT_MERGE_PATH": "sorted"}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def env(**values: str):
+    """Set environment variables for the block, restoring them after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def log_peak(label: str) -> None:
+    """Peak device memory since the last call, then reset."""
+    log(f"{label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    torch.cuda.reset_peak_memory_stats()
 
 
 def card_line() -> str:
@@ -243,39 +291,81 @@ def phase_large_shape(replicas: int, runs: int) -> dict:
     return phase_kernels("phase 3", b, LARGE_CAPACITY, runs)
 
 
-def phase_main_path(label: str, replicas: int, doc_len: int, writers: int, rounds: int,
-                    capacity: int, max_marks: int, samples: int, seed: int) -> dict:
-    t0 = time.perf_counter()
-    wl = make_writer_rounds(doc_len, OPS_PER_ROUND, writers, rounds, True, seed=seed)
-    oracle = Doc("oracle")
-    oracle.apply_change(wl["genesis"])
-    history = [[c for rnd in wl["rounds"] for c in rnd[w]] for w in range(writers)]
-    for w in range(writers):
-        for c in history[w]:
-            oracle.apply_change(c)
-    expect_spans = oracle.get_text_with_formatting(["text"])
-    expect_text = "".join(s["text"] for s in expect_spans)
-    log(f"{label}: workload + oracle built in {time.perf_counter() - t0:.2f} s (host)")
+def drive(uni: TorchUniverse, batches: list):
+    """``apply_changes`` each batch (cut to the universe's replicas), each
+    synchronized.  Returns the seconds of each call and of its host control
+    plane."""
+    times, host = [], []
+    for batch in batches:
+        h = uni.stats["host_seconds"]
+        t = time.perf_counter()
+        uni.apply_changes(batch[: len(uni.replica_ids)])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        host.append(uni.stats["host_seconds"] - h)
+    return times, host
 
-    names = [f"replica{i}" for i in range(replicas)]
-    uni = TorchUniverse(names, capacity=capacity, max_mark_ops=max_marks, device=DEVICE)
-    cuda_kernels.reset_launch_counts()
+
+def profile_round(label: str, uni: TorchUniverse, batches: list, wall_s: float) -> None:
+    """Every batch but the last on ``uni``, then the last under
+    torch.profiler, against ``wall_s``, that round's unprofiled time."""
+    for batch in batches[:-1]:
+        uni.apply_changes(batch)
+    p = profile_device(lambda: uni.apply_changes(batches[-1]))
+    wall = 1e3 * wall_s
+    if p is None:
+        log(f"  [{label}] profiler: no device time recorded; device busy share not measured")
+        return
+    log(f"  [{label}] profiler, round {len(batches) - 1} at R={len(uni.replica_ids)}: {p['launches']} "
+        f"kernel launches, {p['kernel_ms']:.4f} ms kernel time, busy {100 * p['kernel_ms'] / wall:.1f}% of "
+        f"the unprofiled round's {wall:.4f} ms; {p['copies']} copies, {p['copy_ms']:.4f} ms; top kernels: "
+        f"{p['top']}")
+
+
+def main_path_batches(wl: dict, replicas: int, writers: int) -> list:
+    """Genesis, the rounds (replica r takes writer r % writers' changes) and
+    the all-to-all of the other writers' histories."""
+    history = [[c for rnd in wl["rounds"] for c in rnd[w]] for w in range(writers)]
     batches = [[[wl["genesis"]]] * replicas]
     batches += [[rnd[r % writers] for r in range(replicas)] for rnd in wl["rounds"]]
     batches.append([
         [c for w in range(writers) if w != r % writers for c in history[w]]
         for r in range(replicas)
     ])
-    times = []
-    for batch in batches:
-        t = time.perf_counter()
-        uni.apply_changes(batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
+    return batches
+
+
+def phase_main_path(label: str, replicas: int, doc_len: int, writers: int, rounds: int,
+                    capacity: int, max_marks: int, samples: int, seed: int, scan: bool) -> dict:
+    """``apply_changes`` over genesis, rounds and the all-to-all, on the
+    default route (``scan``: each merge launches both kernels) or under
+    ``PERITEXT_MERGE_PATH=sorted`` (a kernel launches only for a counted
+    scan fallback)."""
+    t0 = time.perf_counter()
+    wl = make_writer_rounds(doc_len, OPS_PER_ROUND, writers, rounds, True, seed=seed)
+    oracle = Doc("oracle")
+    oracle.apply_change(wl["genesis"])
+    for w in range(writers):
+        for rnd in wl["rounds"]:
+            for c in rnd[w]:
+                oracle.apply_change(c)
+    expect_spans = oracle.get_text_with_formatting(["text"])
+    expect_text = "".join(s["text"] for s in expect_spans)
+    log(f"{label}: workload + oracle built in {time.perf_counter() - t0:.2f} s (host); "
+        f"{'the default route (the kernels)' if scan else 'PERITEXT_MERGE_PATH=sorted'}")
+
+    names = [f"replica{i}" for i in range(replicas)]
+    batches = main_path_batches(wl, replicas, writers)
+    reset_counts()
+    with env(**({} if scan else SORTED)):
+        uni = TorchUniverse(names, capacity=capacity, max_mark_ops=max_marks, device=DEVICE)
+        times, host = drive(uni, batches)
     launches = dict(cuda_kernels.LAUNCHES)
     merges = uni.stats["launches"]
-    if merges <= 0 or any(n != merges for n in launches.values()):
-        raise AssertionError(f"[{label}] launch counts {launches} != universe merges {merges}")
+    want = merges if scan else uni.stats["scan_fallbacks"]
+    if merges <= 0 or any(n != want for n in launches.values()) or any(PLAIN_CALLS.values()):
+        raise AssertionError(f"[{label}] launch counts {launches} (plain calls {PLAIN_CALLS}) != "
+                             f"{'universe merges' if scan else 'scan fallbacks'} {want}")
 
     digests = uni.digests()
     if len(set(digests.tolist())) != 1:
@@ -297,14 +387,20 @@ def phase_main_path(label: str, replicas: int, doc_len: int, writers: int, round
     log(f"  merges={merges} launches={launches} ops_applied={ops} changes={uni.stats['changes_ingested']}")
     log(f"  round seconds (genesis, {rounds} rounds, all-to-all): "
         + " ".join(f"{t:.4f}" for t in times))
+    log("  host control plane ms per round (stats['host_seconds']): " + " ".join(f"{1e3 * t:.4f}" for t in host))
     log(f"  merged ops/s {ops / total:.1f} over {total:.3f} s (host clock, each merge synchronized); "
         f"host control plane {uni.stats['host_seconds']:.4f} s of it")
+    log(f"  routes: scan_fallbacks={uni.stats['scan_fallbacks']} "
+        f"windowed_launches={uni.stats['windowed_launches']} "
+        f"window_fallbacks={uni.stats['window_fallbacks']} window_rebuilds={uni.stats['window_rebuilds']} "
+        f"window_census_skips={uni.stats['window_census_skips']}")
     log(f"  capacity={uni.capacity} (growths {uni.stats['capacity_growths']}) "
         f"max_mark_ops={uni.max_mark_ops} max length={max(uni.lengths)} "
         f"state bytes on device={state_bytes} text chars={len(expect_text)} "
         f"spans={len(expect_spans)} digest={int(digests[0])}")
     return {"launches": launches, "capacity": uni.capacity, "max_length": max(uni.lengths),
-            "growths": uni.stats["capacity_growths"], "round_seconds": times}
+            "growths": uni.stats["capacity_growths"], "round_seconds": times, "uni": uni,
+            "wl": wl, "ops": ops}
 
 
 PLAIN_CALLS = {"text_phase_plain": 0, "mark_phase_plain": 0}
@@ -361,8 +457,8 @@ def observer_streams(wl: dict, writers: int, cut: int):
 
 def load_universe(names, wl, rounds, writers, capacity, max_marks) -> TorchUniverse:
     """A universe that took the genesis and the first ``rounds`` rounds
-    through ``apply_changes`` (the kernels); their launches must equal the
-    merges."""
+    through ``apply_changes`` on its default route (the kernels); their
+    launches must equal the merges."""
     uni = TorchUniverse(names, capacity=capacity, max_mark_ops=max_marks, device=DEVICE)
     reset_counts()
     uni.apply_changes([[wl["genesis"]]] * len(names))
@@ -384,35 +480,48 @@ def check_streams(label: str, uni: TorchUniverse, out: dict, expect, writers: in
                              f"replica {r}: {len(got)} vs {len(want)} patches, first difference at {first}")
 
 
-def profile_patched_call(label: str, names, wl: dict, cut: int, ms: dict) -> None:
-    """Round ``cut + 1`` once more on a fresh universe, under torch.profiler:
-    the device-side events of the patched call (kernels, and copies apart),
-    against the unprofiled calls' median loop and total, and the kernels
-    that take most of the time.  CPU-side operator rows are left out: they
-    repeat the device time of the kernels they launch."""
+def profile_device(call) -> dict | None:
+    """Run ``call`` once under torch.profiler and sum its device-side events
+    (kernels, and copies apart); None when the profiler recorded no device
+    time.  CPU-side operator rows are left out: they repeat the device time
+    of the kernels they launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    uni = load_universe(names, wl, cut, WRITERS, 2048, 1024)
-    batch = [wl["rounds"][cut][r % WRITERS] for r in range(len(names))]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        uni.apply_changes_with_patches(batch)
+        call()
         torch.cuda.synchronize()
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     copies = [e for e in device if e.key.startswith(("Memcpy", "Memset"))]
     kernels = [e for e in device if e not in copies]
     if not kernels:
+        return None
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {
+        "launches": sum(e.count for e in kernels),
+        "kernel_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+        "copies": sum(e.count for e in copies),
+        "copy_ms": sum(e.self_device_time_total for e in copies) / 1e3,
+        "top": "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.4f} ms x{e.count}" for e in top),
+    }
+
+
+def profile_patched_call(label: str, names, wl: dict, cut: int, ms: dict) -> None:
+    """Round ``cut + 1`` once more on a fresh universe, under torch.profiler:
+    the device time of the patched call against the unprofiled calls'
+    median loop and total, and the kernels that take most of it."""
+    uni = load_universe(names, wl, cut, WRITERS, 2048, 1024)
+    batch = [wl["rounds"][cut][r % WRITERS] for r in range(len(names))]
+    p = profile_device(lambda: uni.apply_changes_with_patches(batch))
+    if p is None:
         log(f"  [{label}] profiler: no device time recorded; device busy share not measured")
         return
-    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    copy_ms = sum(e.self_device_time_total for e in copies) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    log(f"  [{label}] profiler, one patched call at R={len(names)}: {sum(e.count for e in kernels)} "
-        f"kernel launches, {kernel_ms:.4f} ms kernel time (busy {100 * kernel_ms / ms['patch_loop_seconds']:.1f}% "
-        f"of the unprofiled loop's median {ms['patch_loop_seconds']:.4f} ms); {sum(e.count for e in copies)} "
-        f"copies, {copy_ms:.4f} ms; kernels and copies {100 * (kernel_ms + copy_ms) / ms['total']:.1f}% of "
-        f"the call's median {ms['total']:.4f} ms; top kernels: " + "; ".join(
-            f"{e.key[:60]} {e.self_device_time_total / 1e3:.4f} ms x{e.count}" for e in top))
+    log(f"  [{label}] profiler, one patched call at R={len(names)}: {p['launches']} "
+        f"kernel launches, {p['kernel_ms']:.4f} ms kernel time (busy "
+        f"{100 * p['kernel_ms'] / ms['patch_loop_seconds']:.1f}% of the unprofiled loop's median "
+        f"{ms['patch_loop_seconds']:.4f} ms); {p['copies']} copies, {p['copy_ms']:.4f} ms; kernels and "
+        f"copies {100 * (p['kernel_ms'] + p['copy_ms']) / ms['total']:.1f}% of the call's median "
+        f"{ms['total']:.4f} ms; top kernels: {p['top']}")
 
 
 def phase_patch_path(replicas: int, a2a_replicas: int, main_round_seconds, samples: int) -> dict:
@@ -545,6 +654,139 @@ def phase_doc(edits: int, sync_every: int) -> dict:
     return out
 
 
+def same_fields(label: str, got, want) -> None:
+    """All 13 state fields byte-equal (both DocStates, any device)."""
+    a, b = state_to_numpy(got), state_to_numpy(want)
+    bad = [f for f in FIELDS if a[f].dtype != b[f].dtype or a[f].shape != b[f].shape or (a[f] != b[f]).any()]
+    if bad:
+        raise AssertionError(f"[{label}] state fields differ: {bad}")
+
+
+def phase_sorted_path(scan_run: dict, capacity: int, max_marks: int, samples: int) -> dict:
+    """Phase 4's workload on the sorted route; phase 4's universe (the
+    default route, the kernels) is the byte-level reference."""
+    label = "phase 8"
+    torch.cuda.reset_peak_memory_stats()
+    run = phase_main_path(label, REPLICAS, DOC_LEN, WRITERS, ROUNDS, capacity, max_marks, samples=samples,
+                          seed=1, scan=False)
+    uni = run["uni"]
+    same_fields(label, uni.states, scan_run["uni"].states)
+    log(f"  all {len(FIELDS)} state fields of {REPLICAS} replicas equal phase 4's (the kernels) byte for byte")
+    t_sorted, t_scan = run["round_seconds"], scan_run["round_seconds"]
+    log("  round ms, sorted route / default route (phase 4), genesis, rounds, all-to-all: " + "; ".join(
+        f"{1e3 * a:.4f} / {1e3 * b:.4f}" for a, b in zip(t_sorted, t_scan)))
+    log(f"  merged ops/s: sorted {run['ops'] / sum(t_sorted):.1f}, default (phase 4) "
+        f"{scan_run['ops'] / sum(t_scan):.1f}; rounds 1-{ROUNDS} alone: sorted "
+        f"{1e3 * statistics.median(t_sorted[1:-1]):.4f} ms median, default "
+        f"{1e3 * statistics.median(t_scan[1:-1]):.4f}; host control plane {uni.stats['host_seconds']:.4f} s")
+    del run["uni"], uni
+    torch.cuda.empty_cache()
+
+    # Round 8 again on a fresh universe, under the profiler.
+    names = [f"replica{i}" for i in range(REPLICAS)]
+    batches = main_path_batches(run["wl"], REPLICAS, WRITERS)[: ROUNDS + 1]
+    with env(**SORTED):
+        uni = TorchUniverse(names, capacity=capacity, max_mark_ops=max_marks, device=DEVICE)
+        profile_round(label, uni, batches, t_sorted[ROUNDS])
+    del uni
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_window(replicas: int, full_replicas: int, samples: int) -> dict:
+    """The 10k-char document with hotspot edits on the sorted route,
+    windowed, against the writers, the default route (the kernels) and a
+    full-table leg."""
+    label = "phase 9"
+    t0 = time.perf_counter()
+    wl = make_writer_rounds(LARGE_DOC_LEN, OPS_PER_ROUND, WRITERS, ROUNDS, True, seed=4, locality=HOTSPOT)
+    expect = [w.get_text_with_formatting(["text"]) for w in wl["writers"]]
+    expect_text = ["".join(s["text"] for s in e) for e in expect]
+    if not all(any(s["marks"] for s in e) for e in expect):
+        raise AssertionError(f"[{label}] a writer's document carries no marks: the check proves nothing")
+    log(f"{label}: workload built in {time.perf_counter() - t0:.2f} s (host); {WRITERS} writers, "
+        f"{ROUNDS} rounds of {OPS_PER_ROUND} ops in a {HOTSPOT}-char hotspot each")
+    names = [f"replica{i}" for i in range(replicas)]
+    batches = [[[wl["genesis"]]] * replicas] + [[rnd[r % WRITERS] for r in range(replicas)] for rnd in wl["rounds"]]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with env(**SORTED):
+        uni = TorchUniverse(names, capacity=LARGE_CAPACITY, max_mark_ops=128, device=DEVICE)
+        times, host = drive(uni, batches)
+    launches = dict(cuda_kernels.LAUNCHES)
+    if any(n != uni.stats["scan_fallbacks"] for n in launches.values()) or any(PLAIN_CALLS.values()):
+        raise AssertionError(f"[{label}] launch counts {launches} (plain calls {PLAIN_CALLS}) != "
+                             f"scan fallbacks {uni.stats['scan_fallbacks']}")
+    if uni.stats["windowed_launches"] < 1:
+        raise AssertionError(f"[{label}] the window never engaged: {uni.stats}")
+    digests = uni.digests()
+    for w in range(WRITERS):
+        if len(set(digests[w::WRITERS].tolist())) != 1:
+            raise AssertionError(f"[{label}] writer {w}'s replicas disagree")
+    texts = uni.texts()
+    bad = [r for r, t in enumerate(texts) if t != expect_text[r % WRITERS]]
+    if bad:
+        raise AssertionError(f"[{label}] {len(bad)} replicas' text differs from their writer's (first {bad[0]})")
+    step = max(1, replicas // samples)
+    for r in list(range(0, replicas, step))[:samples] + [replicas - 1]:
+        if uni.spans(r) != expect[r % WRITERS]:
+            raise AssertionError(f"[{label}] replica {r}'s spans differ from its writer's")
+    log(f"  windowed: R={replicas} C={uni.capacity} M={uni.max_mark_ops}; launches={launches} "
+        f"scan_fallbacks={uni.stats['scan_fallbacks']} windowed_launches={uni.stats['windowed_launches']} "
+        f"window_fallbacks={uni.stats['window_fallbacks']} window_rebuilds={uni.stats['window_rebuilds']} "
+        f"window_census_skips={uni.stats['window_census_skips']}; digests, texts and {samples + 1} "
+        f"replicas' spans equal the writers'; host control plane {uni.stats['host_seconds']:.4f} s")
+    log_peak(f"  [{label}] windowed leg")
+
+    # The same rounds on the default route, every replica: both kernels
+    # launch once per merge.
+    reset_counts()
+    scan = TorchUniverse(names, capacity=LARGE_CAPACITY, max_mark_ops=128, device=DEVICE)
+    scan_times, scan_host = drive(scan, batches)
+    scan_launches = dict(cuda_kernels.LAUNCHES)
+    if any(n != scan.stats["launches"] for n in scan_launches.values()) or any(PLAIN_CALLS.values()):
+        raise AssertionError(f"[{label}] default-route launch counts {scan_launches} (plain calls "
+                             f"{PLAIN_CALLS}) != merges {scan.stats['launches']}")
+    same_fields(label, scan.states, uni.states)
+    log(f"  default route (the kernels) on all {replicas} replicas: all {len(FIELDS)} state fields equal the "
+        f"windowed universe's; launches={scan_launches}")
+    del scan
+    torch.cuda.empty_cache()
+    log_peak(f"  [{label}] default-route leg")
+
+    # The full table on the first full_replicas replicas (a depth cut).
+    with env(**SORTED, PERITEXT_MERGE_WINDOW="0"):
+        full = TorchUniverse(names[:full_replicas], capacity=LARGE_CAPACITY, max_mark_ops=128, device=DEVICE)
+        full_times, full_host = drive(full, batches)
+    if full.stats["windowed_launches"] != 0:
+        raise AssertionError(f"[{label}] the full-table leg windowed: {full.stats}")
+    same_fields(label, full.states, map_state(lambda x: x[:full_replicas], uni.states))
+    log(f"  full-table leg on replicas 0-{full_replicas - 1}: all {len(FIELDS)} state fields equal the "
+        f"windowed universe's rows; scan_fallbacks={full.stats['scan_fallbacks']}")
+    log(f"  round ms (genesis, rounds 1-{ROUNDS}), windowed R={replicas} / default route R={replicas} / "
+        f"full table R={full_replicas}: " + "; ".join(
+            f"{1e3 * a:.4f} / {1e3 * b:.4f} / {1e3 * c:.4f}" for a, b, c in zip(times, scan_times, full_times)))
+    log("  host control plane ms per round, windowed / default route / full table: " + "; ".join(
+        f"{1e3 * a:.4f} / {1e3 * b:.4f} / {1e3 * c:.4f}" for a, b, c in zip(host, scan_host, full_host)))
+    log(f"  rounds 1-{ROUNDS} median: windowed {1e3 * statistics.median(times[1:]):.4f} ms at R={replicas} "
+        f"(host {1e3 * statistics.median(host[1:]):.4f}), default route "
+        f"{1e3 * statistics.median(scan_times[1:]):.4f} ms at R={replicas} "
+        f"(host {1e3 * statistics.median(scan_host[1:]):.4f}), full table "
+        f"{1e3 * statistics.median(full_times[1:]):.4f} ms at R={full_replicas} "
+        f"(host {1e3 * statistics.median(full_host[1:]):.4f})")
+    out = {"launches": {k: launches[k] + scan_launches[k] for k in launches}, "round_seconds": times,
+           "scan_round_seconds": scan_times, "full_round_seconds": full_times}
+    del uni, full
+    torch.cuda.empty_cache()
+    # Round 8 of the windowed universe again on a fresh one, under the profiler.
+    with env(**SORTED):
+        uni = TorchUniverse(names, capacity=LARGE_CAPACITY, max_mark_ops=128, device=DEVICE)
+        profile_round(label, uni, batches, times[-1])
+    del uni
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -562,17 +804,32 @@ def main() -> int:
                 log(f"  nvcc[{name}] {line.strip()}")
     card = card_line()
 
+    torch.cuda.reset_peak_memory_stats()
     results = phase_bench_shape(REPLICAS, ROUNDS, runs=10)
+    log_peak("phase 2")
     phase_large_shape(REPLICAS, runs=10)
+    log_peak("phase 3")
     main = phase_main_path("phase 4", REPLICAS, DOC_LEN, WRITERS, ROUNDS, 2048, 1024,
-                           samples=8, seed=1)
-    past = phase_main_path("phase 5", 64, 8300, 2, 2, 8192, 256, samples=8, seed=2)
+                           samples=8, seed=1, scan=True)
+    log_peak("phase 4")
+    past = phase_main_path("phase 5", 64, 8300, 2, 2, 8192, 256, samples=8, seed=2, scan=True)
     if past["capacity"] != LARGE_CAPACITY or past["growths"] < 1 or past["max_length"] <= 8192:
         raise AssertionError(f"phase 5 did not grow past 8192 elements: {past}")
-    launches = {name: main["launches"][name] + past["launches"][name] for name in results}
+    del past["uni"]
+    log_peak("phase 5")
     count_plain_calls()
     phase_patch_path(REPLICAS, 64, main["round_seconds"], samples=8)
+    log_peak("phase 6")
     phase_doc(edits=200, sync_every=10)
+    log_peak("phase 7")
+    sorted_run = phase_sorted_path(main, 2048, 1024, samples=8)
+    del main["uni"]
+    torch.cuda.empty_cache()
+    log_peak("phase 8")
+    window = phase_window(REPLICAS, 64, samples=8)
+    log_peak("phase 9")
+    launches = {name: sum(run["launches"][name] for run in (main, past, sorted_run, window))
+                for name in results}
 
     replaces = {
         "text_phase": "peritext_tpu/ops/pallas_kernels.py:152",

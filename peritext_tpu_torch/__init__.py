@@ -4,10 +4,14 @@ A batch of rich-text CRDT replicas resident on an NVIDIA GPU.  The batched
 exact merge runs through two hand-written CUDA kernels
 (``ops/cuda_kernels.py``, sources in ``csrc/``), each held byte-for-byte
 against a plain PyTorch version (``ops/kernels.py``) and, in the tests,
-against the JAX package.  ``TorchUniverse.apply_changes_with_patches`` and
-``TorchDoc`` emit the reference patch stream through the exact per-op loop
-(``ops/kernels.py``, plain torch on the card).  Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+against the JAX package.  ``TorchUniverse.apply_changes`` runs that merge
+by default; under ``PERITEXT_MERGE_PATH=sorted`` it runs the JAX package's
+default merge (sort-based placement, the batched mark phase and the
+frontier-bounded window; ``ops/sorted_merge.py``, ``ops/window.py``,
+plain torch on the card) with the kernels' exact merge as its fallback.
+``TorchUniverse.apply_changes_with_patches`` and ``TorchDoc`` emit the
+reference patch stream through the exact per-op loop (``ops/kernels.py``).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from peritext_tpu_torch.ops.doc import TorchDoc
 from peritext_tpu_torch.ops.state import DocState, state_from_numpy, state_to_numpy

@@ -10,6 +10,7 @@ held against an oracle twin.
 """
 from __future__ import annotations
 
+import copy
 import math
 import random
 import time
@@ -119,6 +120,52 @@ def _writer_changes(
     return changes
 
 
+def _local_op(rng: random.Random, writer: Doc, kind: str, hot: int, width: int) -> Optional[Dict[str, Any]]:
+    """One op with every index confined to the [hot, hot+width) hotspot —
+    the editor-caret locality pattern (a copy of the JAX package's
+    ``bench/workloads._local_op``)."""
+    length = _text_len(writer)
+    if length == 0:
+        return None
+    lo = min(hot, length - 1)
+    hi = min(hot + width, length)
+    if kind == "insert":
+        idx = lo + rng.randrange(max(1, hi - lo))
+        values = [rng.choice("abcdefghijklmnopqrstuvwxyz ") for _ in range(rng.randrange(1, 7))]
+        return {"path": ["text"], "action": "insert", "index": min(idx, length), "values": values}
+    if kind == "remove":
+        if hi <= lo:
+            return None
+        return {"path": ["text"], "action": "delete", "index": lo + rng.randrange(hi - lo), "count": 1}
+    start = lo + rng.randrange(max(1, hi - lo))
+    end = min(start + rng.randrange(1, max(2, width // 4)), length)
+    if end <= start:
+        return None
+    return {"path": ["text"], "action": "addMark", "startIndex": start, "endIndex": end,
+            "markType": rng.choice(["strong", "em"])}
+
+
+def _local_writer_changes(
+    rng: random.Random, writer: Doc, op_budget: int, with_marks: bool, locality: int
+) -> List[Dict[str, Any]]:
+    """One writer's changes worth at least ``op_budget`` internal ops, every
+    index inside one ``locality``-char hotspot drawn for the stream (the
+    op mix and hotspot rule of the JAX package's ``_make_patched_stream``
+    with ``locality``)."""
+    kinds = ["insert", "insert", "remove"] + (["addMark"] if with_marks else [])
+    hot = rng.randrange(max(1, _text_len(writer) - locality))
+    changes: List[Dict[str, Any]] = []
+    n_ops = 0
+    while n_ops < op_budget:
+        op = _local_op(rng, writer, rng.choice(kinds), hot, locality)
+        if op is None:
+            continue
+        change, _ = writer.change([op])
+        n_ops += len(change["ops"])
+        changes.append(change)
+    return changes
+
+
 def _genesis(rng: random.Random, doc_len: int) -> Dict[str, Any]:
     base = Doc("base")
     text = "".join(rng.choice("abcdefghijklmnopqrstuvwxyz ") for _ in range(doc_len))
@@ -159,20 +206,33 @@ def make_writer_rounds(
     rounds: int = 8,
     with_marks: bool = True,
     seed: int = 0,
+    locality: int = 0,
 ) -> Dict[str, Any]:
     """Chained rounds: each round, each writer makes ``ops_per_round``
     concurrent ops on its own copy (writers never see each other).
-    Returns ``genesis`` and ``rounds`` ([round][writer] -> changes)."""
+    ``locality`` > 0 keeps each writer's indices in one hotspot of that
+    many chars per round (``_local_writer_changes``), where the
+    frontier-bounded window engages.  Returns ``genesis``, ``rounds``
+    ([round][writer] -> changes) and the ``writers``' oracle docs."""
     rng = random.Random(seed)
     genesis = _genesis(rng, doc_len)
-    writers = [Doc(f"writer{s}") for s in range(num_writers)]
-    for w in writers:
-        w.apply_change(genesis)
-    per_round = [
-        [_writer_changes(rng, w, ops_per_round, with_marks) for w in writers]
-        for _ in range(rounds)
-    ]
-    return {"genesis": genesis, "rounds": per_round}
+    # Only the actor id tells writers apart after the genesis, so one doc
+    # applies it (an O(n^2) integration in the oracle) and the rest copy it.
+    first = Doc("writer0")
+    first.apply_change(genesis)
+    writers = [first]
+    for s in range(1, num_writers):
+        w = copy.deepcopy(first)
+        w.actor_id = f"writer{s}"
+        writers.append(w)
+
+    def stream(w: Doc) -> List[Dict[str, Any]]:
+        if locality:
+            return _local_writer_changes(rng, w, ops_per_round, with_marks, locality)
+        return _writer_changes(rng, w, ops_per_round, with_marks)
+
+    per_round = [[stream(w) for w in writers] for _ in range(rounds)]
+    return {"genesis": genesis, "rounds": per_round, "writers": writers}
 
 
 def doc_session(

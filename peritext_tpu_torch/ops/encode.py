@@ -13,6 +13,7 @@ handling: the device engine's data plane is the text list.
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -353,6 +354,19 @@ def pad_rows(rows: np.ndarray, length: int) -> np.ndarray:
     out = np.zeros((length, K.OP_FIELDS), np.int32)
     out[: rows.shape[0]] = rows
     return out
+
+
+def env_int(name: str, default: str, least: int) -> int:
+    """An integer knob from the environment, with the JAX package's errors:
+    not an integer, or below ``least``, raises ValueError naming it."""
+    raw = os.environ.get(name, default)
+    try:
+        v = int(raw)
+    except ValueError:
+        raise ValueError(f"{name} must be an integer, got {raw!r}")
+    if v < least:
+        raise ValueError(f"{name} must be >= {least}, got {v}")
+    return v
 
 
 def bucket_length(n: int, minimum: int = 8) -> int:

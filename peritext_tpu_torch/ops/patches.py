@@ -15,7 +15,7 @@ import numpy as np
 
 from peritext_tpu_torch import schema
 from peritext_tpu_torch.ops import kernels as K
-from peritext_tpu_torch.ops.encode import AttrRegistry, bucket_length
+from peritext_tpu_torch.ops.encode import AttrRegistry, bucket_length, env_int
 from peritext_tpu_torch.oracle.doc import ops_to_marks
 
 
@@ -37,14 +37,7 @@ def initial_span_cap() -> int:
     (``PERITEXT_PATCH_SPAN_CAP``, default 8, pow2-bucketed).  A mark op's
     patch count depends on the data, so the cap adapts: a batch that
     overflows it re-reads via planes and the universe grows its cap."""
-    raw = os.environ.get("PERITEXT_PATCH_SPAN_CAP", "8")
-    try:
-        cap = int(raw)
-    except ValueError:
-        raise ValueError(f"PERITEXT_PATCH_SPAN_CAP must be an integer, got {raw!r}")
-    if cap < 1:
-        raise ValueError(f"PERITEXT_PATCH_SPAN_CAP must be >= 1, got {cap}")
-    return bucket_length(cap, minimum=1)
+    return bucket_length(env_int("PERITEXT_PATCH_SPAN_CAP", "8", 1), minimum=1)
 
 
 def decode_mask_row(

@@ -1,32 +1,45 @@
 """TorchUniverse: a batch of document replicas resident on a GPU.
 
-Counterpart of ``peritext_tpu/ops/universe.py``'s ``TpuUniverse`` on its
-exact per-op merge path (``PERITEXT_MERGE_PATH=scan`` there).  A universe
-holds R replica states stacked into one [R, ...] ``DocState`` of torch
-tensors, shares actor/attr interning across the batch, and ingests
-causally-gated change batches with one merge per call: the text kernel,
-the boundary permute, the mark kernel and the mark-table append
-(``cuda_kernels.merge_step_full``).  ``apply_changes_with_patches`` also
-emits each replica's reference patch stream, through the per-op loop
-``kernels.apply_ops_patched`` (plain torch on the universe's device: the
-JAX package runs that path as an XLA scan, with no Pallas kernel).
+Counterpart of ``peritext_tpu/ops/universe.py``'s ``TpuUniverse``.  A
+universe holds R replica states stacked into one [R, ...] ``DocState`` of
+torch tensors, shares actor/attr interning across the batch, and ingests
+causally-gated change batches with one merge per call.
+
+``apply_changes`` runs, by default, the exact per-op merge with the two
+CUDA kernels (``cuda_kernels.merge_step_full``: text kernel, boundary
+permute, mark kernel, table append).  ``PERITEXT_MERGE_PATH=sorted``
+selects the JAX package's default route instead, as
+``TpuUniverse.apply_changes`` takes it: sort-based placement and the
+batched mark phase (``sorted_merge.merge_step_sorted_batch``), inside the
+frontier-bounded window when the host census bounds the batch
+(``sorted_merge.merge_step_sorted_windowed_batch``, ``ops/window.py``), and
+the kernels' merge for batches deeper than ``PERITEXT_SORTED_MAX_ROUNDS``
+(counted in ``stats["scan_fallbacks"]``).  On an H100 the sorted route is
+several times slower than the kernels' (``PERF.md``), so it is not the
+default.  ``apply_changes_with_patches``
+emits each replica's reference patch stream through the per-op loop
+``kernels.apply_ops_patched``.  The sorted, windowed and patch paths are
+plain torch on the universe's device: the JAX package runs them as XLA,
+with no Pallas kernel.
 
 Host responsibilities (the control plane): causal ordering and the
 seq/deps gate per replica, wire-op encoding and interning, capacity
-pre-checks with re-bucketing, the host object store, and span decoding.
-Device responsibilities (the data plane): all per-op document mutation,
+pre-checks with re-bucketing, the window census over a host mirror of the
+committed element ids, the host object store, and span decoding.  Device
+responsibilities (the data plane): all per-op document mutation,
 boundary-set algebra, mark resolution and digests.
 
-Not here yet (the JAX universe has them): the sorted and windowed merges
-and patch paths, launch retries, degradation, fault injection, breakers,
-telemetry and fleet elasticity.  A failed launch raises, and the control
-plane commits nothing.
+Not here yet (the JAX universe has them): the sorted and windowed patch
+paths, launch retries, degradation, fault injection, breakers, telemetry
+and fleet elasticity.  A failed launch raises, and the control plane
+commits nothing.
 """
 from __future__ import annotations
 
 import copy
 import hashlib
 import json
+import logging
 import math
 import os
 import time
@@ -38,11 +51,17 @@ import torch
 from peritext_tpu_torch import schema
 from peritext_tpu_torch.ids import ActorRegistry, make_op_id, parse_op_id
 from peritext_tpu_torch.ops import kernels as K
+from peritext_tpu_torch.ops import window as W
 from peritext_tpu_torch.ops.cuda_kernels import merge_step_full
+from peritext_tpu_torch.ops.sorted_merge import (
+    merge_step_sorted_batch,
+    merge_step_sorted_windowed_batch,
+)
 from peritext_tpu_torch.ops.encode import (
     AttrRegistry,
     bucket_length,
     encode_changes,
+    env_int,
     pad_rows,
     prepare_sorted_batch,
     split_rows,
@@ -72,6 +91,36 @@ from peritext_tpu_torch.runtime.sync import causal_order
 from peritext_tpu_torch.schema import allow_multiple_array
 
 Change = Dict[str, Any]
+
+_log = logging.getLogger(__name__)
+
+
+def _window_enabled() -> bool:
+    """``PERITEXT_MERGE_WINDOW``: default on; ``0`` pins the full table."""
+    return os.environ.get("PERITEXT_MERGE_WINDOW", "1") != "0"
+
+
+def _window_min_cap() -> int:
+    """Smallest capacity the window engages at (``PERITEXT_MERGE_WINDOW_MIN``,
+    default 512): below it the census and gather/scatter cost more than
+    the window saves."""
+    return env_int("PERITEXT_MERGE_WINDOW_MIN", "512", 1)
+
+
+# Census-rejection backoff (the JAX universe's PERITEXT_WINDOW_BACKOFF
+# default): after this many consecutive batches whose census plan_windows
+# rejected, the census and its mirror rebuild are skipped for twice as many
+# batches, which take the full table.
+_WINDOW_BACKOFF = 4
+
+
+def _merge_path() -> str:
+    """``PERITEXT_MERGE_PATH``: ``scan`` (the default, the kernels' exact
+    merge) or ``sorted`` (the JAX package's default route)."""
+    path = os.environ.get("PERITEXT_MERGE_PATH") or "scan"
+    if path not in ("scan", "sorted"):
+        raise ValueError(f"PERITEXT_MERGE_PATH must be 'scan' or 'sorted', got {path!r}")
+    return path
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -133,9 +182,22 @@ class TorchUniverse:
         self.max_mark_ops = max_mark_ops
         n = len(self.replica_ids)
         empty = make_empty_state(capacity, max_mark_ops, self.device)
-        self.states: DocState = map_state(
-            lambda x: x.unsqueeze(0).expand(n, *x.shape).contiguous(), empty
-        )
+        self._states_version = 0
+        self.states = map_state(lambda x: x.unsqueeze(0).expand(n, *x.shape).contiguous(), empty)
+        # Causal mirror of the window census: per-replica numpy copies of the
+        # committed element ids, tombstones and boundary definedness, keyed
+        # to the states token they were read from (``_states_token``).  Any
+        # path that assigns or writes ``states`` without splicing the mirror
+        # invalidates it, and the next census rebuilds it with one readback;
+        # windowed commits splice the merged windows in instead.  Byte-equal
+        # replicas share one mirror and one class id, so a converged fleet
+        # pays one census per (class, gate group).
+        self._mirror: Optional[List[W.Mirror]] = None
+        self._mirror_token: Any = None
+        self._mirror_class: List[Any] = []
+        self._mirror_class_counter = 0
+        self._window_reject_streak = 0
+        self._window_census_skip = 0
         # Host control-plane mirrors (never require a device sync).
         self.clocks: List[Dict[str, int]] = [dict() for _ in self.replica_ids]
         self.lengths = [0] * n
@@ -163,6 +225,15 @@ class TorchUniverse:
             "capacity_growths": 0,
             "changes_ingested": 0,
             "duplicates_dropped": 0,
+            # apply_changes' routes: batches deeper than the sorted path's
+            # round budget, windowed merges that committed, windowed merges
+            # the device census check rejected (relaunched full-table),
+            # mirror rebuilds, and batches the census backoff skipped.
+            "scan_fallbacks": 0,
+            "windowed_launches": 0,
+            "window_fallbacks": 0,
+            "window_rebuilds": 0,
+            "window_census_skips": 0,
             "readback_overflows": 0,
             # Wall time of the host control plane (gate, encode, fuse, pad,
             # upload, commit); the merge itself is asynchronous on the card.
@@ -174,6 +245,29 @@ class TorchUniverse:
             "patch_readback_seconds": 0.0,
             "patch_assemble_seconds": 0.0,
         }
+
+    # -- the states and their version ----------------------------------------
+
+    @property
+    def states(self) -> DocState:
+        return self._states
+
+    @states.setter
+    def states(self, value: DocState) -> None:
+        self._states = value
+        self._states_version += 1
+
+    def _states_token(self) -> Any:
+        """Changes whenever ``states`` is assigned or one of its tensors is
+        written in place (torch's per-tensor version counter).  Tensors
+        that keep no counter (inference mode) give a token equal to
+        nothing, so the mirror is always rebuilt."""
+        try:
+            return (self._states_version,) + tuple(
+                getattr(self._states, f)._version for f in FIELDS
+            )
+        except RuntimeError:
+            return object()
 
     # -- capacity management ------------------------------------------------
 
@@ -377,6 +471,107 @@ class TorchUniverse:
             raise ValueError("need one change list per replica")
         return batches
 
+    # -- frontier-bounded window: host census and causal mirror -------------
+
+    def _mirrors(self) -> List[W.Mirror]:
+        """Per-replica causal mirrors, rebuilt with one readback whenever
+        the states changed since the last windowed commit."""
+        if self._mirror is not None and self._mirror_token == self._states_token():
+            return self._mirror
+        ec, ea, dl, bd = (
+            _numpy(getattr(self.states, f)) for f in ("elem_ctr", "elem_act", "deleted", "bnd_def")
+        )
+        mirrors: List[W.Mirror] = []
+        classes: List[Any] = []
+        shared: Dict[str, W.Mirror] = {}
+        for r, n in enumerate(self.lengths):
+            parts = (ec[r, :n], ea[r, :n], dl[r, :n], bd[r, : 2 * n])
+            digest = hashlib.sha1(b"".join(p.tobytes() for p in parts)).hexdigest()
+            m = shared.get(digest)
+            if m is None:
+                m = shared[digest] = W.make_mirror(*(p.copy() for p in parts))
+            mirrors.append(m)
+            classes.append(digest)
+        self._mirror = mirrors
+        self._mirror_class = classes
+        self._mirror_token = self._states_token()
+        self.stats["window_rebuilds"] += 1
+        return mirrors
+
+    def _window_plan(self, prep: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """The window plan of a prepared batch, or None for the full table
+        (``TpuUniverse._window_plan``): off under PERITEXT_MERGE_WINDOW=0,
+        under replica chunking (PERITEXT_SORTED_CHUNK or
+        PERITEXT_PATCH_CHUNK set), below PERITEXT_MERGE_WINDOW_MIN, when a
+        replica with rows has an empty document, while the census backoff
+        skips, and when plan_windows cannot bound the batch or its window
+        would cover over half the table."""
+        if not _window_enabled():
+            return None
+        if os.environ.get("PERITEXT_SORTED_CHUNK") or os.environ.get("PERITEXT_PATCH_CHUNK"):
+            return None
+        if self.capacity < _window_min_cap():
+            return None
+        groups, group_of = prep["groups"], prep["group_of"]
+        n = len(self.replica_ids)
+        rows_of = [groups[group_of[r]]["rows"] for r in range(n)]
+        ins_of = [int(groups[group_of[r]]["inserts"]) for r in range(n)]
+        # Genesis fast-reject before the mirror readback: the census of an
+        # empty document with rows always fails.
+        if any(self.lengths[r] == 0 and rows_of[r].shape[0] for r in range(n)):
+            return None
+        if self._window_census_skip > 0:
+            self._window_census_skip -= 1
+            self.stats["window_census_skips"] += 1
+            return None
+        mirrors = self._mirrors()
+        keys = [(self._mirror_class[r], int(group_of[r])) for r in range(n)]
+        plan = W.plan_windows(
+            mirrors, rows_of, ins_of, self._ranks(), self.capacity, _window_min_cap(),
+            census_keys=keys,
+        )
+        if plan is None:
+            self._window_reject_streak += 1
+            if self._window_reject_streak >= _WINDOW_BACKOFF:
+                self._window_census_skip = 2 * _WINDOW_BACKOFF
+                self._window_reject_streak = 0
+        else:
+            self._window_reject_streak = 0
+        return plan
+
+    def _mirror_commit(self, wplan: Dict[str, Any], wrec: Dict[str, np.ndarray], prep: Dict[str, Any]) -> None:
+        """Splice a windowed merge's window readback into the mirrors and key
+        them to the just-committed states.  Members of one (mirror class,
+        gate group) share the spliced mirror and a new class id."""
+        groups, group_of = prep["groups"], prep["group_of"]
+        starts, hulls = wplan["starts"], wplan["hulls"]
+        mirrors = self._mirror
+        shared: Dict[Any, Tuple[W.Mirror, int]] = {}
+        for r in range(len(self.replica_ids)):
+            hull = int(hulls[r])
+            ins = int(groups[group_of[r]]["inserts"])
+            if hull == 0 and ins == 0:
+                continue
+            key = (self._mirror_class[r], int(group_of[r]))
+            hit = shared.get(key)
+            if hit is None:
+                self._mirror_class_counter += 1
+                spliced = W.splice_mirror(
+                    mirrors[r], int(starts[r]), hull, hull + ins,
+                    wrec["w_ctr"][r], wrec["w_act"][r], wrec["w_del"][r], wrec["w_def"][r],
+                )
+                hit = shared[key] = (spliced, self._mirror_class_counter)
+            mirrors[r], self._mirror_class[r] = hit
+        self._mirror_token = self._states_token()
+
+    def _window_fallback(self) -> None:
+        """Count a windowed merge the device census check rejected: its
+        result is discarded and the full table runs (correctness never
+        rests on the census).  It ran, so it counts as a launch."""
+        self.stats["window_fallbacks"] += 1
+        self.stats["launches"] += 1
+        _log.warning("windowed merge census check failed on device; relaunching the full-table path")
+
     def apply_changes(
         self, per_replica: Dict[str, Sequence[Change]] | List[Sequence[Change]]
     ) -> None:
@@ -385,11 +580,21 @@ class TorchUniverse:
         Gate + encode run first for all replicas against clock copies; the
         control plane (clocks, lengths, host stores) commits only after the
         merge, so a causally-unready change in one replica's batch never
-        strands another replica's clock ahead of its device state.  Text
-        rows are fused into insert runs of at most MAX_RUN_LEN and applied
-        in causal order by the text kernel; mark rows by the mark kernel.
+        strands another replica's clock ahead of its device state.
+
+        By default the batch runs the exact per-op merge with the two CUDA
+        kernels, its runs fused to MAX_RUN_LEN.  Under
+        ``PERITEXT_MERGE_PATH=sorted`` the merge is chosen as
+        ``TpuUniverse.apply_changes`` chooses it by default: text rows fuse
+        into unbounded insert runs and place in O(reference depth) rounds
+        (``merge_step_sorted_batch``), inside the census window when one is
+        planned; a window the device check rejects is counted and
+        relaunched on the full table, and a batch deeper than
+        ``PERITEXT_SORTED_MAX_ROUNDS`` (default 8) takes the kernels'
+        merge, counted in ``stats["scan_fallbacks"]``.
         """
         t_host = time.perf_counter()
+        use_scan = _merge_path() == "scan"
         batches = self._normalize_batches(per_replica)
         prep = self._prepare(batches)
         groups, group_of = prep["groups"], prep["group_of"]
@@ -406,15 +611,21 @@ class TorchUniverse:
             self._commit(prep)
             self.stats["host_seconds"] += time.perf_counter() - t_host
             return
-        fused = prepare_sorted_batch(
-            text_rows_list, max_run=K.MAX_RUN_LEN, fallback_max_rounds=None
+        sorted_prep = prepare_sorted_batch(
+            text_rows_list,
+            max_run=K.MAX_RUN_LEN if use_scan else 0,
+            fallback_max_rounds=None if use_scan else env_int("PERITEXT_SORTED_MAX_ROUNDS", "8", 0),
         )
+        if sorted_prep["fell_back"]:
+            use_scan = True
+            self.stats["scan_fallbacks"] += 1
         mark_pad = bucket_length(max(max(m.shape[0] for m in mark_rows_list), 1))
         g_mark = np.stack([pad_rows(rows, mark_pad) for rows in mark_rows_list])
-        pad_per_group = (fused["text"][:, :, K.K_KIND] == K.KIND_PAD).sum(axis=1) + (
+        pad_per_group = (sorted_prep["text"][:, :, K.K_KIND] == K.KIND_PAD).sum(axis=1) + (
             g_mark[:, :, K.K_KIND] == K.KIND_PAD
         ).sum(axis=1)
         self.stats["rows_padded"] += int((pad_per_group * sizes).sum())
+        wplan = None if use_scan else self._window_plan(prep)
 
         # Upload one copy per group; the replica batch is a device gather.
         idx = torch.from_numpy(group_of.astype(np.int64)).to(self.device)
@@ -422,14 +633,37 @@ class TorchUniverse:
         def per_replica_rows(a: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(a).to(self.device).index_select(0, idx).contiguous()
 
-        args = (
-            per_replica_rows(fused["text"]),
-            per_replica_rows(g_mark),
-            self._ranks_device(),
-            per_replica_rows(fused["bufs"]),
-        )
+        text = per_replica_rows(sorted_prep["text"])
+        marks = per_replica_rows(g_mark)
+        bufs = per_replica_rows(sorted_prep["bufs"])
+        ranks = self._ranks_device()
+        if not use_scan:
+            rounds = per_replica_rows(sorted_prep["rounds"])
+            sorted_args = (text, rounds, sorted_prep["num_rounds"], marks, ranks, bufs, sorted_prep["maxk"])
         self.stats["host_seconds"] += time.perf_counter() - t_host
-        self.states = merge_step_full(self.states, *args)
+
+        if wplan is not None:
+            starts, hulls = (torch.from_numpy(wplan[k]).to(self.device) for k in ("starts", "hulls"))
+            new_states, wrec = merge_step_sorted_windowed_batch(
+                self.states, starts, hulls, *sorted_args, wplan["w_cap"]
+            )
+            # The verdict and mirror readback is this path's barrier.
+            wrec_np = {k: _numpy(v) for k, v in wrec.items()}
+            if wrec_np["wok"].all():
+                self.states = new_states
+                self.stats["launches"] += 1
+                self.stats["windowed_launches"] += 1
+                t_host = time.perf_counter()
+                self._mirror_commit(wplan, wrec_np, prep)
+                self._commit(prep)
+                self.stats["host_seconds"] += time.perf_counter() - t_host
+                return
+            self._window_fallback()
+
+        if use_scan:
+            self.states = merge_step_full(self.states, text, marks, ranks, bufs)
+        else:
+            self.states = merge_step_sorted_batch(self.states, *sorted_args)
         self.stats["launches"] += 1
         t_host = time.perf_counter()
         self._commit(prep)
@@ -441,14 +675,7 @@ class TorchUniverse:
     def _patch_chunk(n: int) -> int:
         """Replicas per patch-path launch (``PERITEXT_PATCH_CHUNK``, 0 or
         unset = all), equalized so the chunks differ by at most one."""
-        raw = os.environ.get("PERITEXT_PATCH_CHUNK", "0")
-        try:
-            chunk = int(raw)
-        except ValueError:
-            raise ValueError(f"PERITEXT_PATCH_CHUNK must be an integer, got {raw!r}")
-        if chunk < 0:
-            raise ValueError(f"PERITEXT_PATCH_CHUNK must be >= 0, got {chunk}")
-        chunk = chunk or n
+        chunk = env_int("PERITEXT_PATCH_CHUNK", "0", 0) or n
         return math.ceil(n / math.ceil(n / chunk))
 
     def _span_overflow(self, record_chunks: List[Dict[str, np.ndarray]], span_cap: int) -> bool:

@@ -4,9 +4,10 @@ references, runs that push elements off the end, capacities that are not a
 multiple of the block size, mark tables that overflow, end anchors left of
 start anchors, long delete runs across op tiles with duplicate ids and ids
 inserted later in the batch, and C = 16384.  Byte-equal or fail.  Then a
-``TorchUniverse`` on the card grows past 8192 elements against the oracle,
-the per-op patch path's records on the card equal those on the CPU, and a
-``TorchDoc`` session on the card equals the oracle.
+``TorchUniverse`` on the card grows past 8192 elements against the oracle
+on the scan path, the default path (sorted, windowed or not) equals the
+scan path at C = 4096, the per-op patch path's records on the card equal
+those on the CPU, and a ``TorchDoc`` session on the card equals the oracle.
 
 Needs a CUDA device; without one every test skips.  This file imports no
 JAX, so it runs where JAX is absent:
@@ -252,11 +253,12 @@ def test_wrappers_check_their_inputs(card):
         )
 
 
-def test_universe_on_the_card_grows_past_8192(card):
+def test_universe_on_the_card_grows_past_8192(card, monkeypatch):
     """Two replicas ingest an 8300-char genesis, one round of two concurrent
-    writers each and then each other's round: the universe re-buckets from
-    C = 8192 to 16384, both kernels run there, and the result is the
-    oracle's."""
+    writers each and then each other's round on the scan path: the
+    universe re-buckets from C = 8192 to 16384, both kernels run there, and
+    the result is the oracle's."""
+    monkeypatch.setenv("PERITEXT_MERGE_PATH", "scan")
     wl = make_writer_rounds(doc_len=8300, ops_per_round=32, num_writers=2, rounds=1, seed=3)
     (w0, w1), = wl["rounds"]
     uni = TorchUniverse(["a", "b"], capacity=8192, max_mark_ops=64, device=card)
@@ -276,6 +278,48 @@ def test_universe_on_the_card_grows_past_8192(card):
     assert uni.texts() == ["".join(s["text"] for s in expect)] * 2
     assert uni.spans_batch() == [expect, expect]
     assert len(set(uni.digests().tolist())) == 1
+
+
+@pytest.mark.parametrize("window", ["1", "0"])
+def test_sorted_universe_on_the_card_equals_the_scan_path(card, monkeypatch, window):
+    """At C = 4096, eight replicas follow four writers editing 128-char
+    hotspots of a 3000-char document for three rounds, then merge all to
+    all.  The sorted route (PERITEXT_MERGE_PATH=sorted, windowed unless
+    PERITEXT_MERGE_WINDOW=0) gives the default scan path's states field by
+    field and the writers' and the oracle's spans; it launches a merge
+    kernel only for a counted scan fallback."""
+    for var in ("PERITEXT_SORTED_CHUNK", "PERITEXT_PATCH_CHUNK", "PERITEXT_MERGE_WINDOW_MIN"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("PERITEXT_MERGE_WINDOW", window)
+    wl = make_writer_rounds(doc_len=3000, ops_per_round=32, num_writers=4, rounds=3, seed=5, locality=128)
+    names = [f"r{i}" for i in range(8)]
+    history = [[c for rnd in wl["rounds"] for c in rnd[w]] for w in range(4)]
+    steps = [[[wl["genesis"]]] * 8] + [[rnd[i % 4] for i in range(8)] for rnd in wl["rounds"]]
+    a2a = [[c for w in range(4) if w != i % 4 for c in history[w]] for i in range(8)]
+    unis = {}
+    for path in ("scan", "sorted"):
+        if path == "scan":
+            monkeypatch.delenv("PERITEXT_MERGE_PATH", raising=False)
+        else:
+            monkeypatch.setenv("PERITEXT_MERGE_PATH", "sorted")
+        uni = unis[path] = TorchUniverse(names, capacity=4096, max_mark_ops=256, device=card)
+        cuda_kernels.reset_launch_counts()
+        for batch in steps:
+            uni.apply_changes(batch)
+        if path == "sorted":
+            assert uni.stats["windowed_launches"] >= (1 if window == "1" else 0)
+            for r in range(8):
+                assert uni.spans(r) == wl["writers"][r % 4].get_text_with_formatting(["text"])
+        uni.apply_changes(a2a)
+        n = uni.stats["scan_fallbacks"] if path == "sorted" else uni.stats["launches"]
+        assert cuda_kernels.LAUNCHES == {"text_phase": n, "mark_phase": n}
+    a, b = state_to_numpy(unis["scan"].states), state_to_numpy(unis["sorted"].states)
+    assert all((a[f] == b[f]).all() for f in a)
+    oracle = Doc("oracle")
+    for c in [wl["genesis"], *(c for h in history for c in h)]:
+        oracle.apply_change(c)
+    assert unis["sorted"].spans_batch() == [oracle.get_text_with_formatting(["text"])] * 8
+    assert unis["sorted"].states.elem_ctr.device.type == "cuda"
 
 
 @pytest.mark.parametrize("readback", ["compact", "planes"])

@@ -125,7 +125,8 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax\b|jaxlib\b|peritext_tpu(\.|\s
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     code = (
         "import sys, peritext_tpu_torch, peritext_tpu_torch.bench.workloads, "
-        "peritext_tpu_torch.ops.cuda_kernels, peritext_tpu_torch.ops.doc\n"
+        "peritext_tpu_torch.ops.cuda_kernels, peritext_tpu_torch.ops.doc, "
+        "peritext_tpu_torch.ops.sorted_merge, peritext_tpu_torch.ops.window\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'peritext_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
