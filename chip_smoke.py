@@ -63,11 +63,38 @@ Phases, in order; any failure exits non-zero:
    (``PERITEXT_MERGE_WINDOW=0``) on the first 64, must equal the windowed
    universe's rows on all 13 fields.  Prints per-round ms of the three
    legs.
-10. Print the kernels' JSON summary (launches summed over phases 4, 5, 8
-   and 9; ``ms`` per wrapper call between CUDA events, ``device_ms`` the
-   kernel alone with a cold L2, both at phase 2), the card, and as the
-   last line ``{"ok": true, "device": {...}}``.  Peak device memory is
-   printed after every phase.
+10. The serving plane at the bench shape: ``ServePlane`` over a
+   1024-replica ``TorchUniverse`` (C = 2048, M = 1024) holding phase 4's
+   genesis, one session per replica.  Manual leg: rounds 1-2 of phase 4's
+   writer streams, each writer's 64 ops per round cut into changes of 8
+   ops (``split_rounds``), one submission per change, then ``drain()``.
+   Threaded leg (the scheduler thread, default batch target, 25 ms
+   deadline, telemetry on): 64 sessions take round 3, then
+   ``flush_and_wait``.  Each session's patches must equal its writer
+   class's oracle observer's, patch for patch; the accumulated stream its
+   spans; each class one digest.  Prints flushes, flush ms, submissions
+   per second, admit-to-applied p50/p95 and the plane's stats.
+11. Resilience and durability on the card: (a) a ``device_launch`` fault
+   absorbed by one retry on phase 4's round 1 at R = 1024, and a
+   ``device_readback`` fault after the merge under
+   ``PERITEXT_STRICT_COMMIT=1`` (the merge runs twice), each byte-equal
+   to a fault-free twin; (b) with ``PERITEXT_DEGRADE=1``, a fault past the
+   launch budget on one patched round at R = 64 degrades to the oracle,
+   byte-equal in fields and patches; (c) an open ``device_launch``
+   breaker under phase 10's plane: ``on_open="degrade"`` still serves the
+   observers' patches, ``on_open="hold"`` sheds past the deadline; (d)
+   ``save_universe``/``load_universe`` of phase 10's universe,
+   ``export_replica``/``import_replica`` into a fresh universe, and
+   ``resume_universe`` from the snapshot plus a ``ChangeLog`` tail through
+   the kernels, equal to the live universe and the oracle.
+12. Print the resilience counts of every phase (the script runs under
+   ``PERITEXT_DEGRADE=0`` but for legs (b) and (c); launch retries,
+   fast-fails and degraded batches must be 0 outside the legs that inject
+   them, which assert their exact counts), the kernels' JSON summary
+   (launches summed over phases 4, 5 and 8-11; ``ms`` per wrapper call
+   between CUDA events, ``device_ms`` the kernel alone with a cold L2,
+   both at phase 2), the card, and as the last line ``{"ok": true,
+   "device": {...}}``.  Peak device memory is printed after every phase.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -79,6 +106,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -93,12 +121,15 @@ from peritext_tpu_torch.bench.workloads import (
     insert_heavy_text_ops,
     make_merge_workload,
     make_writer_rounds,
+    split_rounds,
     text_row_mix,
 )
 from peritext_tpu_torch.ops import _build, cuda_kernels
 from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops.state import FIELDS, map_state
 from peritext_tpu_torch.oracle import Doc, accumulate_patches
+from peritext_tpu_torch.runtime import ChangeLog, ServePlane, ServeShedError, faults, health, telemetry
+from peritext_tpu_torch.runtime import checkpoint as ckpt
 from peritext_tpu_torch.runtime.sync import causal_order
 
 DOC_LEN = 1000
@@ -114,6 +145,11 @@ HOTSPOT = 256
 DEVICE = "cuda"
 # Selects the JAX package's default route (phases 8-9).
 SORTED = {"PERITEXT_MERGE_PATH": "sorted"}
+# Phase 10: internal ops per served change, and sessions of the threaded leg.
+SERVE_OPS = 8
+THREADED_SESSIONS = 64
+# Phase 11b: replicas of the degraded universe.
+DEGRADE_REPLICAS = 64
 
 
 def log(msg: str) -> None:
@@ -787,6 +823,339 @@ def phase_window(replicas: int, full_replicas: int, samples: int) -> dict:
     return out
 
 
+RESILIENCE = ("launch_retries", "fastfails", "degraded_batches")
+TALLY = dict.fromkeys(RESILIENCE, 0)
+PHASE_TALLIES = []
+
+
+class TalliedStats(dict):
+    """A universe's stats that also add their resilience counters to TALLY."""
+
+    def __setitem__(self, key, value):
+        if key in TALLY:
+            TALLY[key] += value - self.get(key, 0)
+        super().__setitem__(key, value)
+
+
+def tally_resilience() -> None:
+    """From here on every TorchUniverse (a TorchDoc's and a loaded one's
+    too) counts its launch retries, fast-fails and degraded batches into
+    TALLY."""
+    init = TorchUniverse.__init__
+
+    def counted(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        self.stats = TalliedStats(self.stats)
+
+    TorchUniverse.__init__ = counted
+
+
+@contextlib.contextmanager
+def resilience(label: str, **expected: int):
+    """Hold a block's resilience counts to exactly ``expected`` (0 where
+    unnamed): no fallback may hide a failing device."""
+    before = dict(TALLY)
+    yield
+    got = {k: TALLY[k] - before[k] for k in RESILIENCE}
+    want = {k: expected.get(k, 0) for k in RESILIENCE}
+    PHASE_TALLIES.append((label, got))
+    if got != want:
+        raise AssertionError(f"[{label}] resilience counts {got}, expected {want}")
+
+
+def add_launches(acc: dict) -> None:
+    """Add the kernels' counts since the last reset to ``acc``, and reset."""
+    for name, n in cuda_kernels.LAUNCHES.items():
+        acc[name] = acc.get(name, 0) + n
+    reset_counts()
+
+
+def serve_workload(rounds: int) -> dict:
+    """Phase 4's genesis and first ``rounds`` writer rounds, each writer's
+    64 ops per round cut into changes of SERVE_OPS ops."""
+    wl = make_writer_rounds(DOC_LEN, OPS_PER_ROUND, WRITERS, rounds, True, seed=1)
+    return {"genesis": wl["genesis"], "rounds": split_rounds(wl["rounds"], SERVE_OPS)}
+
+
+def quantile_ms(xs, q: float) -> float:
+    xs = sorted(xs)
+    return 1e3 * xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def phase_serving(replicas: int, threaded: int, samples: int) -> dict:
+    """ServePlane over a universe on the card: a manual leg at the full
+    width, then a threaded leg on ``threaded`` sessions."""
+    label = "phase 10"
+    t0 = time.perf_counter()
+    wl = serve_workload(3)
+    observers, prefix, per_round = observer_streams(wl, WRITERS, 0)
+    log(f"{label}: workload + {WRITERS} oracle observers built in {time.perf_counter() - t0:.2f} s (host); "
+        f"{len(wl['rounds'][0][0])} changes of {SERVE_OPS} ops per writer per round")
+    names = [f"replica{i}" for i in range(replicas)]
+    launches: dict = {}
+    reset_counts()
+    uni = TorchUniverse(names, capacity=2048, max_mark_ops=1024, device=DEVICE)
+    uni.apply_changes([[wl["genesis"]]] * replicas)
+    if any(n != uni.stats["launches"] for n in cuda_kernels.LAUNCHES.values()):
+        raise AssertionError(f"[{label}] genesis launches {cuda_kernels.LAUNCHES} != merges")
+    add_launches(launches)
+
+    # Manual leg: every session submits rounds 1-2, one change at a time.
+    plane = ServePlane(uni, start=False, batch_target=replicas)
+    sessions = [plane.session(f"s{r}", replica=n, record_stream=True) for r, n in enumerate(names)]
+    t = time.perf_counter()
+    n_subs = 0
+    for k in range(2):
+        for r, s in enumerate(sessions):
+            for c in wl["rounds"][k][r % WRITERS]:
+                s.submit([c])
+                n_subs += 1
+    flush_ms = []
+    while True:
+        t1 = time.perf_counter()
+        if not plane.step():
+            break
+        flush_ms.append(1e3 * (time.perf_counter() - t1))
+    if plane.drain() != 0:
+        raise AssertionError(f"[{label}] the manual plane did not drain")
+    manual_s = time.perf_counter() - t
+    no_kernel_or_plain_calls(label)
+    manual_stats = dict(plane.stats)
+    plane.close()
+    for r, s in enumerate(sessions):
+        if s.patch_log != per_round[r % WRITERS][0] + per_round[r % WRITERS][1]:
+            raise AssertionError(f"[{label}] session {r}'s patches differ from its observer's")
+    log(f"  manual leg: {replicas} sessions, rounds 1-2, {n_subs} submissions in {manual_s:.3f} s "
+        f"({n_subs / manual_s:.1f} submissions/s); {len(flush_ms)} flushes, flush ms "
+        f"{median_p95(flush_ms)}; every session's patches equal its observer's")
+    log(f"  manual plane stats: {manual_stats}")
+
+    # Threaded leg: the scheduler thread, default batch target, 25 ms deadline.
+    telemetry.reset()
+    telemetry.enable()
+    tplane = ServePlane(uni, deadline_ms=25.0)
+    tsessions = [tplane.session(f"t{r}", replica=names[r], record_stream=True) for r in range(threaded)]
+    t = time.perf_counter()
+    subs = [s.submit([c]) for r, s in enumerate(tsessions) for c in wl["rounds"][2][r % WRITERS]]
+    tplane.flush_and_wait(timeout=600.0)
+    threaded_s = time.perf_counter() - t
+    tplane.close()
+    snap = telemetry.snapshot()
+    telemetry.reset()
+    no_kernel_or_plain_calls(label)
+    threaded_stats = dict(tplane.stats)
+    e2e = [sub.t_done - sub.t0 for sub in subs]
+    est = telemetry.estimate_quantiles(snap["histograms"]["e2e.admit_to_applied"], (0.5, 0.95))
+    fl = telemetry.estimate_quantiles(snap["histograms"]["serve.flush_seconds"], (0.5, 0.95))
+    for r, s in enumerate(tsessions):
+        if s.patch_log != per_round[r % WRITERS][2]:
+            raise AssertionError(f"[{label}] threaded session {r}'s patches differ from its observer's")
+    log(f"  threaded leg: {threaded} sessions, round 3, {len(subs)} submissions in {threaded_s:.3f} s "
+        f"({len(subs) / threaded_s:.1f} submissions/s); admit-to-applied ms p50 {quantile_ms(e2e, 0.5):.4f} "
+        f"p95 {quantile_ms(e2e, 0.95):.4f} (each submission's future); telemetry e2e.admit_to_applied "
+        f"log2-bucket estimate p50 {1e3 * est['p50']:.4f} p95 {1e3 * est['p95']:.4f} ms; serve.flush_seconds "
+        f"estimate p50 {1e3 * fl['p50']:.4f} p95 {1e3 * fl['p95']:.4f} ms")
+    log(f"  threaded plane stats: {threaded_stats}")
+
+    # Streams accumulate to the spans; each class (and round) one digest.
+    digests = uni.digests()
+    for r in list(range(0, replicas, max(1, replicas // samples)))[:samples] + list(range(WRITERS)):
+        w = r % WRITERS
+        stream = prefix[w] + sessions[r].patch_log + (tsessions[r].patch_log if r < threaded else [])
+        if accumulate_patches(stream) != uni.spans(r):
+            raise AssertionError(f"[{label}] replica {r}'s accumulated stream differs from its spans")
+        if r < threaded and uni.spans(r) != observers[w].get_text_with_formatting(["text"]):
+            raise AssertionError(f"[{label}] replica {r}'s spans differ from its observer's")
+    for w in range(WRITERS):
+        for rows in (range(w, threaded, WRITERS), range(threaded + w, replicas, WRITERS)):
+            if len(set(digests[list(rows)].tolist())) != 1:
+                raise AssertionError(f"[{label}] writer {w}'s replicas disagree")
+    log(f"  accumulated streams equal the spans of {samples + WRITERS} sampled replicas; one digest per class")
+    return {"uni": uni, "wl": wl, "per_round": per_round, "launches": launches, "names": names,
+            "threaded": threaded}
+
+
+def phase_resilience(serve_run: dict, samples: int) -> dict:
+    """Retry, degrade, breaker and checkpoint legs on the card, each held
+    to the resilience counts it injects."""
+    label = "phase 11"
+    launches: dict = {}
+    wl = make_writer_rounds(DOC_LEN, OPS_PER_ROUND, WRITERS, 2, True, seed=1)
+    names = [f"replica{i}" for i in range(REPLICAS)]
+    rounds = [[rnd[r % WRITERS] for r in range(REPLICAS)] for rnd in wl["rounds"]]
+    reset_counts()
+    uni = TorchUniverse(names, capacity=2048, max_mark_ops=1024, device=DEVICE)
+    twin = TorchUniverse(names, capacity=2048, max_mark_ops=1024, device=DEVICE)
+    for u in (uni, twin):
+        u.apply_changes([[wl["genesis"]]] * REPLICAS)
+    for batch in rounds:
+        twin.apply_changes(batch)
+    add_launches(launches)
+
+    # (a) One device_launch fault: the failed attempt stops at the site,
+    # before its merge, so each kernel launches once.
+    with resilience(f"{label}a launch retry", launch_retries=1), \
+            faults.injected("device_launch:fail=1") as plan:
+        t = time.perf_counter()
+        uni.apply_changes(rounds[0])
+        torch.cuda.synchronize()
+        retry_ms = 1e3 * (time.perf_counter() - t)
+    if plan.stats["device_launch"]["failed"] != 1 or plan.stats["device_launch"]["fired"] != 2:
+        raise AssertionError(f"[{label}a] fault stats {plan.stats}")
+    if any(n != 1 for n in cuda_kernels.LAUNCHES.values()):
+        raise AssertionError(f"[{label}a] launches {cuda_kernels.LAUNCHES} != 1 (one merge after the retry)")
+    add_launches(launches)
+    # A device_readback fault after the merge ran (strict barrier): the
+    # merge runs twice from the same committed states.
+    with resilience(f"{label}a readback retry", launch_retries=1), env(PERITEXT_STRICT_COMMIT="1"), \
+            faults.injected("device_readback:fail=1"):
+        t = time.perf_counter()
+        uni.apply_changes(rounds[1])
+        torch.cuda.synchronize()
+        readback_ms = 1e3 * (time.perf_counter() - t)
+    if any(n != 2 for n in cuda_kernels.LAUNCHES.values()):
+        raise AssertionError(f"[{label}a] launches {cuda_kernels.LAUNCHES} != 2 (one merge per attempt)")
+    add_launches(launches)
+    same_fields(f"{label}a", uni.states, twin.states)
+    log(f"{label}a: R={REPLICAS}: a device_launch fault on round 1 retried once ({retry_ms:.4f} ms, each "
+        f"kernel launched once), a device_readback fault after round 2's merge under "
+        f"PERITEXT_STRICT_COMMIT=1 retried once ({readback_ms:.4f} ms, each kernel launched twice); all "
+        f"{len(FIELDS)} fields equal the fault-free twin's")
+    del uni, twin
+    torch.cuda.empty_cache()
+
+    # (b) Past the launch budget on one patched round at R=64: degrade.
+    n = DEGRADE_REPLICAS
+    deg = TorchUniverse(names[:n], capacity=2048, max_mark_ops=1024, device=DEVICE)
+    dtwin = TorchUniverse(names[:n], capacity=2048, max_mark_ops=1024, device=DEVICE)
+    for u in (deg, dtwin):
+        u.apply_changes([[wl["genesis"]]] * n)
+        u.apply_changes(rounds[0][:n])
+    add_launches(launches)
+    want = dtwin.apply_changes_with_patches(rounds[1][:n])
+    with resilience(f"{label}b degrade", launch_retries=2, degraded_batches=1), \
+            env(PERITEXT_DEGRADE="1", PERITEXT_LAUNCH_RETRIES="2"), faults.injected("device_launch:fail=99"):
+        t = time.perf_counter()
+        got = deg.apply_changes_with_patches(rounds[1][:n])
+        torch.cuda.synchronize()
+        degrade_ms = 1e3 * (time.perf_counter() - t)
+    if got != want:
+        raise AssertionError(f"[{label}b] the degraded patch streams differ from the fault-free twin's")
+    same_fields(f"{label}b", deg.states, dtwin.states)
+    log(f"{label}b: R={n}, one patched round past the launch budget (3 attempts): degraded to the oracle in "
+        f"{degrade_ms:.4f} ms; patch streams and all {len(FIELDS)} fields equal the fault-free twin's")
+    del deg, dtwin
+    torch.cuda.empty_cache()
+
+    # (c) An open device_launch breaker under phase 10's universe.
+    uni = serve_run["uni"]
+    per_round, threaded = serve_run["per_round"], serve_run["threaded"]
+    rows = list(range(threaded, threaded + WRITERS))
+    with health.guarded("device_launch:threshold=1,cooldown=600"):
+        health.breaker("device_launch").record_failure()
+        if health.breaker("device_launch").state != health.OPEN:
+            raise AssertionError(f"[{label}c] the breaker did not open")
+        plane = ServePlane(uni, start=False, batch_target=REPLICAS, on_open="degrade")
+        sessions = [plane.session(f"d{r}", replica=names[r], record_stream=True) for r in rows]
+        for r, s in zip(rows, sessions):
+            for c in serve_run["wl"]["rounds"][2][r % WRITERS]:
+                s.submit([c])
+        with resilience(f"{label}c breaker degrade", fastfails=1, degraded_batches=1), env(PERITEXT_DEGRADE="1"):
+            t = time.perf_counter()
+            if plane.drain() != 0 or plane.stats["flushes"] != 1:
+                raise AssertionError(f"[{label}c] degrade policy: {plane.stats}")
+            open_ms = 1e3 * (time.perf_counter() - t)
+        plane.close()
+        for r, s in zip(rows, sessions):
+            if s.patch_log != per_round[r % WRITERS][2]:
+                raise AssertionError(f"[{label}c] replica {r}'s degraded patches differ from its observer's")
+        hold = ServePlane(uni, start=False, deadline_ms=50.0, on_open="hold")
+        r = threaded + WRITERS
+        sub = hold.session("h", replica=names[r]).submit(serve_run["wl"]["rounds"][2][r % WRITERS])
+        with resilience(f"{label}c breaker hold"):
+            held = hold.step()
+            time.sleep(0.06)
+            shed = hold.step()
+        try:
+            sub.result(timeout=1.0)
+            raise AssertionError(f"[{label}c] the held submission was not shed")
+        except ServeShedError:
+            pass
+        if held or not shed or hold.stats["held"] < 1 or hold.stats["shed"] != len(sub.changes):
+            raise AssertionError(f"[{label}c] hold policy: {hold.stats}")
+        hold.close()
+    log(f"{label}c: breaker open under phase 10's plane: on_open=degrade served {WRITERS} sessions' round 3 "
+        f"through one fast-failed, degraded flush ({open_ms:.4f} ms) equal to the observers' patches; "
+        f"on_open=hold held the cohort, then shed {hold.stats['shed']} changes past the 50 ms deadline "
+        f"(ServeShedError)")
+    add_launches(launches)
+
+    # (d) Checkpoints of phase 10's universe.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "snap")
+        t = time.perf_counter()
+        ckpt.save_universe(uni, path)
+        save_ms = 1e3 * (time.perf_counter() - t)
+        size = os.path.getsize(path + ".npz") + os.path.getsize(path + ".json")
+        t = time.perf_counter()
+        loaded = ckpt.load_universe(path)
+        torch.cuda.synchronize()
+        load_ms = 1e3 * (time.perf_counter() - t)
+        same_fields(f"{label}d load", loaded.states, uni.states)
+        if loaded.clocks != uni.clocks or (loaded.digests() != uni.digests()).any():
+            raise AssertionError(f"[{label}d] the loaded universe's clocks or digests differ")
+        sample = list(range(0, REPLICAS, max(1, REPLICAS // samples)))[:samples] + rows
+        if any(loaded.spans(r) != uni.spans(r) for r in sample):
+            raise AssertionError(f"[{label}d] the loaded universe's spans differ")
+        del loaded
+        fresh = TorchUniverse([f"fresh{i}" for i in range(len(sample))], capacity=2048, max_mark_ops=1024,
+                              device=DEVICE)
+        t = time.perf_counter()
+        for i, r in enumerate(sample):
+            ckpt.import_replica(fresh, f"fresh{i}", ckpt.export_replica(uni, names[r]))
+        handoff_ms = 1e3 * (time.perf_counter() - t) / len(sample)
+        if (fresh.digests() != uni.digests()[sample]).any() or any(
+                fresh.spans(i) != uni.spans(r) for i, r in enumerate(sample)):
+            raise AssertionError(f"[{label}d] an imported replica differs from its source")
+        del fresh
+        # Every writer's changes in a log; resume replays what the snapshot lacks.
+        changelog = ChangeLog()
+        changelog.record(serve_run["wl"]["genesis"])
+        for w in range(WRITERS):
+            for rnd in serve_run["wl"]["rounds"]:
+                for c in rnd[w]:
+                    changelog.record(c)
+        add_launches(launches)
+        t = time.perf_counter()
+        resumed = ckpt.resume_universe(path, changelog)
+        torch.cuda.synchronize()
+        resume_ms = 1e3 * (time.perf_counter() - t)
+    resume_launches = dict(cuda_kernels.LAUNCHES)
+    if resumed.stats["launches"] != 1 or any(n != 1 for n in resume_launches.values()):
+        raise AssertionError(f"[{label}d] resume launches {resume_launches}, merges {resumed.stats['launches']}")
+    add_launches(launches)
+    frontier = changelog.clock()
+    uni.apply_changes({n: changelog.missing_changes(frontier, uni.clock(n)) for n in names})
+    add_launches(launches)
+    same_fields(f"{label}d resume", resumed.states, uni.states)
+    oracle = Doc("oracle")
+    for c in [serve_run["wl"]["genesis"]] + [c for w in range(WRITERS) for rnd in serve_run["wl"]["rounds"]
+                                             for c in rnd[w]]:
+        oracle.apply_change(c)
+    digests = resumed.digests()
+    if len(set(digests.tolist())) != 1 or any(
+            resumed.spans(r) != oracle.get_text_with_formatting(["text"]) for r in sample):
+        raise AssertionError(f"[{label}d] the resumed universe differs from the oracle")
+    log(f"{label}d: snapshot of {REPLICAS} replicas: {size} bytes (npz + sidecar), save {save_ms:.4f} ms, load "
+        f"{load_ms:.4f} ms; all {len(FIELDS)} fields, clocks, digests and {len(sample)} replicas' spans equal; "
+        f"export/import into a fresh universe {handoff_ms:.4f} ms per replica, digests and spans equal; "
+        f"resume (snapshot + the tail of a {len(changelog.all_changes())}-change log) {resume_ms:.4f} ms through one merge, launches {resume_launches}; equal to the "
+        f"live universe after the same tail and to the oracle (one digest)")
+    del resumed
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -804,32 +1173,58 @@ def main() -> int:
                 log(f"  nvcc[{name}] {line.strip()}")
     card = card_line()
 
+    # No fallback may hide the device: degradation is off but for the legs
+    # that test it, and every phase holds its resilience counts.
+    os.environ["PERITEXT_DEGRADE"] = "0"
+    faults.reset()
+    health.reset()
+    telemetry.reset()
+    tally_resilience()
+
     torch.cuda.reset_peak_memory_stats()
-    results = phase_bench_shape(REPLICAS, ROUNDS, runs=10)
+    with resilience("phase 2"):
+        results = phase_bench_shape(REPLICAS, ROUNDS, runs=10)
     log_peak("phase 2")
-    phase_large_shape(REPLICAS, runs=10)
+    with resilience("phase 3"):
+        phase_large_shape(REPLICAS, runs=10)
     log_peak("phase 3")
-    main = phase_main_path("phase 4", REPLICAS, DOC_LEN, WRITERS, ROUNDS, 2048, 1024,
-                           samples=8, seed=1, scan=True)
+    with resilience("phase 4"):
+        main = phase_main_path("phase 4", REPLICAS, DOC_LEN, WRITERS, ROUNDS, 2048, 1024,
+                               samples=8, seed=1, scan=True)
     log_peak("phase 4")
-    past = phase_main_path("phase 5", 64, 8300, 2, 2, 8192, 256, samples=8, seed=2, scan=True)
+    with resilience("phase 5"):
+        past = phase_main_path("phase 5", 64, 8300, 2, 2, 8192, 256, samples=8, seed=2, scan=True)
     if past["capacity"] != LARGE_CAPACITY or past["growths"] < 1 or past["max_length"] <= 8192:
         raise AssertionError(f"phase 5 did not grow past 8192 elements: {past}")
     del past["uni"]
     log_peak("phase 5")
     count_plain_calls()
-    phase_patch_path(REPLICAS, 64, main["round_seconds"], samples=8)
+    with resilience("phase 6"):
+        phase_patch_path(REPLICAS, 64, main["round_seconds"], samples=8)
     log_peak("phase 6")
-    phase_doc(edits=200, sync_every=10)
+    with resilience("phase 7"):
+        phase_doc(edits=200, sync_every=10)
     log_peak("phase 7")
-    sorted_run = phase_sorted_path(main, 2048, 1024, samples=8)
+    with resilience("phase 8"):
+        sorted_run = phase_sorted_path(main, 2048, 1024, samples=8)
     del main["uni"]
     torch.cuda.empty_cache()
     log_peak("phase 8")
-    window = phase_window(REPLICAS, 64, samples=8)
+    with resilience("phase 9"):
+        window = phase_window(REPLICAS, 64, samples=8)
     log_peak("phase 9")
-    launches = {name: sum(run["launches"][name] for run in (main, past, sorted_run, window))
-                for name in results}
+    with resilience("phase 10"):
+        serving = phase_serving(REPLICAS, THREADED_SESSIONS, samples=8)
+    log_peak("phase 10")
+    resilient = phase_resilience(serving, samples=8)
+    del serving["uni"]
+    torch.cuda.empty_cache()
+    log_peak("phase 11")
+    runs = (main, past, sorted_run, window, serving, resilient)
+    launches = {name: sum(run["launches"].get(name, 0) for run in runs) for name in results}
+    log("phase 12: resilience counts (launch_retries, fastfails, degraded_batches) per phase and leg: " + "; ".join(
+        f"{lbl} {got['launch_retries']}/{got['fastfails']}/{got['degraded_batches']}" for lbl, got in PHASE_TALLIES))
+    log(f"  kernel launches summed over phases 4, 5 and 8-11: {launches}")
 
     replaces = {
         "text_phase": "peritext_tpu/ops/pallas_kernels.py:152",

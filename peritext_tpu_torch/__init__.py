@@ -11,6 +11,9 @@ frontier-bounded window; ``ops/sorted_merge.py``, ``ops/window.py``,
 plain torch on the card) with the kernels' exact merge as its fallback.
 ``TorchUniverse.apply_changes_with_patches`` and ``TorchDoc`` emit the
 reference patch stream through the exact per-op loop (``ops/kernels.py``).
+Every launch runs under the JAX universe's retry, breaker and degrade
+policy; ``runtime/`` holds the serving plane (``ServePlane``), the fault,
+health, SLO and telemetry planes, change logs and checkpoints.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from peritext_tpu_torch.ops.doc import TorchDoc

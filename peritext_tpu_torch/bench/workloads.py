@@ -235,6 +235,30 @@ def make_writer_rounds(
     return {"genesis": genesis, "rounds": per_round, "writers": writers}
 
 
+def split_rounds(rounds: List[List[List[Dict[str, Any]]]], ops_per_change: int) -> List[List[List[Dict[str, Any]]]]:
+    """``make_writer_rounds``' rounds with each writer's ops re-cut into
+    changes of ``ops_per_change`` internal ops (the last of a round may be
+    shorter), numbered on from one round to the next.  A writer sees only
+    the genesis and its own changes, so each new change depends on the
+    first change's other actors and on its writer's previous change; the
+    ops, their ids and their order are unchanged, so an observer emits the
+    same patches op for op."""
+    out: List[List[List[Dict[str, Any]]]] = [[[] for _ in rnd] for rnd in rounds]
+    for w in range(len(rounds[0])):
+        seq = 0
+        for k, rnd in enumerate(rounds):
+            actor = rnd[w][0]["actor"]
+            others = {a: s for a, s in rnd[w][0]["deps"].items() if a != actor}
+            ops = [op for c in rnd[w] for op in c["ops"]]
+            for i in range(0, len(ops), ops_per_change):
+                chunk = ops[i : i + ops_per_change]
+                deps = dict(others, **({actor: seq} if seq else {}))
+                seq += 1
+                start = int(chunk[0]["opId"].split("@", 1)[0])
+                out[k][w].append({"actor": actor, "seq": seq, "deps": deps, "startOp": start, "ops": chunk})
+    return out
+
+
 def doc_session(
     docs: Sequence[Any],
     genesis: Dict[str, Any],

@@ -32,6 +32,11 @@ build_logs: Dict[str, str] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel could not be built: no ``nvcc``, or ``nvcc`` failed.  Not a
+    transient fault, so the launch policy does not retry it."""
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: ``$NVCC``, else ``nvcc`` on PATH, else under the
     toolkit PyTorch found (``CUDA_HOME``).  Raises when there is none."""
@@ -45,7 +50,7 @@ def nvcc_path() -> str:
 
     if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
         return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found (set NVCC, put nvcc on PATH or set CUDA_HOME): "
         "the CUDA kernels cannot be built"
     )
@@ -97,7 +102,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
                 proc.kill()
                 proc.wait()
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise KernelBuildError("nvcc failed for " + "\n".join(failed))
     return paths
 
 

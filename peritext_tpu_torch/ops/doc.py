@@ -15,6 +15,15 @@ so the returned patches are the oracle's.  A multi-character delete
 resolves all its targets in one query (the k visible elements from the
 index): deleting the visible element at a constant index k times
 tombstones exactly those (micromerge.ts:362-392).
+
+Local application rides the universe's launch policy (``_run_launch``) as
+``TpuDoc`` does: retries, the deadline and the breaker, but no
+degradation.  When the budget runs out the ``DeviceLaunchError`` reaches
+``change()``, which rolls the change back (seq, clock, max_op, states,
+capacities, lengths and the host store) and re-raises; a semantic error
+(a bad index, ``NotImplementedError``) passes through as the oracle's.
+Remote ingestion (``apply_change``) goes through the universe's patch path
+with its full policy, degradation included.
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ import torch
 from peritext_tpu_torch.ids import make_op_id
 from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops.patches import assemble_patches, patch_readback
-from peritext_tpu_torch.ops.universe import TorchUniverse
+from peritext_tpu_torch.ops.universe import TorchUniverse, _retryable
 from peritext_tpu_torch.oracle.doc import (
     ROOT,
     generate_input_op,
@@ -35,19 +44,11 @@ from peritext_tpu_torch.oracle.doc import (
     get_text_with_formatting as oracle_spans,
     op_to_wire,
 )
+from peritext_tpu_torch.runtime import faults, health, telemetry
 from peritext_tpu_torch.schema import MARK_SPEC, MARK_TYPE_ID
 
 Change = Dict[str, Any]
 Patch = Dict[str, Any]
-
-
-def _device_failure(exc: BaseException) -> bool:
-    """A failure of the device step (a CUDA or runtime error), after which
-    ``change()`` rolls back; semantic errors (bad indices, gate violations,
-    ``NotImplementedError``) keep the oracle's behavior and pass through."""
-    if isinstance(exc, NotImplementedError):
-        return False
-    return isinstance(exc, (RuntimeError, OSError))
 
 
 class TorchDoc:
@@ -66,7 +67,7 @@ class TorchDoc:
         self.seq = 0
         self.max_op = 0
         # Control-plane snapshot for the duration of one change() call (the
-        # rollback on a device failure); None outside change().
+        # rollback when the device step fails); None outside change().
         self._snap: Optional[Dict[str, Any]] = None
 
     # -- views ---------------------------------------------------------------
@@ -166,6 +167,8 @@ class TorchDoc:
             "text_obj": uni.text_objs[0],
         }
         self._snap = snap
+        # Causal lane of this local change, finished at commit or rollback.
+        ctx = telemetry.flow("doc.change", actor=self.actor_id) if telemetry.enabled else None
         try:
             deps = dict(self.clock)
             # Seq resumes from our own clock entry after log-replay recovery
@@ -180,12 +183,32 @@ class TorchDoc:
                 "ops": [],
             }
             patches: List[Patch] = []
-            for input_op in input_ops:
-                patches.extend(self._generate_input_op(change, input_op))
+            with telemetry.span("doc.change", actor=self.actor_id):
+                telemetry.flow_point(ctx)
+                with telemetry.flowing((ctx,)):
+                    for input_op in input_ops:
+                        patches.extend(self._generate_input_op(change, input_op))
+                if ctx is not None:
+                    telemetry.observe("e2e.change_to_applied", telemetry.flow_elapsed_s(ctx))
+                    telemetry.flow_point(ctx, terminal=True)
+            if telemetry.enabled:
+                telemetry.counter("doc.local_changes")
+                telemetry.record("doc.change", flow=ctx, outcome="applied")
             return change, patches
         except Exception as exc:
-            if not _device_failure(exc):
+            # A backend failure (retry exhaustion, an injected fault, a raw
+            # device error from an anchor query): the change never
+            # happened.  Semantic errors keep the oracle's behavior.
+            if not _retryable(exc):
                 raise
+            if telemetry.enabled:
+                telemetry.counter("doc.local_gen_rollbacks")
+                if isinstance(getattr(exc, "cause", None), health.BreakerOpenError):
+                    telemetry.counter("doc.local_fastfails")
+                telemetry.record("doc.change", flow=ctx, outcome="rollback", error=type(exc).__name__)
+                if ctx is not None:
+                    with telemetry.span("doc.rollback", actor=self.actor_id):
+                        telemetry.flow_point(ctx, terminal=True, outcome="rollback")
             self.seq = snap["seq"]
             self.max_op = snap["max_op"]
             if snap["clock_entry"] is None:
@@ -204,6 +227,12 @@ class TorchDoc:
             raise
         finally:
             self._snap = None
+
+    def _elem_id(self, index: int, peek: bool) -> Tuple[int, int]:
+        """One anchor query; its host readback is a completion barrier, so
+        it fires the ``device_readback`` site as ``TpuDoc._elem_id`` does."""
+        faults.fire("device_readback")
+        return self._elem_ids([index], peek)[0]
 
     def _elem_ids(self, indices: Sequence[int], peek: bool) -> List[Tuple[int, int]]:
         """Element ids of visible indices, in one query; IndexError names
@@ -239,7 +268,7 @@ class TorchDoc:
         rows: List[np.ndarray] = []
         if action == "insert":
             index = input_op["index"]
-            ref = (0, 0) if index == 0 else self._elem_ids([index - 1], peek=True)[0]
+            ref = (0, 0) if index == 0 else self._elem_id(index - 1, peek=True)
             for value in input_op["values"]:
                 self.max_op += 1
                 rows.append(self._op_row(K.KIND_INSERT, {
@@ -280,7 +309,7 @@ class TorchDoc:
         mark_type = input_op["markType"]
         end_grows = MARK_SPEC[mark_type].inclusive
         vis_len = int(K.visible_length(self._state())[0])
-        start = self._elem_ids([input_op["startIndex"]], peek=False)[0]
+        start = self._elem_id(input_op["startIndex"], peek=False)
         self.max_op += 1
         fields = {
             K.K_MACTION: 0 if input_op["action"] == "addMark" else 1,
@@ -302,7 +331,7 @@ class TorchDoc:
             wire["end"] = {"type": "endOfText"}
         else:
             kind, index = (0, input_op["endIndex"]) if end_grows else (1, input_op["endIndex"] - 1)
-            end = self._elem_ids([index], peek=False)[0]
+            end = self._elem_id(index, peek=False)
             fields.update({K.K_EKIND: kind, K.K_ECTR: end[0], K.K_EACT: end[1]})
             wire["end"] = {"type": ("before", "after")[kind], "elemId": self._wire_id(*end)}
         if input_op.get("attrs"):
@@ -350,11 +379,23 @@ class TorchDoc:
         args = (state, ops, uni._ranks_device(), uni._multi_device())
         readback = patch_readback()
         span_cap = uni._span_cap
-        new_state, records = K.apply_ops_patched(*args, readback=readback, span_cap=span_cap)
+
+        # The launch policy of ingest without degradation: the step is
+        # pure, so a failed attempt reruns from the same state, and on
+        # exhaustion DeviceLaunchError reaches change()'s rollback.
+        def make_attempt(rb: str):
+            def attempt():
+                faults.fire("device_launch")
+                ns, recs = K.apply_ops_patched(*args, readback=rb, span_cap=span_cap)
+                return (ns, recs), ns.length
+
+            return attempt
+
+        new_state, records = uni._run_launch(make_attempt(readback))
         records = {k: v.cpu().numpy() for k, v in records.items()}
         if readback == "compact" and uni._span_overflow([records], span_cap):
             # Overflowed span tables: the same step again, reading planes.
-            new_state, records = K.apply_ops_patched(*args, readback="planes")
+            new_state, records = uni._run_launch(make_attempt("planes"))
             records = {k: v.cpu().numpy() for k, v in records.items()}
         uni.states = new_state
         table = uni._mark_tables([0])[0]

@@ -18,9 +18,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from peritext_tpu_torch.ids import ActorRegistry, parse_op_id
+from peritext_tpu_torch.ids import ActorRegistry, make_op_id, parse_op_id
 from peritext_tpu_torch.ops import kernels as K
-from peritext_tpu_torch.schema import MARK_TYPE_ID
+from peritext_tpu_torch.schema import ALL_MARKS, MARK_TYPE_ID
 
 
 class AttrRegistry:
@@ -106,6 +106,50 @@ def encode_internal_op(
 
     # Map-object / structural op: host concern.
     return None
+
+
+_BOUNDARY_NAME = {v: k for k, v in _BOUNDARY_KIND.items()}
+
+
+def decode_internal_op(
+    row: np.ndarray, actors: ActorRegistry, attrs: AttrRegistry, obj: Optional[str]
+) -> Dict[str, Any]:
+    """Inverse of encode_internal_op: an op row back to the wire format.
+    ``obj`` is the containing list's id (op rows do not carry it; the
+    change log's envelope does)."""
+
+    def op_id(ctr_field: int, act_field: int) -> str:
+        return make_op_id(int(row[ctr_field]), actors.actor(int(row[act_field])))
+
+    oid = op_id(K.K_CTR, K.K_ACT)
+    kind = int(row[K.K_KIND])
+    if kind == K.KIND_INSERT:
+        op: Dict[str, Any] = {
+            "opId": oid, "action": "set", "obj": obj, "insert": True,
+            "value": chr(int(row[K.K_PAYLOAD])),
+        }
+        if int(row[K.K_REF_CTR]) != 0 or int(row[K.K_REF_ACT]) != 0:
+            op["elemId"] = op_id(K.K_REF_CTR, K.K_REF_ACT)
+        return op
+    if kind == K.KIND_DELETE:
+        return {"opId": oid, "action": "del", "obj": obj, "elemId": op_id(K.K_REF_CTR, K.K_REF_ACT)}
+    if kind == K.KIND_MARK:
+        op = {
+            "opId": oid,
+            "action": "addMark" if int(row[K.K_MACTION]) == 0 else "removeMark",
+            "obj": obj,
+            "start": {"type": _BOUNDARY_NAME[int(row[K.K_SKIND])], "elemId": op_id(K.K_SCTR, K.K_SACT)},
+            "markType": ALL_MARKS[int(row[K.K_MTYPE])],
+        }
+        if int(row[K.K_EKIND]) == 2:
+            op["end"] = {"type": "endOfText"}
+        else:
+            op["end"] = {"type": _BOUNDARY_NAME[int(row[K.K_EKIND])], "elemId": op_id(K.K_ECTR, K.K_EACT)}
+        attr = attrs.decode(int(row[K.K_MATTR]))
+        if attr is not None:
+            op["attrs"] = attr
+        return op
+    raise ValueError(f"cannot decode op row of kind {kind}")
 
 
 def encode_changes(

@@ -29,14 +29,23 @@ committed element ids, the host object store, and span decoding.  Device
 responsibilities (the data plane): all per-op document mutation,
 boundary-set algebra, mark resolution and digests.
 
-Not here yet (the JAX universe has them): the sorted and windowed patch
-paths, launch retries, degradation, fault injection, breakers, telemetry
-and fleet elasticity.  A failed launch raises, and the control plane
-commits nothing.
+Every launch runs under the JAX universe's resilience policy
+(``_run_launch``): retries with backoff, an optional per-attempt deadline
+judged after a host readback barrier, the ``device_launch`` circuit
+breaker, and on exhaustion either the oracle CPU degrade path
+(``_degrade_apply``, byte-identical to a launch) or a ``DeviceLaunchError``
+with nothing committed.  Degradation is on by default for a universe on
+the CPU and off for one on the card (``PERITEXT_DEGRADE`` overrides both).
+A kernel that cannot build is not retried.
+Fault sites, breakers and telemetry are the port's own runtime modules.
+Fleet membership changes with ``add_replicas``, ``rename_replica`` and
+``drop_replicas``.  Not here yet (the JAX universe has them): the sorted
+and windowed patch paths.
 """
 from __future__ import annotations
 
 import copy
+import functools
 import hashlib
 import json
 import logging
@@ -52,6 +61,7 @@ from peritext_tpu_torch import schema
 from peritext_tpu_torch.ids import ActorRegistry, make_op_id, parse_op_id
 from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops import window as W
+from peritext_tpu_torch.ops._build import KernelBuildError
 from peritext_tpu_torch.ops.cuda_kernels import merge_step_full
 from peritext_tpu_torch.ops.sorted_merge import (
     merge_step_sorted_batch,
@@ -79,20 +89,88 @@ from peritext_tpu_torch.ops.state import (
     grow_state,
     make_empty_state,
     map_state,
+    state_from_numpy,
+    state_to_numpy,
 )
 from peritext_tpu_torch.oracle.doc import (
+    ListItem,
     ObjectStore,
     get_list_element_id,
     get_text_with_formatting as oracle_spans,
     op_from_wire,
     ops_to_marks,
 )
+from peritext_tpu_torch.runtime import faults, health, telemetry
 from peritext_tpu_torch.runtime.sync import causal_order
 from peritext_tpu_torch.schema import allow_multiple_array
 
 Change = Dict[str, Any]
 
 _log = logging.getLogger(__name__)
+
+
+class DeviceLaunchError(RuntimeError):
+    """A device launch kept failing after the configured retry budget.
+
+    ``__cause__`` / ``cause`` carry the last attempt's exception.  With
+    degradation enabled (the default on the CPU; ``PERITEXT_DEGRADE=1`` on
+    the card) callers never see this for ingest: the batch completes on
+    the oracle CPU path instead.
+    """
+
+    def __init__(self, attempts: int, cause: Optional[BaseException]):
+        super().__init__(f"device launch failed after {attempts} attempt(s): {cause!r}")
+        self.attempts = attempts
+        self.cause = cause
+
+
+def _launch_policy() -> Tuple[int, float, float]:
+    """(retries, backoff base seconds, per-attempt deadline seconds):
+    ``PERITEXT_LAUNCH_RETRIES`` extra attempts (default 2) with backoff
+    ``PERITEXT_LAUNCH_BACKOFF * 2**i`` (default 0.05 s, capped at 2 s);
+    ``PERITEXT_LAUNCH_TIMEOUT`` > 0 adds a wall-clock deadline per attempt,
+    judged after the attempt's host readback barrier."""
+    return (
+        int(os.environ.get("PERITEXT_LAUNCH_RETRIES", "2")),
+        float(os.environ.get("PERITEXT_LAUNCH_BACKOFF", "0.05")),
+        float(os.environ.get("PERITEXT_LAUNCH_TIMEOUT", "0")),
+    )
+
+
+def _degrade_enabled(device: torch.device) -> bool:
+    """``PERITEXT_DEGRADE``: ``0`` raises on retry exhaustion, anything else
+    completes the batch on the oracle.  Unset, it is on for a universe on
+    the CPU (as in the JAX package) and off for one on the card, so a
+    kernel that keeps failing there raises instead of serving from the
+    CPU unnoticed."""
+    default = "0" if device.type == "cuda" else "1"
+    return os.environ.get("PERITEXT_DEGRADE", default) != "0"
+
+
+# Transient failures retry, semantic errors propagate untouched; torch's
+# CUDA errors subclass RuntimeError and so count as transient.
+_retryable = faults.retryable
+
+
+def _blackbox_on_error(fn):
+    """Black-box post-mortem on an unhandled ingest exception (a no-op
+    unless ``PERITEXT_BLACKBOX`` is armed).  ``DeviceLaunchError`` is left
+    out: the retry policy dumped at budget exhaustion already.  The
+    exception always propagates unchanged."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        try:
+            return fn(self, *args, **kwargs)
+        except DeviceLaunchError:
+            raise
+        except Exception as exc:
+            telemetry.blackbox_dump(
+                "ingest_exception", method=fn.__name__, error=f"{type(exc).__name__}: {exc}"
+            )
+            raise
+
+    return wrapper
 
 
 def _window_enabled() -> bool:
@@ -235,6 +313,12 @@ class TorchUniverse:
             "window_rebuilds": 0,
             "window_census_skips": 0,
             "readback_overflows": 0,
+            # Resilience: extra launch attempts the retry policy took,
+            # batches completed on the oracle CPU path after the budget
+            # ran out, and launches an open breaker refused outright.
+            "launch_retries": 0,
+            "degraded_batches": 0,
+            "fastfails": 0,
             # Wall time of the host control plane (gate, encode, fuse, pad,
             # upload, commit); the merge itself is asynchronous on the card.
             "host_seconds": 0.0,
@@ -268,6 +352,89 @@ class TorchUniverse:
             )
         except RuntimeError:
             return object()
+
+    def _replica_axis_changed(self) -> None:
+        """Drop what is keyed to the replica axis: the census mirror and its
+        classes (the states assignment already moved the version on) and
+        the device flag cache."""
+        self._mirror = None
+        self._mirror_token = None
+        self._mirror_class = []
+        self._multi_cache = None
+
+    # -- fleet membership ----------------------------------------------------
+
+    def add_replicas(self, names: Sequence[str]) -> None:
+        """Grow the fleet with fresh, empty replicas.  A new replica catches
+        up by ingesting ``ChangeLog.missing_changes(log.clock(), {})``
+        through the causal gate, as the reference rebuilds any replica."""
+        fresh = list(names)
+        for n in fresh:
+            if n in self.index_of:
+                raise ValueError(f"replica {n!r} already exists")
+        if not fresh:
+            return
+        empty = make_empty_state(self.capacity, self.max_mark_ops, self.device)
+        k = len(fresh)
+        self.states = DocState(**{
+            f: torch.cat([getattr(self.states, f), getattr(empty, f).unsqueeze(0).expand(k, *getattr(empty, f).shape)])
+            for f in FIELDS
+        })
+        self._replica_axis_changed()
+        for n in fresh:
+            self.index_of[n] = len(self.replica_ids)
+            self.replica_ids.append(n)
+            self.clocks.append({})
+            self.lengths.append(0)
+            self.mark_counts.append(0)
+            self.stores.append(ObjectStore())
+            # Version 0 always means an untouched empty store, so fresh
+            # replicas may share a version class with untouched founders.
+            self.store_versions.append(0)
+            self.text_objs.append(None)
+
+    def rename_replica(self, old: str, new: str) -> None:
+        """Rebind an empty replica row (one that never ingested anything) to
+        a new id: host bookkeeping only, no device work."""
+        if new in self.index_of:
+            raise ValueError(f"replica {new!r} already exists")
+        if old not in self.index_of:
+            raise KeyError(f"unknown replica {old!r}")
+        i = self.index_of[old]
+        if self.clocks[i]:
+            raise ValueError(
+                f"cannot rename non-empty replica {old!r} (clock {self.clocks[i]}); "
+                "only untouched rows rebind"
+            )
+        del self.index_of[old]
+        self.replica_ids[i] = new
+        self.index_of[new] = i
+        # A fresh store, so the row never aliases a shared version-0 one.
+        self.stores[i] = ObjectStore()
+        self.store_versions[i] = 0
+        self.text_objs[i] = None
+
+    def drop_replicas(self, names: Sequence[str]) -> None:
+        """Shrink the fleet with one gather; a dropped replica's state is
+        gone (durable history lives in the change log)."""
+        drop = set(names)
+        missing = drop - set(self.replica_ids)
+        if missing:
+            raise KeyError(f"unknown replicas: {sorted(missing)}")
+        keep = [i for i, n in enumerate(self.replica_ids) if n not in drop]
+        if not keep:
+            raise ValueError("cannot drop every replica")
+        idx = torch.as_tensor(keep, dtype=torch.long, device=self.device)
+        self.states = map_state(lambda x: x.index_select(0, idx), self.states)
+        self._replica_axis_changed()
+        self.replica_ids = [self.replica_ids[i] for i in keep]
+        self.index_of = {n: i for i, n in enumerate(self.replica_ids)}
+        self.clocks = [self.clocks[i] for i in keep]
+        self.lengths = [self.lengths[i] for i in keep]
+        self.mark_counts = [self.mark_counts[i] for i in keep]
+        self.stores = [self.stores[i] for i in keep]
+        self.store_versions = [self.store_versions[i] for i in keep]
+        self.text_objs = [self.text_objs[i] for i in keep]
 
     # -- capacity management ------------------------------------------------
 
@@ -309,6 +476,288 @@ class TorchUniverse:
         if self._multi_cache is None or self._multi_cache[0] != key:
             self._multi_cache = (key, torch.from_numpy(arr).to(self.device))
         return self._multi_cache[1]
+
+    # -- resilient launch policy -------------------------------------------
+
+    def _run_launch(self, attempt, needs_barrier: bool = False):
+        """Run a device-launch attempt under the retry/backoff policy
+        (``TpuUniverse._run_launch``).
+
+        ``attempt()`` fires the ``device_launch`` site itself, runs the
+        merge against the committed states and returns ``(result,
+        barrier_tensor)``.  Nothing it does writes ``self`` or a committed
+        tensor (every merge writes fresh outputs), so a failed attempt
+        needs no rollback: its result is dropped and the next attempt
+        reruns from the same inputs.
+
+        With ``needs_barrier`` (``PERITEXT_STRICT_COMMIT=1``) or a
+        ``PERITEXT_LAUNCH_TIMEOUT``, each attempt ends with a host copy of
+        ``barrier_tensor``: on a GPU that is where an asynchronous CUDA
+        error surfaces, so a fault of the merge fails its attempt instead of
+        being committed; the deadline is judged after it.  After the budget
+        is spent, raises :class:`DeviceLaunchError` carrying the last cause.
+
+        An active ``device_launch`` breaker gates every launch: open
+        fast-fails with no attempt (``stats["fastfails"]``), half-open
+        admits one canary attempt, and a trip mid-budget stops the retries.
+        """
+        br = health.breaker("device_launch")
+        decision = health.ALLOW if br is None else br.admit()
+        if decision == health.FASTFAIL:
+            self.stats["fastfails"] += 1
+            if telemetry.enabled:
+                telemetry.flow_keep()
+                telemetry.record("ingest.launch", flow=telemetry.current_flow(), outcome="fastfail")
+            raise DeviceLaunchError(0, health.BreakerOpenError("device_launch"))
+        retries, backoff, timeout = _launch_policy()
+        if decision == health.CANARY:
+            retries = 0  # half-open admits exactly one probe launch
+        last: Optional[BaseException] = None
+        attempts = 0
+        try:
+            for i in range(retries + 1):
+                if i:
+                    self.stats["launch_retries"] += 1
+                    sleep_s = min(backoff * (2 ** (i - 1)), 2.0)
+                    if telemetry.enabled:
+                        telemetry.counter("ingest.launch_retries")
+                        telemetry.observe("ingest.backoff_seconds", sleep_s)
+                    time.sleep(sleep_s)
+                t0 = time.monotonic()
+                attempts = i + 1
+                try:
+                    if telemetry.enabled:
+                        telemetry.counter("ingest.launch_attempts")
+                    with telemetry.span("ingest.launch_attempt", attempt=i):
+                        if telemetry.enabled:
+                            telemetry.flow_steps(attempt=i)
+                        result, barrier = attempt()
+                        if needs_barrier or timeout > 0:
+                            faults.fire("device_readback")
+                            tb = time.monotonic()
+                            barrier.cpu()
+                            if telemetry.enabled:
+                                telemetry.observe("ingest.readback_wait_seconds", time.monotonic() - tb)
+                            if timeout > 0 and time.monotonic() - t0 > timeout:
+                                raise TimeoutError(
+                                    f"device launch attempt exceeded the {timeout}s deadline"
+                                )
+                except Exception as exc:
+                    if isinstance(exc, KernelBuildError) or not _retryable(exc):
+                        # A semantic error, or a kernel that cannot build:
+                        # no backend-health signal, and a rerun fails alike.
+                        raise
+                    if telemetry.enabled:
+                        telemetry.counter("ingest.launch_failures")
+                        telemetry.flow_keep()
+                        telemetry.record(
+                            "ingest.launch", flow=telemetry.current_flow(), outcome="fail",
+                            attempt=i, error=type(exc).__name__,
+                        )
+                    if br is not None:
+                        br.record_failure()
+                    last = exc
+                    if br is not None and br.state == health.OPEN:
+                        break  # tripped mid-budget: stop spending retries
+                    continue
+                if br is not None:
+                    br.record_success()
+                if telemetry.enabled:
+                    telemetry.record("ingest.launch", flow=telemetry.current_flow(), outcome="ok", attempt=i)
+                return result
+            telemetry.blackbox_dump(
+                "launch_budget_exhausted", site="device_launch", attempts=attempts, cause=repr(last)
+            )
+            raise DeviceLaunchError(attempts, last) from last
+        except BaseException:
+            # A verdict-less exit (a semantic error, an interrupt) releases a
+            # held canary slot, or the breaker would fast-fail for ever.
+            if br is not None:
+                br.abandon()
+            raise
+
+    # -- oracle degradation (the CPU path after retry exhaustion) -------------
+
+    def _degrade_apply(self, prep: Dict[str, Any]) -> Dict[int, List[Any]]:
+        """Traced wrapper of :meth:`_degrade_apply_impl` (every causal lane
+        riding the batch steps through the degradation)."""
+        with telemetry.span("ingest.degrade", ingested=prep["ingested"]):
+            if telemetry.enabled:
+                telemetry.flow_keep()
+                telemetry.flow_steps(path="degrade")
+                telemetry.record("ingest.degrade", outcome="ok", ingested=prep["ingested"])
+            return self._degrade_apply_impl(prep)
+
+    def _degrade_apply_impl(self, prep: Dict[str, Any]) -> Dict[int, List[Any]]:
+        """Complete a prepared batch through the oracle CPU engine
+        (``TpuUniverse._degrade_apply_impl``), per replica with a non-empty
+        gated batch:
+
+        1. read the committed states back (``state_to_numpy``, the JAX
+           dtypes) and materialize each replica's text list into oracle
+           metadata inside a copy of its host store;
+        2. apply every gated wire op through ``store.apply_op``;
+        3. convert the list back into dense arrays (new mark ops append to
+           the table in batch order, as the merge would) and restore the
+           store's device placeholder.
+
+        Nothing of ``self`` changes until every replica converted; then the
+        arrays go back to the universe's device (``state_from_numpy``) and
+        the batch commits.  Returns each replica's ``(pos, patch)`` stream.
+        """
+        groups, group_of = prep["groups"], prep["group_of"]
+        self.stats["degraded_batches"] += 1
+        if telemetry.enabled:
+            telemetry.counter("ingest.degraded_batches")
+            telemetry.counter("ingest.path.degraded")
+        _log.warning(
+            "device launch retry budget exhausted; ingesting %d change(s) via the oracle CPU "
+            "degradation path", prep["ingested"],
+        )
+        # One readback of the committed states; writable copies, which
+        # become the new device tensors.
+        arrays = {f: np.array(a) for f, a in state_to_numpy(self.states).items()}
+        elem_ctr, elem_act, deleted, chars = (arrays[f] for f in ("elem_ctr", "elem_act", "deleted", "chars"))
+        bnd_def, bnd_mask = arrays["bnd_def"], arrays["bnd_mask"]
+        mark_cols = {f: arrays["mark_" + f] for f in ("ctr", "act", "action", "type", "attr")}
+        length_col, mark_count_col = arrays["length"], arrays["mark_count"]
+        words = bnd_mask.shape[-1]
+
+        out: Dict[int, List[Any]] = {}
+        staged: List[Tuple[int, ObjectStore]] = []
+        for r in range(len(self.replica_ids)):
+            g = groups[group_of[r]]
+            if not g["ordered"]:
+                out[r] = []
+                continue
+            store = copy.deepcopy(self.stores[r])
+            text_obj = g["text_obj"] if g["text_obj"] is not None else self.text_objs[r]
+            n_el = self.lengths[r]
+            n_mk = self.mark_counts[r]
+            # Ids of the existing mark table rows (bit m <=> table row m).
+            old_mark_ids = [
+                make_op_id(int(mark_cols["ctr"][r, m]), self.actors.actor(int(mark_cols["act"][r, m])))
+                for m in range(n_mk)
+            ]
+            char_of: Dict[str, int] = {}
+            injected_ids: List[str] = []
+            text_mark_new: List[str] = []
+
+            if text_obj is not None and isinstance(store.metadata.get(text_obj), list):
+                # 1. Materialize the device plane into the store copy.
+                store.device_objects.discard(text_obj)
+                values = store.objects[text_obj]
+                values.clear()  # in place: the parent map aliases this list
+                meta: List[ListItem] = []
+                for i in range(n_el):
+                    eid = make_op_id(int(elem_ctr[r, i]), self.actors.actor(int(elem_act[r, i])))
+                    item = ListItem(eid, eid, bool(deleted[r, i]))
+                    for side, p in (("before", 2 * i), ("after", 2 * i + 1)):
+                        if bnd_def[r, p]:
+                            row = bnd_mask[r, p]
+                            item.set_side(
+                                side, {old_mark_ids[m] for m in range(n_mk) if row[m // 32] >> (m % 32) & 1}
+                            )
+                    meta.append(item)
+                    char_of[eid] = int(chars[r, i])
+                    if not item.deleted:
+                        values.append(chr(int(chars[r, i])))
+                store.metadata[text_obj] = meta
+                for m, op_id in enumerate(old_mark_ids):
+                    if op_id not in store.mark_ops:
+                        op: Dict[str, Any] = {
+                            "opId": op_id,
+                            "action": "addMark" if int(mark_cols["action"][r, m]) == 0 else "removeMark",
+                            "markType": schema.ALL_MARKS[int(mark_cols["type"][r, m])],
+                        }
+                        attrs = self.attrs.decode(int(mark_cols["attr"][r, m]))
+                        if attrs is not None:
+                            op["attrs"] = attrs
+                        store.mark_ops[op_id] = op
+                        injected_ids.append(op_id)
+
+            # 2. Sequential oracle application of the whole gated batch.
+            pairs: List[Any] = []
+            pos = 0
+            for change in g["ordered"]:
+                for op in change["ops"]:
+                    pairs.extend((pos, p) for p in apply_host_op(store, op))
+                    if op.get("obj") == text_obj and op["action"] in ("addMark", "removeMark"):
+                        text_mark_new.append(op["opId"])
+                    pos += 1
+
+            # 3. The (possibly batch-created) text list back into dense
+            # arrays, and the placeholder restored.
+            if text_obj is not None and isinstance(store.metadata.get(text_obj), list):
+                final_meta: List[ListItem] = store.metadata[text_obj]
+                rows = g["rows"]
+                for row in rows:
+                    if row[K.K_KIND] == K.KIND_INSERT:
+                        char_of[make_op_id(int(row[K.K_CTR]), self.actors.actor(int(row[K.K_ACT])))] = int(
+                            row[K.K_PAYLOAD]
+                        )
+                mark_rows = rows[rows[:, K.K_KIND] == K.KIND_MARK]
+                new_table_ids = old_mark_ids + [
+                    make_op_id(int(mr[K.K_CTR]), self.actors.actor(int(mr[K.K_ACT]))) for mr in mark_rows
+                ]
+                if len(final_meta) != int(prep["new_lengths"][r]) or len(new_table_ids) != int(
+                    prep["new_mark_counts"][r]
+                ):
+                    raise RuntimeError(
+                        "oracle degradation produced inconsistent capacity accounting for replica "
+                        f"{self.replica_ids[r]!r}: {len(final_meta)} elements (expected "
+                        f"{int(prep['new_lengths'][r])}), {len(new_table_ids)} mark ops (expected "
+                        f"{int(prep['new_mark_counts'][r])})"
+                    )
+                bit_of = {op_id: m for m, op_id in enumerate(new_table_ids)}
+                C = self.capacity
+                ec = np.zeros(C, np.int32)
+                ea = np.zeros(C, np.int32)
+                dl = np.zeros(C, bool)
+                ch = np.zeros(C, np.int32)
+                bd = np.zeros(2 * C, bool)
+                bm = np.zeros((2 * C, words), np.uint32)
+                for i, item in enumerate(final_meta):
+                    ctr_, actor_ = parse_op_id(item.elem_id)
+                    ec[i] = ctr_
+                    ea[i] = self.actors.id_of(actor_)
+                    dl[i] = item.deleted
+                    ch[i] = char_of[item.elem_id]
+                    for side, p in (("before", 2 * i), ("after", 2 * i + 1)):
+                        ops_set = item.get_side(side)
+                        if ops_set is not None:
+                            bd[p] = True
+                            for op_id in ops_set:
+                                m = bit_of[op_id]
+                                bm[p, m // 32] |= np.uint32(1 << (m % 32))
+                elem_ctr[r], elem_act[r] = ec, ea
+                deleted[r], chars[r] = dl, ch
+                bnd_def[r], bnd_mask[r] = bd, bm
+                for m, mr in enumerate(mark_rows, start=n_mk):
+                    mark_cols["ctr"][r, m] = int(mr[K.K_CTR])
+                    mark_cols["act"][r, m] = int(mr[K.K_ACT])
+                    mark_cols["action"][r, m] = int(mr[K.K_MACTION])
+                    mark_cols["type"][r, m] = int(mr[K.K_MTYPE])
+                    mark_cols["attr"][r, m] = int(mr[K.K_MATTR])
+                length_col[r] = len(final_meta)
+                mark_count_col[r] = len(new_table_ids)
+                store.objects[text_obj].clear()
+                store.metadata[text_obj] = []
+                store.device_objects.add(text_obj)
+                for op_id in injected_ids + text_mark_new:
+                    store.mark_ops.pop(op_id, None)
+            out[r] = pairs
+            staged.append((r, store))
+
+        # Every replica converted: publish the device plane, stage the
+        # applied stores (a fresh version class each) and commit.
+        self.states = state_from_numpy(arrays, self.device)
+        for r, store in staged:
+            self._store_version_counter += 1
+            prep["new_stores"][r] = store
+            prep["new_store_versions"][r] = self._store_version_counter
+        self._commit(prep)
+        return out
 
     # -- the causal gate (host) --------------------------------------------
 
@@ -572,6 +1021,7 @@ class TorchUniverse:
         self.stats["launches"] += 1
         _log.warning("windowed merge census check failed on device; relaunching the full-table path")
 
+    @_blackbox_on_error
     def apply_changes(
         self, per_replica: Dict[str, Sequence[Change]] | List[Sequence[Change]]
     ) -> None:
@@ -591,7 +1041,10 @@ class TorchUniverse:
         planned; a window the device check rejects is counted and
         relaunched on the full table, and a batch deeper than
         ``PERITEXT_SORTED_MAX_ROUNDS`` (default 8) takes the kernels'
-        merge, counted in ``stats["scan_fallbacks"]``.
+        merge, counted in ``stats["scan_fallbacks"]``.  Every merge runs
+        under ``_run_launch``; a batch whose launch budget runs out
+        raises ``DeviceLaunchError`` with nothing committed, or completes
+        on the oracle CPU path where degradation is on (``_degrade_enabled``).
         """
         t_host = time.perf_counter()
         use_scan = _merge_path() == "scan"
@@ -642,17 +1095,38 @@ class TorchUniverse:
             sorted_args = (text, rounds, sorted_prep["num_rounds"], marks, ranks, bufs, sorted_prep["maxk"])
         self.stats["host_seconds"] += time.perf_counter() - t_host
 
+        strict = os.environ.get("PERITEXT_STRICT_COMMIT") == "1"
+
+        def h2d_bytes() -> int:
+            return sum(t.numel() * t.element_size() for t in (text, marks, bufs))
+
         if wplan is not None:
             starts, hulls = (torch.from_numpy(wplan[k]).to(self.device) for k in ("starts", "hulls"))
-            new_states, wrec = merge_step_sorted_windowed_batch(
-                self.states, starts, hulls, *sorted_args, wplan["w_cap"]
-            )
-            # The verdict and mirror readback is this path's barrier.
-            wrec_np = {k: _numpy(v) for k, v in wrec.items()}
+
+            def wattempt():
+                faults.fire("device_launch")
+                st, wrec = merge_step_sorted_windowed_batch(self.states, starts, hulls, *sorted_args, wplan["w_cap"])
+                faults.fire("device_readback")
+                # The verdict and mirror readback is this path's barrier.
+                return (st, {k: _numpy(v) for k, v in wrec.items()}), st.length
+
+            try:
+                new_states, wrec_np = self._run_launch(wattempt, needs_barrier=strict)
+            except DeviceLaunchError:
+                if not _degrade_enabled(self.device):
+                    raise
+                self._degrade_apply(prep)
+                return
             if wrec_np["wok"].all():
                 self.states = new_states
                 self.stats["launches"] += 1
                 self.stats["windowed_launches"] += 1
+                if telemetry.enabled:
+                    telemetry.flow_steps(path="windowed", window=int(wplan["w_cap"]))
+                    for name in ("ingest.launches", "ingest.path.sorted", "ingest.path.windowed"):
+                        telemetry.counter(name)
+                    telemetry.counter("ingest.h2d_bytes", h2d_bytes())
+                    telemetry.counter("ingest.d2h_bytes", int(sum(v.nbytes for v in wrec_np.values())))
                 t_host = time.perf_counter()
                 self._mirror_commit(wplan, wrec_np, prep)
                 self._commit(prep)
@@ -660,11 +1134,31 @@ class TorchUniverse:
                 return
             self._window_fallback()
 
-        if use_scan:
-            self.states = merge_step_full(self.states, text, marks, ranks, bufs)
-        else:
-            self.states = merge_step_sorted_batch(self.states, *sorted_args)
+        def attempt():
+            faults.fire("device_launch")
+            if use_scan:
+                st = merge_step_full(self.states, text, marks, ranks, bufs)
+            else:
+                st = merge_step_sorted_batch(self.states, *sorted_args)
+            return st, st.length
+
+        # PERITEXT_STRICT_COMMIT=1: the attempt ends with a host readback,
+        # so a merge that fails on the device fails its attempt (and leaves
+        # the committed state as it was) instead of surfacing at a later
+        # readback behind a committed control plane.
+        try:
+            new_states = self._run_launch(attempt, needs_barrier=strict)
+        except DeviceLaunchError:
+            if not _degrade_enabled(self.device):
+                raise  # nothing was assigned: the committed state is untouched
+            self._degrade_apply(prep)
+            return
+        self.states = new_states
         self.stats["launches"] += 1
+        if telemetry.enabled:
+            telemetry.counter("ingest.launches")
+            telemetry.counter("ingest.path.scan" if use_scan else "ingest.path.sorted")
+            telemetry.counter("ingest.h2d_bytes", h2d_bytes())
         t_host = time.perf_counter()
         self._commit(prep)
         self.stats["host_seconds"] += time.perf_counter() - t_host
@@ -691,6 +1185,7 @@ class TorchUniverse:
             TorchUniverse._span_cap_floor = max(TorchUniverse._span_cap_floor, self._span_cap)
         return True
 
+    @_blackbox_on_error
     def apply_changes_with_patches(
         self,
         per_replica: Dict[str, Sequence[Change]] | List[Sequence[Change]],
@@ -745,49 +1240,75 @@ class TorchUniverse:
         chunk = self._patch_chunk(n)
         span_cap = self._span_cap
 
-        def launch(readback: str):
-            state_slices: List[DocState] = []
-            record_chunks: List[Dict[str, np.ndarray]] = []
-            for i in range(0, n, chunk):
-                sl = slice(i, min(i + chunk, n))
-                t = time.perf_counter()
-                st, rec = K.apply_ops_patched(
-                    map_state(lambda x: x[sl], self.states), d_ops[sl], ranks, multi,
-                    readback=readback, span_cap=span_cap,
-                )
-                _synchronize(self.device)
-                t_read = time.perf_counter()
-                record_chunks.append({k: _numpy(v) for k, v in rec.items()})
-                self.stats["patch_readback_seconds"] += time.perf_counter() - t_read
-                self.stats["patch_loop_seconds"] += t_read - t
-                state_slices.append(st)
-            if len(state_slices) == 1:
-                return state_slices[0], record_chunks
-            return DocState(**{
-                f: torch.cat([getattr(s, f) for s in state_slices]) for f in FIELDS
-            }), record_chunks
+        def make_attempt(readback: str):
+            # The chunked loop is one launch unit: each chunk's records come
+            # back inside the attempt, so a failure mid-loop drops the
+            # partial results and the committed states stay as they were.
+            def attempt():
+                state_slices: List[DocState] = []
+                record_chunks: List[Dict[str, np.ndarray]] = []
+                for i in range(0, n, chunk):
+                    sl = slice(i, min(i + chunk, n))
+                    faults.fire("device_launch")
+                    t = time.perf_counter()
+                    st, rec = K.apply_ops_patched(
+                        map_state(lambda x: x[sl], self.states), d_ops[sl], ranks, multi,
+                        readback=readback, span_cap=span_cap,
+                    )
+                    _synchronize(self.device)
+                    state_slices.append(st)
+                    faults.fire("device_readback")
+                    t_read = time.perf_counter()
+                    with telemetry.span("ingest.readback", readback=readback, chunk=i):
+                        if telemetry.enabled:
+                            telemetry.flow_steps(readback=readback)
+                        record_chunks.append({k: _numpy(v) for k, v in rec.items()})
+                    self.stats["patch_readback_seconds"] += time.perf_counter() - t_read
+                    self.stats["patch_loop_seconds"] += t_read - t
+                states = state_slices[0] if len(state_slices) == 1 else DocState(**{
+                    f: torch.cat([getattr(s, f) for s in state_slices]) for f in FIELDS
+                })
+                return (states, record_chunks), states.length
+
+            return attempt
 
         readback = patch_readback()
-        new_states, record_chunks = launch(readback)
-        launches = len(record_chunks)
-        if readback == "compact" and self._span_overflow(record_chunks, span_cap):
-            # A mark row emitted more spans than the tables hold: run the
-            # batch again from the same states, reading the planes.
-            new_states, record_chunks = launch("planes")
-            launches += len(record_chunks)
+        try:
+            new_states, record_chunks = self._run_launch(make_attempt(readback))
+            launches = len(record_chunks)
+            if readback == "compact" and self._span_overflow(record_chunks, span_cap):
+                # A mark row emitted more spans than the tables hold: run the
+                # batch again from the same states, reading the planes.
+                readback = "planes"
+                new_states, record_chunks = self._run_launch(make_attempt("planes"))
+                launches += len(record_chunks)
+        except DeviceLaunchError:
+            if not _degrade_enabled(self.device):
+                raise
+            pairs = self._degrade_apply(prep)
+            return {name: strip_pos(pairs[r], with_positions) for r, name in enumerate(self.replica_ids)}
         self.states = new_states
         self.stats["launches"] += launches
+        if telemetry.enabled:
+            telemetry.counter("ingest.launches", launches)
+            telemetry.counter("ingest.path.scan")
+            telemetry.counter("ingest.readback." + readback)
+            telemetry.counter("ingest.h2d_bytes", int(ops.nbytes))
+            telemetry.counter("ingest.d2h_bytes", int(sum(v.nbytes for rec in record_chunks for v in rec.values())))
         self._commit(prep)
 
         t = time.perf_counter()
-        tables = self._mark_tables(range(n))
-        out: Dict[str, List[Any]] = {}
-        for r, name in enumerate(self.replica_ids):
-            rec = record_chunks[r // chunk]
-            g = groups[group_of[r]]
-            dev = assemble_patches(rec, r % chunk, ops[r], tables[r], self.attrs, row_pos=g["row_pos"])
-            merged = sorted(dev + host_patches_for(r), key=lambda p: p[0])
-            out[name] = strip_pos(merged, with_positions)
+        with telemetry.span("ingest.assemble", replicas=n):
+            if telemetry.enabled:
+                telemetry.flow_steps()
+            tables = self._mark_tables(range(n))
+            out: Dict[str, List[Any]] = {}
+            for r, name in enumerate(self.replica_ids):
+                rec = record_chunks[r // chunk]
+                g = groups[group_of[r]]
+                dev = assemble_patches(rec, r % chunk, ops[r], tables[r], self.attrs, row_pos=g["row_pos"])
+                merged = sorted(dev + host_patches_for(r), key=lambda p: p[0])
+                out[name] = strip_pos(merged, with_positions)
         self.stats["patch_assemble_seconds"] += time.perf_counter() - t
         return out
 

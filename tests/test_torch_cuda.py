@@ -366,3 +366,131 @@ def test_torchdoc_session_on_the_card_equals_the_oracle(card):
     out = doc_session(docs, genesis, edits=40, sync_every=5, seed=2)
     assert any(span["marks"] for span in out["spans"])
     assert docs[0]._uni.states.elem_ctr.device.type == "cuda"
+
+
+def test_served_cohort_with_an_injected_retry_on_the_card(card):
+    """A ServePlane over a universe on the card flushes one cohort of four
+    sessions while a ``device_readback`` fault fails the first attempt
+    after its loop ran: one retry, and every session's patches and all 13
+    fields equal a fault-free universe's on the CPU."""
+    from peritext_tpu_torch.runtime import ServePlane, faults
+
+    wl = make_writer_rounds(80, 12, 2, 2, True, seed=9)
+    names = [f"r{i}" for i in range(4)]
+    unis = {d: TorchUniverse(names, capacity=256, device=d) for d in (card, "cpu")}
+    for u in unis.values():
+        u.apply_changes([[wl["genesis"]]] * 4)
+    want = unis["cpu"].apply_changes_with_patches(
+        [wl["rounds"][0][i % 2] + wl["rounds"][1][i % 2] for i in range(4)]
+    )
+    plane = ServePlane(unis[card], start=False, batch_target=1024)
+    sessions = [plane.session(f"s{i}", replica=n, record_stream=True) for i, n in enumerate(names)]
+    for i, s in enumerate(sessions):
+        for rnd in wl["rounds"]:
+            s.submit(rnd[i % 2])
+    faults.reset()
+    try:
+        with faults.injected("device_readback:fail=1") as plan:
+            assert plane.drain() == 0
+    finally:
+        faults.reset()
+    assert plan.stats["device_readback"]["failed"] == 1
+    assert plane.stats["flushes"] == 1 and unis[card].stats["launch_retries"] == 1
+    assert [s.patch_log for s in sessions] == [want[n] for n in names]
+    a, b = state_to_numpy(unis[card].states), state_to_numpy(unis["cpu"].states)
+    assert all((a[f] == b[f]).all() for f in a)
+    assert unis[card].states.elem_ctr.device.type == "cuda"
+
+
+def test_checkpoint_round_trip_on_the_card(card, tmp_path):
+    """save_universe / load_universe of a universe on the card (it loads
+    onto the card), a row exported from it imported on the CPU, and
+    resume_universe replaying a log tail through the kernels: all equal."""
+    from peritext_tpu_torch.runtime import ChangeLog
+    from peritext_tpu_torch.runtime import checkpoint as ckpt
+
+    wl = make_writer_rounds(300, 16, 2, 3, True, seed=10)
+    names = ["a", "b"]
+    uni = TorchUniverse(names, capacity=512, device=card)
+    log = ChangeLog()
+    log.record(wl["genesis"])
+    uni.apply_changes([[wl["genesis"]]] * 2)
+    for k, rnd in enumerate(wl["rounds"]):
+        for c in rnd[0] + rnd[1]:
+            log.record(c)
+        if k < 2:
+            uni.apply_changes([rnd[0], rnd[1]])
+    path = str(tmp_path / "snap")
+    ckpt.save_universe(uni, path)
+    loaded = ckpt.load_universe(path)
+    assert loaded.states.elem_ctr.device.type == "cuda"
+    a, b = state_to_numpy(loaded.states), state_to_numpy(uni.states)
+    assert all(a[f].dtype == b[f].dtype and (a[f] == b[f]).all() for f in a)
+    assert loaded.spans_batch() == uni.spans_batch()
+    cpu = TorchUniverse(["x"], capacity=512, device="cpu")
+    ckpt.import_replica(cpu, "x", ckpt.export_replica(uni, "b"))
+    assert cpu.digests()[0] == uni.digests()[1] and cpu.spans("x") == uni.spans("b")
+    cuda_kernels.reset_launch_counts()
+    resumed = ckpt.resume_universe(path, log)
+    assert all(n == 1 for n in cuda_kernels.LAUNCHES.values())
+    uni.apply_changes({n: log.missing_changes(log.clock(), uni.clock(n)) for n in names})
+    a, b = state_to_numpy(resumed.states), state_to_numpy(uni.states)
+    assert all((a[f] == b[f]).all() for f in a)
+    assert len(set(resumed.digests().tolist())) == 1
+
+
+@pytest.mark.parametrize("failure", ["launch", "build", "breaker"])
+def test_failing_kernel_on_the_card_raises_instead_of_degrading(card, monkeypatch, tmp_path, failure):
+    """With ``PERITEXT_DEGRADE`` unset, a universe on the card never moves a
+    batch to the oracle: a kernel launch that keeps returning an error is
+    retried to the budget and ends in ``DeviceLaunchError``; a kernel that
+    does not build raises ``KernelBuildError`` at once, with no retry; and
+    a plane under ``on_open="degrade"`` with the breaker open fails its
+    cohort with ``DeviceLaunchError``.  Nothing is committed."""
+    from peritext_tpu_torch.ops import _build
+    from peritext_tpu_torch.ops.universe import DeviceLaunchError
+    from peritext_tpu_torch.runtime import ServePlane, health
+
+    monkeypatch.delenv("PERITEXT_DEGRADE", raising=False)
+    monkeypatch.setenv("PERITEXT_LAUNCH_RETRIES", "2")
+    monkeypatch.setenv("PERITEXT_LAUNCH_BACKOFF", "0.001")
+    wl = make_writer_rounds(80, 12, 2, 1, True, seed=4)
+    uni = TorchUniverse(["a", "b"], capacity=256, device=card)
+    uni.apply_changes([[wl["genesis"]]] * 2)
+    before, clocks = state_to_numpy(uni.states), [dict(c) for c in uni.clocks]
+    batch = [wl["rounds"][0][0], wl["rounds"][0][1]]
+    calls = []
+    if failure == "launch":
+        def failing(*args):
+            calls.append(1)
+            return 1  # cudaErrorInvalidValue, as the library returns an error
+
+        monkeypatch.setitem(cuda_kernels._fns, "pt_text_phase", failing)
+        with pytest.raises(DeviceLaunchError) as excinfo:
+            uni.apply_changes(batch)
+        assert "text_phase kernel launch failed" in str(excinfo.value.cause)
+        assert len(calls) == 3 and uni.stats["launch_retries"] == 2
+    elif failure == "build":
+        monkeypatch.setenv("NVCC", "false")
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+        monkeypatch.setattr(_build, "_loaded", {})
+        monkeypatch.setattr(cuda_kernels, "_fns", {})
+        with pytest.raises(_build.KernelBuildError):
+            uni.apply_changes(batch)
+        assert uni.stats["launch_retries"] == 0
+    else:
+        plane = ServePlane(uni, start=False, on_open="degrade")
+        subs = [plane.session(n, replica=n).submit(c) for n, c in zip(["a", "b"], batch)]
+        with health.guarded("device_launch:threshold=1,cooldown=600"):
+            health.breaker("device_launch").record_failure()
+            with pytest.raises(DeviceLaunchError):
+                plane.drain()
+        plane.close()
+        for sub in subs:
+            with pytest.raises(DeviceLaunchError):
+                sub.result(timeout=1.0)
+        assert uni.stats["fastfails"] == 1
+    assert uni.stats["degraded_batches"] == 0
+    after = state_to_numpy(uni.states)
+    assert all((after[f] == before[f]).all() for f in before)
+    assert [dict(c) for c in uni.clocks] == clocks

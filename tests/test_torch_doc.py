@@ -14,6 +14,7 @@ from peritext_tpu.testing import DEFAULT_TEXT
 from peritext_tpu_torch import TorchDoc, state_to_numpy
 from peritext_tpu_torch.bench.workloads import doc_session
 from peritext_tpu_torch.ops import kernels as K
+from peritext_tpu_torch.ops.universe import DeviceLaunchError
 from peritext_tpu_torch.oracle import Doc, accumulate_patches
 
 B = {"active": True}
@@ -182,9 +183,11 @@ def _failing_step(monkeypatch, fail_on):
 
 
 def test_device_failure_rolls_the_change_back(monkeypatch):
-    """The second device step of a change raises: seq, max_op, clock,
-    lengths, the host store and the state are as before the change, and
-    the next change is the oracle's."""
+    """The second device step of a change raises and, with no retries
+    left, exhausts the launch policy: seq, max_op, clock, lengths, the host
+    store and the state are as before the change, and the next change is
+    the oracle's."""
+    monkeypatch.setenv("PERITEXT_LAUNCH_RETRIES", "0")
     oracle, doc, _, _ = seeded_pair()
     first, _ = doc.change([{"path": ["text"], "action": "insert", "index": 0, "values": ["<"]}])
     oracle.apply_change(first)
@@ -192,7 +195,7 @@ def test_device_failure_rolls_the_change_back(monkeypatch):
               doc.root, doc.get_text_with_formatting(["text"]))
     state = state_to_numpy(doc._uni.states)
     calls = _failing_step(monkeypatch, fail_on=2)
-    with pytest.raises(RuntimeError, match="illegal memory access"):
+    with pytest.raises(DeviceLaunchError, match="illegal memory access"):
         doc.change([
             {"path": ["text"], "action": "insert", "index": 3, "values": list("xyz")},
             {"path": [], "action": "set", "key": "title", "value": "T"},
