@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero:
 2. Hold each kernel against its plain PyTorch version on the card at the
    benchmark's shape (1024 replicas, a 1000-char document, 4 concurrent
    writer streams of 64 ops with marks; C = 2048, M = 1024): outputs must
-   be byte-equal.  Print each one's time beside the plain version's, and
+   be byte-equal, and so must ``merge_step_full``, ``merge_step`` (the
+   text kernel and the per-op mark scan) and ``merge_step_plain``.  Print each one's time beside the plain version's, and
    each timed input's text-row mix.  The text kernel is also held and timed
    on an insert-heavy seeded input (a quarter each of pads, inserts,
    deletes and runs of up to 64 chars).
@@ -87,11 +88,35 @@ Phases, in order; any failure exits non-zero:
    ``export_replica``/``import_replica`` into a fresh universe, and
    ``resume_universe`` from the snapshot plus a ``ChangeLog`` tail through
    the kernels, equal to the live universe and the oracle.
-12. Print the resilience counts of every phase (the script runs under
+12. The patched sorted route (``PERITEXT_MERGE_PATH=sorted``): phase 6's
+   universe shape and rounds 5-8 through ``apply_changes_with_patches``,
+   once windowed where the census plans a window and once on the full
+   table (``PERITEXT_MERGE_WINDOW=0``); in each leg every stream must equal
+   phase 6's per-op stream (and so its class's observer's), all 13 state
+   fields phase 6's, and neither kernel nor either plain version may run.
+   The full-table leg must build the winner cache on its first call and
+   hand it to every later one.  Prints each call's total, device merge,
+   readback and assembly ms, its cold and warm merge slices and the cache
+   it kept, the route counters, and the busy share of one windowed call
+   under torch.profiler.
+13. The patched windowed route on phase 9's 10,000-char document (C =
+   16384, R = 1024), rounds 5-8: the window must engage; 8 sampled
+   replicas' streams and fields must equal the same batches on the
+   full-table patched route and on the per-op loop, their spans their
+   writers'.  Prints each leg's calls and a profiled last round.
+14. Phase 10's manual serving leg on the sorted route: the sessions'
+   patches equal the observers'; prints the flush median and p95 and the
+   submissions per second beside phase 10's from the same run.
+15. The capacity route: 64 replicas at C = 16384 take a 16,300-char
+   genesis through the kernels, then runs that grow the document past
+   16384: every merge above the kernels' limit must be counted in
+   ``stats["capacity_routes"]`` and launch no kernel; one digest, and
+   sampled spans equal to an oracle's.
+16. Print the resilience counts of every phase (the script runs under
    ``PERITEXT_DEGRADE=0`` but for legs (b) and (c); launch retries,
    fast-fails and degraded batches must be 0 outside the legs that inject
    them, which assert their exact counts), the kernels' JSON summary
-   (launches summed over phases 4, 5 and 8-11; ``ms`` per wrapper call
+   (launches summed over phases 4, 5 and 8-15; ``ms`` per wrapper call
    between CUDA events, ``device_ms`` the kernel alone with a cold L2,
    both at phase 2), the card, and as the last line ``{"ok": true,
    "device": {...}}``.  Peak device memory is printed after every phase.
@@ -123,9 +148,11 @@ from peritext_tpu_torch.bench.workloads import (
     make_writer_rounds,
     split_rounds,
     text_row_mix,
+    wire_rounds,
 )
 from peritext_tpu_torch.ops import _build, cuda_kernels
 from peritext_tpu_torch.ops import kernels as K
+from peritext_tpu_torch.ops import sorted_patched as SP
 from peritext_tpu_torch.ops.state import FIELDS, map_state
 from peritext_tpu_torch.oracle import Doc, accumulate_patches
 from peritext_tpu_torch.runtime import ChangeLog, ServePlane, ServeShedError, faults, health, telemetry
@@ -150,6 +177,11 @@ SERVE_OPS = 8
 THREADED_SESSIONS = 64
 # Phase 11b: replicas of the degraded universe.
 DEGRADE_REPLICAS = 64
+# Phase 15: a genesis just under the kernels' limit and the runs that push
+# the document past it, on this many replicas.
+CAPACITY_DOC_LEN = 16_300
+CAPACITY_RUN = 128
+CAPACITY_REPLICAS = 64
 
 
 def log(msg: str) -> None:
@@ -287,6 +319,20 @@ def phase_kernels(label: str, b: dict, capacity: int, runs: int) -> dict:
         report(label, name, r)
     log(f"  [{label}] merge_step_full: byte-equal to merge_step_plain on all {len(FIELDS)} fields; "
         f"{full_ms:.4f} ms per call, plain {plain_ms:.4f} ms")
+    # merge_step_pallas's counterpart: the text kernel, then the per-op mark
+    # scan in plain torch (it launches the text kernel once per call).
+    before = cuda_kernels.LAUNCHES["text_phase"]
+    composite = cuda_kernels.merge_step(*merge_in)
+    torch.cuda.synchronize()
+    if cuda_kernels.LAUNCHES["text_phase"] != before + 1:
+        raise AssertionError(f"[{label}] merge_step did not launch the text kernel once")
+    err = max_abs_err([getattr(composite, f) for f in FIELDS], [getattr(full, f) for f in FIELDS])
+    if err != 0:
+        raise AssertionError(f"[{label}] merge_step differs from merge_step_full: max abs err {err}")
+    step_ms = call_ms(lambda: cuda_kernels.merge_step(*merge_in), max(2, runs // 4))
+    log(f"  [{label}] merge_step (merge_step_pallas's counterpart: text kernel, plain per-op mark scan): "
+        f"byte-equal to merge_step_full and merge_step_plain on all {len(FIELDS)} fields; "
+        f"{step_ms:.4f} ms per call; 0 launches on the main path")
     insert_heavy(label, b, capacity, runs)
     return results
 
@@ -542,13 +588,15 @@ def profile_device(call) -> dict | None:
     }
 
 
-def profile_patched_call(label: str, names, wl: dict, cut: int, ms: dict) -> None:
-    """Round ``cut + 1`` once more on a fresh universe, under torch.profiler:
-    the device time of the patched call against the unprofiled calls'
-    median loop and total, and the kernels that take most of it."""
+def profile_patched_call(label: str, names, wl: dict, cut: int, ms: dict, route=None) -> None:
+    """Round ``cut + 1`` once more on a fresh universe, under torch.profiler
+    (under the ``route`` variables, if given): the device time of the
+    patched call against the unprofiled calls' median loop and total, and
+    the kernels that take most of it."""
     uni = load_universe(names, wl, cut, WRITERS, 2048, 1024)
     batch = [wl["rounds"][cut][r % WRITERS] for r in range(len(names))]
-    p = profile_device(lambda: uni.apply_changes_with_patches(batch))
+    with env(**(route or {})):
+        p = profile_device(lambda: uni.apply_changes_with_patches(batch))
     if p is None:
         log(f"  [{label}] profiler: no device time recorded; device busy share not measured")
         return
@@ -573,7 +621,7 @@ def phase_patch_path(replicas: int, a2a_replicas: int, main_round_seconds, sampl
     merges = uni.stats["launches"]
     reset_counts()
     streams = {r: [] for r in range(0, replicas, max(1, replicas // samples))}
-    calls = []
+    calls, outs = [], []
     for k in range(cut, ROUNDS):
         before = {key: uni.stats[key] for key in ("patch_loop_seconds", "patch_readback_seconds",
                                                    "patch_assemble_seconds")}
@@ -584,6 +632,7 @@ def phase_patch_path(replicas: int, a2a_replicas: int, main_round_seconds, sampl
         check_streams(label, uni, out, [per_round[w][k - cut] for w in range(WRITERS)], WRITERS)
         for r in streams:
             streams[r] += out[names[r]]
+        outs.append(out)
         calls.append({"total": total, **{key: uni.stats[key] - v for key, v in before.items()}})
     no_kernel_or_plain_calls(label)
     for r, stream in streams.items():
@@ -607,6 +656,7 @@ def phase_patch_path(replicas: int, a2a_replicas: int, main_round_seconds, sampl
     log("  per call ms (total, loop, readback, assembly): " + "; ".join(
         f"{1e3 * c['total']:.4f}, {1e3 * c['patch_loop_seconds']:.4f}, "
         f"{1e3 * c['patch_readback_seconds']:.4f}, {1e3 * c['patch_assemble_seconds']:.4f}" for c in calls))
+    final_states = uni.states
     del uni
     torch.cuda.empty_cache()
     profile_patched_call(label, names, wl, cut, ms)
@@ -659,7 +709,8 @@ def phase_patch_path(replicas: int, a2a_replicas: int, main_round_seconds, sampl
     check_streams(label, small, out, [per_round[w][0] for w in range(WRITERS)], WRITERS)
     log(f"  span cap 1 on 8 replicas, round {cut + 1}: {small.stats['readback_overflows']} overflow, "
         f"planes readback, the same streams; cap grew to {small._span_cap}")
-    return {"patched_ms": ms, "merge_ms": merge_ms, "a2a_ms": 1e3 * a2a_s}
+    return {"patched_ms": ms, "merge_ms": merge_ms, "a2a_ms": 1e3 * a2a_s, "wl": wl,
+            "per_round": per_round, "outs": outs, "states": final_states}
 
 
 def phase_doc(edits: int, sync_every: int) -> dict:
@@ -811,7 +862,7 @@ def phase_window(replicas: int, full_replicas: int, samples: int) -> dict:
         f"{1e3 * statistics.median(full_times[1:]):.4f} ms at R={full_replicas} "
         f"(host {1e3 * statistics.median(full_host[1:]):.4f})")
     out = {"launches": {k: launches[k] + scan_launches[k] for k in launches}, "round_seconds": times,
-           "scan_round_seconds": scan_times, "full_round_seconds": full_times}
+           "scan_round_seconds": scan_times, "full_round_seconds": full_times, "wl": wl}
     del uni, full
     torch.cuda.empty_cache()
     # Round 8 of the windowed universe again on a fresh one, under the profiler.
@@ -900,35 +951,8 @@ def phase_serving(replicas: int, threaded: int, samples: int) -> dict:
         raise AssertionError(f"[{label}] genesis launches {cuda_kernels.LAUNCHES} != merges")
     add_launches(launches)
 
-    # Manual leg: every session submits rounds 1-2, one change at a time.
-    plane = ServePlane(uni, start=False, batch_target=replicas)
-    sessions = [plane.session(f"s{r}", replica=n, record_stream=True) for r, n in enumerate(names)]
-    t = time.perf_counter()
-    n_subs = 0
-    for k in range(2):
-        for r, s in enumerate(sessions):
-            for c in wl["rounds"][k][r % WRITERS]:
-                s.submit([c])
-                n_subs += 1
-    flush_ms = []
-    while True:
-        t1 = time.perf_counter()
-        if not plane.step():
-            break
-        flush_ms.append(1e3 * (time.perf_counter() - t1))
-    if plane.drain() != 0:
-        raise AssertionError(f"[{label}] the manual plane did not drain")
-    manual_s = time.perf_counter() - t
-    no_kernel_or_plain_calls(label)
-    manual_stats = dict(plane.stats)
-    plane.close()
-    for r, s in enumerate(sessions):
-        if s.patch_log != per_round[r % WRITERS][0] + per_round[r % WRITERS][1]:
-            raise AssertionError(f"[{label}] session {r}'s patches differ from its observer's")
-    log(f"  manual leg: {replicas} sessions, rounds 1-2, {n_subs} submissions in {manual_s:.3f} s "
-        f"({n_subs / manual_s:.1f} submissions/s); {len(flush_ms)} flushes, flush ms "
-        f"{median_p95(flush_ms)}; every session's patches equal its observer's")
-    log(f"  manual plane stats: {manual_stats}")
+    manual = serve_manual_leg(label, uni, names, wl, per_round)
+    sessions = manual["sessions"]
 
     # Threaded leg: the scheduler thread, default batch target, 25 ms deadline.
     telemetry.reset()
@@ -972,7 +996,42 @@ def phase_serving(replicas: int, threaded: int, samples: int) -> dict:
                 raise AssertionError(f"[{label}] writer {w}'s replicas disagree")
     log(f"  accumulated streams equal the spans of {samples + WRITERS} sampled replicas; one digest per class")
     return {"uni": uni, "wl": wl, "per_round": per_round, "launches": launches, "names": names,
-            "threaded": threaded}
+            "threaded": threaded, "manual": manual}
+
+
+def serve_manual_leg(label: str, uni: TorchUniverse, names, wl: dict, per_round) -> dict:
+    """The manual leg: every session submits rounds 1-2, one change at a
+    time, and the plane steps until empty.  Each session's patches must
+    equal its writer class's observer's; nothing may launch a kernel."""
+    plane = ServePlane(uni, start=False, batch_target=len(names))
+    sessions = [plane.session(f"s{r}", replica=n, record_stream=True) for r, n in enumerate(names)]
+    t = time.perf_counter()
+    n_subs = 0
+    for k in range(2):
+        for r, s in enumerate(sessions):
+            for c in wl["rounds"][k][r % WRITERS]:
+                s.submit([c])
+                n_subs += 1
+    flush_ms = []
+    while True:
+        t1 = time.perf_counter()
+        if not plane.step():
+            break
+        flush_ms.append(1e3 * (time.perf_counter() - t1))
+    if plane.drain() != 0:
+        raise AssertionError(f"[{label}] the manual plane did not drain")
+    seconds = time.perf_counter() - t
+    no_kernel_or_plain_calls(label)
+    stats = dict(plane.stats)
+    plane.close()
+    for r, s in enumerate(sessions):
+        if s.patch_log != per_round[r % WRITERS][0] + per_round[r % WRITERS][1]:
+            raise AssertionError(f"[{label}] session {r}'s patches differ from its observer's")
+    log(f"  manual leg: {len(names)} sessions, rounds 1-2, {n_subs} submissions in {seconds:.3f} s "
+        f"({n_subs / seconds:.1f} submissions/s); {len(flush_ms)} flushes, flush ms "
+        f"{median_p95(flush_ms)}; every session's patches equal its observer's")
+    log(f"  manual plane stats: {stats}")
+    return {"sessions": sessions, "flush_ms": flush_ms, "subs": n_subs, "seconds": seconds}
 
 
 def phase_resilience(serve_run: dict, samples: int) -> dict:
@@ -1156,6 +1215,287 @@ def phase_resilience(serve_run: dict, samples: int) -> dict:
     return {"launches": launches}
 
 
+PATCH_STATS = ("patch_loop_seconds", "patch_readback_seconds", "patch_assemble_seconds")
+
+
+def patched_call(uni: TorchUniverse, batch) -> tuple:
+    """One synchronized ``apply_changes_with_patches``: its output and its
+    total, device (merge), readback and assembly seconds."""
+    before = {key: uni.stats[key] for key in PATCH_STATS}
+    t = time.perf_counter()
+    out = uni.apply_changes_with_patches(batch)
+    torch.cuda.synchronize()
+    return out, {"total": time.perf_counter() - t, **{key: uni.stats[key] - v for key, v in before.items()}}
+
+
+def log_calls(label: str, calls) -> None:
+    log(f"  [{label}] per call ms (total, device merge, record readback, host assembly): " + "; ".join(
+        f"{1e3 * c['total']:.4f}, {1e3 * c['patch_loop_seconds']:.4f}, "
+        f"{1e3 * c['patch_readback_seconds']:.4f}, {1e3 * c['patch_assemble_seconds']:.4f}" for c in calls))
+
+
+def route_stats(uni: TorchUniverse) -> str:
+    keys = ("launches", "scan_fallbacks", "multi_group_fallbacks", "readback_overflows", "windowed_launches",
+            "window_fallbacks", "window_rebuilds", "window_census_skips", "capacity_routes")
+    return " ".join(f"{k}={uni.stats[k]}" for k in keys)
+
+
+def on_route(label: str, uni: TorchUniverse, calls: int) -> None:
+    """At least one of ``calls`` patched calls took the sorted route (the
+    rest are the counted fallbacks to the per-op loop)."""
+    if calls - uni.stats["scan_fallbacks"] - uni.stats["multi_group_fallbacks"] < 1:
+        raise AssertionError(f"[{label}] no call took the patched sorted route: {route_stats(uni)}")
+
+
+@contextlib.contextmanager
+def cache_spy():
+    """Record, for every ``merge_step_sorted_patched`` call (the full-table
+    slices and each windowed slice), whether it was handed a winner cache
+    (warm) or had to build one (cold)."""
+    seen: list = []
+    inner = SP.merge_step_sorted_patched
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("wcache_in") is not None)
+        return inner(*args, **kwargs)
+
+    SP.merge_step_sorted_patched = spy
+    try:
+        yield seen
+    finally:
+        SP.merge_step_sorted_patched = inner
+
+
+def cache_state(uni: TorchUniverse) -> str:
+    wc = uni._wcaches
+    if wc is None:
+        return "no winner cache"
+    return f"winner cache {list(wc.shape)} {wc.dtype} ({wc.numel() * wc.element_size()} B)"
+
+
+def phase_patched_sorted(p6: dict, replicas: int) -> dict:
+    """Phase 6's rounds 5-8 on the patched sorted route, windowed where the
+    census plans a window and on the full table (``PERITEXT_MERGE_WINDOW=0``):
+    streams equal to phase 6's per-op streams (and so to the observers),
+    states equal to phase 6's, no kernel and no plain version run.  The
+    full-table leg must build the winner cache on its first call and carry
+    it into every later one."""
+    label = "phase 12"
+    wl, per_round = p6["wl"], p6["per_round"]
+    cut = ROUNDS // 2
+    names = [f"replica{i}" for i in range(replicas)]
+    launches: dict = {}
+    legs = {}
+    for leg, route in (("windowed", SORTED), ("full table", dict(SORTED, PERITEXT_MERGE_WINDOW="0"))):
+        uni = load_universe(names, wl, cut, WRITERS, 2048, 1024)
+        add_launches(launches)
+        calls = []
+        with env(**route), cache_spy() as warm:
+            for k in range(cut, ROUNDS):
+                warm.clear()
+                out, c = patched_call(uni, [wl["rounds"][k][r % WRITERS] for r in range(replicas)])
+                if out != p6["outs"][k - cut]:
+                    raise AssertionError(f"[{label} {leg}] round {k + 1}'s streams differ from phase 6's per-op streams")
+                check_streams(label, uni, out, [per_round[w][k - cut] for w in range(WRITERS)], WRITERS)
+                c.update(warm=sum(warm), cold=len(warm) - sum(warm), cache=cache_state(uni))
+                calls.append(c)
+        no_kernel_or_plain_calls(label)
+        same_fields(f"{label} {leg}", uni.states, p6["states"])
+        on_route(label, uni, len(calls))
+        if leg == "full table":
+            if uni.stats["windowed_launches"] != 0:
+                raise AssertionError(f"[{label}] PERITEXT_MERGE_WINDOW=0 windowed: {route_stats(uni)}")
+            first, rest = calls[0], calls[1:]
+            if first["warm"] or not first["cold"] or any(c["cold"] or not c["warm"] for c in rest) or \
+                    uni._wcaches is None:
+                raise AssertionError(f"[{label}] the full-table leg did not build the winner cache on its first "
+                                     f"call and carry it: {[(c['cold'], c['warm'], c['cache']) for c in calls]}")
+        ms = {key: 1e3 * statistics.median(c[key] for c in calls) for key in PATCH_STATS + ("total",)}
+        legs[leg] = {"ms": ms, "calls": calls}
+        log(f"{label} ({leg}): the patched sorted route at R={replicas} C={uni.capacity} M={uni.max_mark_ops}, "
+            f"rounds {cut + 1}-{ROUNDS}: streams equal phase 6's per-op streams and the {WRITERS} observers'; all "
+            f"{len(FIELDS)} state fields equal phase 6's; no kernel or plain version ran")
+        log_calls(f"{label} {leg}", calls)
+        log(f"  [{label} {leg}] per call, merge slices handed a winner cache (warm) / building one (cold) and the "
+            f"cache kept after it: " + "; ".join(f"{c['warm']}/{c['cold']}, {c['cache']}" for c in calls))
+        log(f"  [{label} {leg}] median of {len(calls)}: {ms['total']:.4f} ms (device {ms['patch_loop_seconds']:.4f}, "
+            f"readback {ms['patch_readback_seconds']:.4f}, assembly {ms['patch_assemble_seconds']:.4f}); phase 6's "
+            f"per-op loop {p6['patched_ms']['total']:.4f}")
+        log(f"  [{label} {leg}] routes: {route_stats(uni)}")
+        del uni
+        torch.cuda.empty_cache()
+    ms = legs["windowed"]["ms"]
+    profile_patched_call(label, names, wl, cut, ms, route=SORTED)
+    add_launches(launches)
+    return {"launches": launches, "ms": ms, "calls": legs["windowed"]["calls"]}
+
+
+def phase_patched_window(p9: dict, replicas: int, samples: int) -> dict:
+    """Phase 9's 10k-char hotspot rounds 5-8 through patches on the sorted
+    route, windowed, against the full-table patched route and the per-op
+    loop on sampled replicas."""
+    label = "phase 13"
+    wl = p9["wl"]
+    cut = ROUNDS // 2
+    names = [f"replica{i}" for i in range(replicas)]
+    sample = list(range(0, replicas, max(1, replicas // samples)))[:samples]
+    launches: dict = {}
+
+    def loaded(rows):
+        uni = TorchUniverse([names[r] for r in rows], capacity=LARGE_CAPACITY, max_mark_ops=128, device=DEVICE)
+        uni.apply_changes([[wl["genesis"]]] * len(rows))
+        for rnd in wl["rounds"][:cut]:
+            uni.apply_changes([rnd[r % WRITERS] for r in rows])
+        add_launches(launches)
+        return uni
+
+    def rounds(uni, rows, route):
+        outs, calls = [], []
+        with env(**route):
+            for rnd in wl["rounds"][cut:]:
+                out, c = patched_call(uni, [rnd[r % WRITERS] for r in rows])
+                outs.append(out)
+                calls.append(c)
+        no_kernel_or_plain_calls(label)
+        return outs, calls
+
+    torch.cuda.reset_peak_memory_stats()
+    uni = loaded(range(replicas))
+    outs, calls = rounds(uni, range(replicas), SORTED)
+    if uni.stats["windowed_launches"] < 1:
+        raise AssertionError(f"[{label}] the window never engaged: {route_stats(uni)}")
+    log_peak(f"  [{label}] windowed leg")
+    expect = [w.get_text_with_formatting(["text"]) for w in wl["writers"]]
+    for r in sample:
+        if uni.spans(r) != expect[r % WRITERS]:
+            raise AssertionError(f"[{label}] replica {r}'s spans differ from its writer's")
+    legs = {}
+    for leg, route in (("full table", dict(SORTED, PERITEXT_MERGE_WINDOW="0")), ("per-op loop", {})):
+        other = loaded(sample)
+        o_outs, o_calls = rounds(other, sample, route)
+        for k, (a, b) in enumerate(zip(outs, o_outs)):
+            if any(a[names[r]] != b[names[r]] for r in sample):
+                raise AssertionError(f"[{label}] round {cut + k + 1}: the {leg} leg's streams differ")
+        same_fields(label, other.states, map_state(lambda x: x[sample], uni.states))
+        legs[leg] = (o_calls, route_stats(other))
+        del other
+    ms = {key: 1e3 * statistics.median(c[key] for c in calls) for key in calls[0]}
+    log(f"{label}: the patched windowed route at R={replicas} C={uni.capacity} M={uni.max_mark_ops}, phase 9's "
+        f"rounds {cut + 1}-{ROUNDS}: {len(sample)} sampled replicas' streams and all {len(FIELDS)} fields equal the "
+        f"full-table patched route and the per-op loop on the same rows, spans equal their writers'; "
+        f"no kernel or plain version ran")
+    log_calls(f"{label} windowed R={replicas}", calls)
+    log(f"  [{label}] windowed routes: {route_stats(uni)}")
+    for leg, (o_calls, stats) in legs.items():
+        log_calls(f"{label} {leg} R={len(sample)}", o_calls)
+        log(f"  [{label}] {leg} routes: {stats}")
+    log(f"  [{label}] median: windowed {ms['total']:.4f} ms at R={replicas} (device {ms['patch_loop_seconds']:.4f}, "
+        f"readback {ms['patch_readback_seconds']:.4f}, assembly {ms['patch_assemble_seconds']:.4f})")
+    del uni
+    torch.cuda.empty_cache()
+    # The last round again on a fresh windowed universe, under the profiler.
+    uni = loaded(range(replicas))
+    with env(**SORTED):
+        for rnd in wl["rounds"][cut:-1]:
+            uni.apply_changes_with_patches([rnd[r % WRITERS] for r in range(replicas)])
+        p = profile_device(lambda: uni.apply_changes_with_patches(
+            [wl["rounds"][-1][r % WRITERS] for r in range(replicas)]))
+    if p is None:
+        log(f"  [{label}] profiler: no device time recorded; device busy share not measured")
+    else:
+        last = calls[-1]
+        log(f"  [{label}] profiler, round {ROUNDS} windowed at R={replicas}: {p['launches']} kernel launches, "
+            f"{p['kernel_ms']:.4f} ms kernel time (busy {100 * p['kernel_ms'] / (1e3 * last['patch_loop_seconds']):.1f}% "
+            f"of the unprofiled call's device merge {1e3 * last['patch_loop_seconds']:.4f} ms); {p['copies']} copies, "
+            f"{p['copy_ms']:.4f} ms; top kernels: {p['top']}")
+    add_launches(launches)
+    del uni
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms}
+
+
+def phase_serving_sorted(p10: dict, replicas: int) -> dict:
+    """Phase 10's manual leg with the plane's flushes on the patched sorted
+    route, beside phase 10's numbers from this run."""
+    label = "phase 14"
+    wl, per_round = p10["wl"], p10["per_round"]
+    names = [f"replica{i}" for i in range(replicas)]
+    launches: dict = {}
+    reset_counts()
+    uni = TorchUniverse(names, capacity=2048, max_mark_ops=1024, device=DEVICE)
+    uni.apply_changes([[wl["genesis"]]] * replicas)
+    add_launches(launches)
+    with env(**SORTED):
+        manual = serve_manual_leg(label, uni, names, wl, per_round)
+    on_route(label, uni, len(manual["flush_ms"]))
+    digests = uni.digests()
+    for w in range(WRITERS):
+        if len(set(digests[w::WRITERS].tolist())) != 1:
+            raise AssertionError(f"[{label}] writer {w}'s replicas disagree")
+    base = p10["manual"]
+    log(f"{label}: phase 10's manual leg on the patched sorted route: flush ms {median_p95(manual['flush_ms'])} "
+        f"over {len(manual['flush_ms'])} flushes, {manual['subs'] / manual['seconds']:.1f} submissions/s; "
+        f"phase 10 (per-op loop, this run): {median_p95(base['flush_ms'])} over {len(base['flush_ms'])}, "
+        f"{base['subs'] / base['seconds']:.1f} submissions/s; one digest per writer class")
+    log(f"  [{label}] routes: {route_stats(uni)}")
+    del uni
+    torch.cuda.empty_cache()
+    return {"launches": launches, "manual": manual}
+
+
+def phase_capacity(replicas: int, samples: int) -> dict:
+    """A universe on the default route grown from C = 16384 (the kernels'
+    limit) to 32768: the merges above the limit take the capacity route,
+    counted, and launch no kernel."""
+    label = "phase 15"
+    t0 = time.perf_counter()
+    hist = wire_rounds(CAPACITY_DOC_LEN, 2, 2, CAPACITY_RUN, seed=5)
+    oracle = Doc("oracle")
+    for c in [hist["genesis"]] + [c for rnd in hist["rounds"] for cs in rnd for c in cs]:
+        oracle.apply_change(c)
+    expect = oracle.get_text_with_formatting(["text"])
+    log(f"{label}: workload + oracle built in {time.perf_counter() - t0:.2f} s (host); a {CAPACITY_DOC_LEN}-char "
+        f"genesis, 2 rounds of 2 writers' {CAPACITY_RUN}-char runs and marks, then the all-to-all")
+    names = [f"replica{i}" for i in range(replicas)]
+    launches: dict = {}
+    reset_counts()
+    uni = TorchUniverse(names, capacity=LARGE_CAPACITY, max_mark_ops=256, device=DEVICE)
+    limit = cuda_kernels.kernel_capacity_limit(uni.max_mark_ops // 32)
+    uni.apply_changes([[hist["genesis"]]] * replicas)
+    if uni.capacity > limit or any(n != 1 for n in cuda_kernels.LAUNCHES.values()):
+        raise AssertionError(f"[{label}] the genesis did not merge through the kernels: {cuda_kernels.LAUNCHES}")
+    add_launches(launches)
+    history = [[c for rnd in hist["rounds"] for c in rnd[w]] for w in range(2)]
+    batches = [[rnd[r % 2] for r in range(replicas)] for rnd in hist["rounds"]]
+    batches.append([history[1 - r % 2] for r in range(replicas)])
+    above, times = 0, []
+    for batch in batches:
+        t = time.perf_counter()
+        uni.apply_changes(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        above += uni.capacity > limit
+    if uni.capacity != 2 * LARGE_CAPACITY or above != len(batches):
+        raise AssertionError(f"[{label}] capacity {uni.capacity}, {above} merges above the limit")
+    if uni.stats["capacity_routes"] != above or any(cuda_kernels.LAUNCHES.values()) or any(PLAIN_CALLS.values()):
+        raise AssertionError(f"[{label}] capacity_routes {uni.stats['capacity_routes']} != {above}, or launches "
+                             f"{cuda_kernels.LAUNCHES} / plain calls {PLAIN_CALLS} moved above the limit")
+    if len(set(uni.digests().tolist())) != 1:
+        raise AssertionError(f"[{label}] replicas that took the same changes disagree")
+    for r in list(range(0, replicas, max(1, replicas // samples)))[:samples] + [replicas - 1]:
+        if uni.spans(r) != expect:
+            raise AssertionError(f"[{label}] replica {r}'s spans differ from the oracle's")
+    if not any(span["marks"] for span in expect):
+        raise AssertionError(f"[{label}] the document carries no marks: the check proves nothing")
+    log(f"  R={replicas}: C {LARGE_CAPACITY} -> {uni.capacity} (kernel limit {limit}); {above} merges above the "
+        f"limit, capacity_routes={uni.stats['capacity_routes']}, kernel launches after the genesis "
+        f"{cuda_kernels.LAUNCHES}; one digest; {samples + 1} replicas' spans equal the oracle's; merge ms "
+        + " ".join(f"{1e3 * t:.4f}" for t in times))
+    del uni
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1200,7 +1540,7 @@ def main() -> int:
     log_peak("phase 5")
     count_plain_calls()
     with resilience("phase 6"):
-        phase_patch_path(REPLICAS, 64, main["round_seconds"], samples=8)
+        patch_run = phase_patch_path(REPLICAS, 64, main["round_seconds"], samples=8)
     log_peak("phase 6")
     with resilience("phase 7"):
         phase_doc(edits=200, sync_every=10)
@@ -1220,11 +1560,26 @@ def main() -> int:
     del serving["uni"]
     torch.cuda.empty_cache()
     log_peak("phase 11")
-    runs = (main, past, sorted_run, window, serving, resilient)
+    with resilience("phase 12"):
+        patched_sorted = phase_patched_sorted(patch_run, REPLICAS)
+    del patch_run["states"], patch_run["outs"]
+    torch.cuda.empty_cache()
+    log_peak("phase 12")
+    with resilience("phase 13"):
+        patched_window = phase_patched_window(window, REPLICAS, samples=8)
+    log_peak("phase 13")
+    with resilience("phase 14"):
+        served_sorted = phase_serving_sorted(serving, REPLICAS)
+    log_peak("phase 14")
+    with resilience("phase 15"):
+        capacity = phase_capacity(CAPACITY_REPLICAS, samples=8)
+    log_peak("phase 15")
+    runs = (main, past, sorted_run, window, serving, resilient, patched_sorted, patched_window, served_sorted,
+            capacity)
     launches = {name: sum(run["launches"].get(name, 0) for run in runs) for name in results}
-    log("phase 12: resilience counts (launch_retries, fastfails, degraded_batches) per phase and leg: " + "; ".join(
+    log("phase 16: resilience counts (launch_retries, fastfails, degraded_batches) per phase and leg: " + "; ".join(
         f"{lbl} {got['launch_retries']}/{got['fastfails']}/{got['degraded_batches']}" for lbl, got in PHASE_TALLIES))
-    log(f"  kernel launches summed over phases 4, 5 and 8-11: {launches}")
+    log(f"  kernel launches summed over phases 4, 5 and 8-15: {launches}")
 
     replaces = {
         "text_phase": "peritext_tpu/ops/pallas_kernels.py:152",

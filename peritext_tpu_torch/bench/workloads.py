@@ -6,7 +6,9 @@ the same seed gives the same changes.  ``make_writer_rounds`` extends the
 same generator to chained rounds, ``build_device_batch`` encodes a
 workload into the stacked device batch the merge kernels take, and
 ``doc_session`` drives live document replicas through random edits, each
-held against an oracle twin.
+held against an oracle twin.  ``WireAuthor`` and ``wire_rounds`` write
+changes out in wire format with named element ids, for documents too long
+for the oracle's O(n) index walks to author quickly (past 16k chars).
 """
 from __future__ import annotations
 
@@ -235,6 +237,90 @@ def make_writer_rounds(
     return {"genesis": genesis, "rounds": per_round, "writers": writers}
 
 
+class WireAuthor:
+    """One actor's changes written out in wire format: each op names the
+    element ids it references, so no document is consulted.  ``saw``
+    records a peer's change (its clock and counter advance)."""
+
+    def __init__(self, actor: str):
+        self.actor, self.seq, self.max_op, self.clock = actor, 0, 0, {}
+
+    def change(self, build) -> Dict[str, Any]:
+        """A change whose ops ``build(new_id)`` returns, ``new_id()`` giving
+        each op its id in turn."""
+        self.seq += 1
+        start = self.max_op + 1
+        ops = build(self._new_id)
+        change = {"actor": self.actor, "seq": self.seq, "deps": dict(self.clock),
+                  "startOp": start, "ops": ops}
+        self.clock[self.actor] = self.seq
+        return change
+
+    def _new_id(self) -> str:
+        self.max_op += 1
+        return f"{self.max_op}@{self.actor}"
+
+    def saw(self, change: Dict[str, Any]) -> None:
+        self.clock[change["actor"]] = change["seq"]
+        self.max_op = max(self.max_op, change["startOp"] + len(change["ops"]) - 1)
+
+
+def wire_insert(text_obj: str, after: Optional[str], chars: str):
+    """Ops inserting ``chars`` as a chain after element ``after`` (None:
+    the head)."""
+    def build(new_id):
+        out, prev = [], after
+        for ch in chars:
+            op = {"opId": new_id(), "action": "set", "obj": text_obj, "insert": True, "value": ch}
+            if prev is not None:
+                op["elemId"] = prev
+            out.append(op)
+            prev = op["opId"]
+        return out
+    return build
+
+
+def wire_rounds(doc_len: int, writers: int, rounds: int, run_chars: int, seed: int) -> Dict[str, Any]:
+    """A ``doc_len``-character genesis by actor "genesis" and ``rounds``
+    rounds of concurrent changes: in each, writer w inserts a run of
+    ``run_chars`` characters after a random genesis character and adds a
+    mark (strong, em or a comment) over a random genesis range.  A
+    writer's changes depend on the genesis and its own earlier ones only.
+    Returns ``genesis``, ``rounds`` ([round][writer] -> [change]) and
+    ``text_obj``."""
+    rng = random.Random(seed)
+    text = "1@genesis"
+    base = WireAuthor("genesis")
+    body = "".join(rng.choice("abcdefghij klmnop") for _ in range(doc_len))
+    genesis = base.change(lambda new_id: [{"opId": new_id(), "action": "makeList", "obj": None,
+                                            "key": "text"}] + wire_insert(text, None, body)(new_id))
+    authors = [WireAuthor(f"writer{w}") for w in range(writers)]
+    for a in authors:
+        a.saw(genesis)
+    out = []
+    for k in range(rounds):
+        rnd = []
+        for w, a in enumerate(authors):
+            at = rng.randrange(doc_len)
+            lo = rng.randrange(doc_len - 1)
+            hi = rng.randrange(lo + 1, min(doc_len, lo + 400))
+            mark_type = rng.choice(["strong", "em", "comment"])
+
+            def build(new_id, at=at, lo=lo, hi=hi, mark_type=mark_type, w=w, k=k):
+                ops = wire_insert(text, f"{at + 2}@genesis", "".join(
+                    rng.choice("XYZ") for _ in range(run_chars)))(new_id)
+                mark = {"opId": new_id(), "action": "addMark", "obj": text, "markType": mark_type,
+                        "start": {"type": "before", "elemId": f"{lo + 2}@genesis"},
+                        "end": {"type": "after", "elemId": f"{hi + 2}@genesis"}}
+                if mark_type == "comment":
+                    mark["attrs"] = {"id": f"c{w}-{k}"}
+                return ops + [mark]
+
+            rnd.append([a.change(build)])
+        out.append(rnd)
+    return {"genesis": genesis, "rounds": out, "text_obj": text}
+
+
 def split_rounds(rounds: List[List[List[Dict[str, Any]]]], ops_per_change: int) -> List[List[List[Dict[str, Any]]]]:
     """``make_writer_rounds``' rounds with each writer's ops re-cut into
     changes of ``ops_per_change`` internal ops (the last of a round may be
@@ -367,7 +453,7 @@ def build_device_batch(
     for stream in workload["streams"]:
         rows, _, _ = encode_changes(stream, actors, attrs, text_obj=text_obj)
         t, m = split_rows(rows)
-        text_streams.append(fuse_insert_runs(t))
+        text_streams.append(fuse_insert_runs(t)[:2])
         mark_streams.append(m)
     ranks_np = np.zeros(64, np.int32)
     rk = actors.ranks()
@@ -376,7 +462,7 @@ def build_device_batch(
 
     # The genesis document: one fused merge on a single replica, then tiled.
     g_text, g_marks = split_rows(genesis_rows)
-    fr, fb = fuse_insert_runs(g_text)
+    fr, fb, _ = fuse_insert_runs(g_text)
     single = map_state(lambda x: x.unsqueeze(0), make_empty_state(capacity, max_mark_ops, device))
     base = K.merge_step_plain(
         single,

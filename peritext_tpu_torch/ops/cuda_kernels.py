@@ -5,7 +5,10 @@ Counterpart of ``peritext_tpu/ops/pallas_kernels.py``:
 - ``text_phase`` runs ``csrc/text_phase.cu`` (replaces ``_text_kernel``);
 - ``mark_phase`` runs ``csrc/mark_phase.cu`` (replaces ``_mark_kernel``);
 - ``merge_step_full`` is text kernel -> boundary permute -> mark kernel ->
-  mark-table append (``merge_step_pallas_full``).
+  mark-table append (``merge_step_pallas_full``);
+- ``merge_step`` is text kernel -> boundary permute -> the per-op mark
+  scan in plain torch -> mark-table append (``merge_step_pallas``, the
+  latency composite whose mark phase JAX runs in XLA).
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain PyTorch version from ``kernels.py``, which the
@@ -13,6 +16,8 @@ kernels are held byte-for-byte against.  Nothing falls back from the card
 to the plain version.  ``LAUNCHES`` counts the kernel launches of each
 wrapper (only launches on the card count).  Both kernels hold C <= 16384
 (a 10k-character document) in one block's shared memory; larger C raises.
+``kernel_capacity_limit`` gives that bound from the same footprints, so a
+caller can route a larger capacity elsewhere before it launches.
 """
 from __future__ import annotations
 
@@ -60,6 +65,15 @@ def _largest_fitting(smem_bytes) -> int:
     while smem_bytes(2 * c) <= MAX_SHARED_BYTES:
         c *= 2
     return c
+
+
+def kernel_capacity_limit(words: int) -> int:
+    """The largest capacity (a power of two) that both kernels hold in one
+    block's shared memory at ``words`` mask words."""
+    return min(
+        _largest_fitting(text_phase_smem_bytes),
+        _largest_fitting(lambda cap: mark_phase_smem_bytes(cap, words)),
+    )
 
 
 def _on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
@@ -234,6 +248,33 @@ def merge_step_full(
     )
     bnd_def, bnd_mask = K._permute_boundaries(states.bnd_def, states.bnd_mask, oi)
     bnd_def, bnd_mask = mark_phase(
+        bnd_def, bnd_mask, ec, ea, ln, states.mark_count, mark_ops
+    )
+    out = dataclasses.replace(
+        states, elem_ctr=ec, elem_act=ea, deleted=dl, chars=ch, length=ln,
+        bnd_def=bnd_def, bnd_mask=bnd_mask,
+    )
+    return K.append_mark_table(out, mark_ops)
+
+
+def merge_step(
+    states: DocState,
+    text_ops: torch.Tensor,
+    mark_ops: torch.Tensor,
+    ranks: torch.Tensor,
+    char_buf: Optional[torch.Tensor] = None,
+) -> DocState:
+    """The counterpart of ``merge_step_pallas``: the text kernel, then the
+    boundary permute and the mark phase as the per-op scan in plain torch
+    (``kernels.mark_phase_plain``, the loop JAX runs as ``lax.scan`` of
+    ``_apply_mark_fast``), then the mark-table append.  State-equivalent
+    to ``merge_step_full`` and ``kernels.merge_step_plain``."""
+    ec, ea, dl, ch, oi, ln = text_phase(
+        states.elem_ctr, states.elem_act, states.deleted, states.chars,
+        states.length, text_ops, ranks, char_buf,
+    )
+    bnd_def, bnd_mask = K._permute_boundaries(states.bnd_def, states.bnd_mask, oi)
+    bnd_def, bnd_mask = K.mark_phase_plain(
         bnd_def, bnd_mask, ec, ea, ln, states.mark_count, mark_ops
     )
     out = dataclasses.replace(

@@ -23,7 +23,10 @@ degradation.  When the budget runs out the ``DeviceLaunchError`` reaches
 capacities, lengths and the host store) and re-raises; a semantic error
 (a bad index, ``NotImplementedError``) passes through as the oracle's.
 Remote ingestion (``apply_change``) goes through the universe's patch path
-with its full policy, degradation included.
+with its full policy, degradation included, and takes the patched sorted
+route under ``PERITEXT_MERGE_PATH=sorted``; local mark rows join the
+universe's allowMultiple group census, and a rolled-back change restores
+the census and the winner cache with the rest of the control plane.
 """
 from __future__ import annotations
 
@@ -162,6 +165,10 @@ class TorchDoc:
             "max_mark_ops": uni.max_mark_ops,
             "length": uni.lengths[0],
             "marks": uni.mark_counts[0],
+            # The group census and winner cache move with local application.
+            "census": {k: set(v) for k, v in uni._multi_groups.items()},
+            "wcaches": uni._wcaches,
+            "wcaches_actors": uni._wcaches_actors,
             "store": None,
             "store_version": uni.store_versions[0],
             "text_obj": uni.text_objs[0],
@@ -220,6 +227,9 @@ class TorchDoc:
             uni.max_mark_ops = snap["max_mark_ops"]
             uni.lengths[0] = snap["length"]
             uni.mark_counts[0] = snap["marks"]
+            uni._multi_groups = snap["census"]
+            uni._wcaches = snap["wcaches"]
+            uni._wcaches_actors = snap["wcaches_actors"]
             if snap["store"] is not None:
                 uni.stores[0] = snap["store"]
                 uni.store_versions[0] = snap["store_version"]
@@ -398,5 +408,11 @@ class TorchDoc:
             new_state, records = uni._run_launch(make_attempt("planes"))
             records = {k: v.cpu().numpy() for k, v in records.items()}
         uni.states = new_state
+        # Local mark rows take table columns as ingested ones do, so they
+        # count toward the allowMultiple group census (after the launch
+        # succeeded, as _commit counts them); the local per-op application
+        # does not maintain the patched route's winner cache.
+        uni._count_multi_groups(op_rows)
+        uni._wcaches = None
         table = uni._mark_tables([0])[0]
         return assemble_patches(records, 0, op_rows, table, uni.attrs)

@@ -22,6 +22,9 @@ from peritext_tpu_torch.ids import ActorRegistry, make_op_id, parse_op_id
 from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.schema import ALL_MARKS, MARK_TYPE_ID
 
+# Stream position of a padding row: beyond every instant of a batch.
+TIME_PAD = 1 << 30
+
 
 class AttrRegistry:
     """Interns mark attr dicts to dense ids (canonical-JSON keyed)."""
@@ -239,28 +242,39 @@ def split_rows(rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 def fuse_insert_runs(
     rows: np.ndarray,
     max_run: Optional[int] = None,
-) -> Tuple[np.ndarray, np.ndarray]:
+    pos: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
     """Fuse chained insert rows into KIND_INSERT_RUN rows + a char buffer.
 
     A chain is consecutive rows where each insert references the previous
     row's op id with consecutive counters from the same actor — exactly what
     one insert input op expands to (micromerge.ts:351-361).  Chains apply as
     one scan step each (see kernels._apply_text_op's contiguity argument).
-    Returns (fused rows, char buffer padded for in-bounds dynamic slices).
+    Returns (fused rows, char buffer padded for in-bounds dynamic slices,
+    fused positions or None).
 
     ``max_run`` caps chain length; the default (kernels.MAX_RUN_LEN) is what
     the kernels' static char windows require.
+
+    ``pos`` (the rows' flat batch-stream positions, ``counts["row_pos"]``)
+    gates fusion on delivery adjacency and returns each fused row's
+    first-op position: the patched sorted merge models a run as k
+    consecutive instants, so two chained inserts separated in the delivery
+    stream (by a mark or a host op) stay unfused.
     """
     if max_run is None:
         max_run = K.MAX_RUN_LEN
     if max_run <= 0:
         max_run = 1 << 30
     fused: List[np.ndarray] = []
+    fused_pos: List[int] = []
     chars: List[int] = []
     i = 0
     n = rows.shape[0]
     while i < n:
         row = rows[i]
+        if pos is not None:
+            fused_pos.append(int(pos[i]))
         if row[K.K_KIND] != K.KIND_INSERT:
             fused.append(row)
             i += 1
@@ -274,6 +288,7 @@ def fuse_insert_runs(
             and rows[j][K.K_CTR] == rows[j - 1][K.K_CTR] + 1
             and rows[j][K.K_REF_CTR] == rows[j - 1][K.K_CTR]
             and rows[j][K.K_REF_ACT] == rows[j - 1][K.K_ACT]
+            and (pos is None or pos[j] == pos[j - 1] + 1)
         ):
             j += 1
         if j - i == 1:
@@ -293,7 +308,7 @@ def fuse_insert_runs(
     out_rows = np.stack(fused) if fused else np.zeros((0, K.OP_FIELDS), np.int32)
     buf = np.zeros(len(chars) + K.MAX_RUN_LEN, np.int32)
     buf[: len(chars)] = chars
-    return out_rows, buf
+    return out_rows, buf, (np.asarray(fused_pos, np.int64) if pos is not None else None)
 
 
 def compute_rounds(rows: np.ndarray) -> Tuple[np.ndarray, int]:
@@ -330,12 +345,16 @@ def compute_rounds(rows: np.ndarray) -> Tuple[np.ndarray, int]:
 
 
 def _fuse_and_rounds(
-    text_rows_list: Sequence[np.ndarray], max_run: int
-) -> Tuple[list, list, list, int, int]:
-    fused, bufs, round_labels = [], [], []
+    text_rows_list: Sequence[np.ndarray],
+    max_run: int,
+    pos_list: Optional[Sequence[np.ndarray]] = None,
+) -> Tuple[list, list, list, list, int, int]:
+    fused, bufs, round_labels, fused_pos = [], [], [], []
     num_rounds, maxk = 1, 1
-    for rows in text_rows_list:
-        fr, fb = fuse_insert_runs(rows, max_run=max_run)
+    for i, rows in enumerate(text_rows_list):
+        fr, fb, fp = fuse_insert_runs(
+            rows, max_run=max_run, pos=None if pos_list is None else pos_list[i]
+        )
         ro, nr = compute_rounds(fr)
         num_rounds = max(num_rounds, nr)
         runs = fr[:, K.K_KIND] == K.KIND_INSERT_RUN
@@ -344,13 +363,16 @@ def _fuse_and_rounds(
         fused.append(fr)
         bufs.append(fb)
         round_labels.append(ro)
-    return fused, bufs, round_labels, num_rounds, maxk
+        fused_pos.append(fp)
+    return fused, bufs, round_labels, fused_pos, num_rounds, maxk
 
 
 def prepare_sorted_batch(
     text_rows_list: Sequence[np.ndarray],
     max_run: int = 0,
     fallback_max_rounds: Optional[int] = None,
+    pos_list: Optional[Sequence[np.ndarray]] = None,
+    restack_on_fallback: bool = True,
 ) -> Dict[str, Any]:
     """Fuse insert runs (at most ``max_run`` long; 0 = unbounded), label
     reference-depth rounds, and pad/stack the per-stream row arrays — the
@@ -360,18 +382,27 @@ def prepare_sorted_batch(
     cap) and ``fell_back``.
 
     With ``fallback_max_rounds``, batches whose reference depth exceeds it
-    are re-fused with the MAX_RUN_LEN window and flagged ``fell_back``.
+    are re-fused with the MAX_RUN_LEN window and flagged ``fell_back``;
+    with ``restack_on_fallback=False`` such a batch returns only
+    ``{"fell_back": True}``.  With ``pos_list`` (per-stream ``row_pos``
+    arrays) fusion is gated on delivery adjacency and the result carries
+    ``text_pos`` [G, L], each fused row's first-op stream instant, padded
+    with TIME_PAD (the patched sorted merge's timeline).
     """
-    fused, bufs, round_labels, num_rounds, maxk = _fuse_and_rounds(text_rows_list, max_run)
+    fused, bufs, round_labels, fused_pos, num_rounds, maxk = _fuse_and_rounds(
+        text_rows_list, max_run, pos_list
+    )
     fell_back = False
     if fallback_max_rounds is not None and num_rounds > fallback_max_rounds:
         fell_back = True
-        fused, bufs, round_labels, num_rounds, maxk = _fuse_and_rounds(
-            text_rows_list, K.MAX_RUN_LEN
+        if not restack_on_fallback:
+            return {"fell_back": True}
+        fused, bufs, round_labels, fused_pos, num_rounds, maxk = _fuse_and_rounds(
+            text_rows_list, K.MAX_RUN_LEN, pos_list
         )
     text_pad = bucket_length(max(max(f.shape[0] for f in fused), 1))
     buf_pad = bucket_length(max(max(b.shape[0] for b in bufs), K.MAX_RUN_LEN))
-    return {
+    out = {
         "text": np.stack([pad_rows(f, text_pad) for f in fused]),
         "rounds": np.stack(
             [np.pad(ro, (0, text_pad - ro.shape[0])) for ro in round_labels]
@@ -381,6 +412,11 @@ def prepare_sorted_batch(
         "maxk": bucket_length(maxk, minimum=1),
         "fell_back": fell_back,
     }
+    if pos_list is not None:
+        out["text_pos"] = np.stack(
+            [np.pad(fp, (0, text_pad - fp.shape[0]), constant_values=TIME_PAD) for fp in fused_pos]
+        ).astype(np.int32)
+    return out
 
 
 def pad_buffer(buf: np.ndarray, length: int) -> np.ndarray:

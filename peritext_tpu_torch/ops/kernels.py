@@ -684,33 +684,57 @@ def _group_winners(w: _Walk, op, defined, ranks, multi, cand: int, mp: int):
     )
 
 
-def compact_mark_records(written, during, changed, vis, obj_len, span_cap: int):
-    """Run tables of one op row's mark patches (``kernels.
-    compact_mark_records`` with ``cand_def=None``, the instant-coordinate
-    form the per-op scan uses), from [R, 2C] planes.  A patch opens at every
-    written DURING slot whose effective marks change and ends at the next
-    written slot's visibleIndex (or ``obj_len``); the finishPartialPatch
-    filters (peritext.ts:269-281) leave a lane at (0, 0).  Returns
-    ``(run_start [R, span_cap], run_end [R, span_cap], count [R])``;
-    ``count`` is the true open-slot count, so the caller can tell when the
-    cap cut a row."""
-    r, d = written.shape
+def compact_mark_records(written, during, changed, vis, obj_len, span_cap: int,
+                         cand_def: Optional[torch.Tensor] = None, cand_cap: int = 0):
+    """Run tables of mark patches (``kernels.compact_mark_records``) from
+    [R, M, D] planes, one row per mark op, ``obj_len`` [R, M].  A patch
+    opens at every written DURING slot whose effective marks change and
+    ends at the next written slot's visibleIndex (or ``obj_len``); the
+    finishPartialPatch filters (peritext.ts:269-281) leave a lane at (0, 0).
+
+    Without ``cand_def`` each row's whole slot axis is searched (the per-op
+    loop's records sit on per-instant slot axes).  With it ([R, D], the
+    post-merge definedness; the sorted route's rows share that axis) only
+    the replica's first ``cand_cap`` defined slots are candidates, since
+    every written slot is defined.  Returns ``(run_start, run_end)``
+    [R, M, span_cap] and ``count`` [R, M] int32, the true open-slot count
+    (``span_cap + 1`` when the candidate axis itself overflowed), so the
+    caller can tell when the cap cut a row."""
+    r, m, two_c = written.shape
     dev = written.device
+    if cand_def is None:
+        d = two_c
+        w_c, vis_c = written, vis
+        open_c = written & during & changed
+    else:
+        d = min(cand_cap, two_c)
+        cand_idx, cand_ok, cand_total = _first_k_set(cand_def, d)
+        gi = cand_idx[:, None, :].expand(r, m, d)
+        w_c = torch.gather(written, 2, gi) & cand_ok[:, None, :]
+        open_c = w_c & torch.gather(during, 2, gi) & torch.gather(changed, 2, gi)
+        vis_c = torch.gather(vis, 2, gi)
     k = min(span_cap, d)
-    sel, lane_ok, count = _first_k_set(written & during & changed, k)
-    start = torch.gather(vis, 1, sel)
-    cs_w = torch.cumsum(written.to(torch.int32), dim=1).to(torch.int32)
-    wk = torch.gather(cs_w, 1, sel)
-    nxt = torch.searchsorted(cs_w, (wk + 1).contiguous())
-    end_raw = torch.where(nxt < d, torch.gather(vis, 1, nxt.clamp(max=d - 1)), obj_len[:, None])
-    ok = lane_ok & (end_raw > start) & (start < obj_len[:, None])
+    cs_open = torch.cumsum(open_c.to(torch.int64), dim=2)
+    q = torch.arange(1, k + 1, device=dev).expand(r, m, k).contiguous()
+    sel = torch.searchsorted(cs_open, q)
+    lane_ok = q <= cs_open[..., -1:]
+    sel_c = sel.clamp(max=d - 1)
+    start = torch.gather(vis_c, 2, sel_c)
+    cs_w = torch.cumsum(w_c.to(torch.int64), dim=2)
+    nxt = torch.searchsorted(cs_w, (torch.gather(cs_w, 2, sel_c) + 1).contiguous())
+    ol = obj_len[:, :, None]
+    end_raw = torch.where(nxt < d, torch.gather(vis_c, 2, nxt.clamp(max=d - 1)), ol)
+    ok = lane_ok & (end_raw > start) & (start < ol)
     run_start = torch.where(ok, start, 0).to(torch.int32)
-    run_end = torch.where(ok, torch.minimum(end_raw, obj_len[:, None]), 0).to(torch.int32)
+    run_end = torch.where(ok, torch.minimum(end_raw, ol), 0).to(torch.int32)
+    count = cs_open[..., -1]
+    if cand_def is not None:
+        count = torch.where(cand_total[:, None] > d, span_cap + 1, count)
     if span_cap > k:
-        pad = torch.zeros(r, span_cap - k, dtype=torch.int32, device=dev)
-        run_start = torch.cat([run_start, pad], dim=1)
-        run_end = torch.cat([run_end, pad], dim=1)
-    return run_start, run_end, count
+        pad = torch.zeros((r, m, span_cap - k), dtype=torch.int32, device=dev)
+        run_start = torch.cat([run_start, pad], dim=2)
+        run_end = torch.cat([run_end, pad], dim=2)
+    return run_start, run_end, count.to(torch.int32)
 
 
 _COMPACT_FIELDS = ("index", "valid", "ins_mask", "mstart", "mend", "mcount")
@@ -808,8 +832,11 @@ def apply_ops_patched(
                 m = is_mark[:, None]
                 written, during, changed = written & m, during & m, changed & m
             if readback == "compact":
-                ms, me, mc = compact_mark_records(written, during, changed, vis, final_vis, span_cap)
-                rec["mstart"][:, l], rec["mend"][:, l], rec["mcount"][:, l] = ms, me, mc
+                ms, me, mc = compact_mark_records(
+                    written[:, None], during[:, None], changed[:, None], vis[:, None],
+                    final_vis[:, None], span_cap,
+                )
+                rec["mstart"][:, l], rec["mend"][:, l], rec["mcount"][:, l] = ms[:, 0], me[:, 0], mc[:, 0]
             else:
                 rec["obj_len"][:, l] = final_vis
                 rec["vis"][:, l] = vis.cpu()

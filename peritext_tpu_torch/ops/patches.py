@@ -1,21 +1,24 @@
 """Host patch assembly: reference-format patches from per-op records.
 
 A copy of the JAX package's host-side assembly (``peritext_tpu/ops/
-universe.py``: ``assemble_patches`` and its helpers, the readback knobs and
-the span-cap policy), pure numpy over the records that ``kernels.
-apply_ops_patched`` returns.  The stream is the reference's Patch stream
-(micromerge.ts:25-30) patch for patch.
+universe.py``: ``assemble_patches``, ``assemble_patches_sorted(_compact)``
+and their helpers, the readback knobs, the span-cap policy and the
+allowMultiple group census ``fold_multi_groups``), pure numpy over the
+records that ``kernels.apply_ops_patched`` and ``sorted_patched.
+merge_step_sorted_patched_batch`` return.  The stream is the reference's
+Patch stream (micromerge.ts:25-30) patch for patch.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
 from peritext_tpu_torch import schema
 from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops.encode import AttrRegistry, bucket_length, env_int
+from peritext_tpu_torch.ops.sorted_patched import PATCH_GROUP_K
 from peritext_tpu_torch.oracle.doc import ops_to_marks
 
 
@@ -57,6 +60,12 @@ def decode_mask_row(
         )
         marks = cache[key] = ops_to_marks(present, table)
     return marks
+
+
+def codepoints_to_str(codepoints: np.ndarray) -> str:
+    """Codepoint array -> str without a per-char loop (surrogatepass, so the
+    batch decode accepts exactly what ``chr()`` accepts)."""
+    return np.asarray(codepoints).astype("<u4").tobytes().decode("utf-32-le", "surrogatepass")
 
 
 def copy_jsonlike(x: Any) -> Any:
@@ -193,3 +202,163 @@ def mark_span_patches(
         if end > start:
             patches.append(_mark_patch(op_row, attrs, start, end))
     return patches
+
+
+def assemble_patches_sorted(
+    records: Dict[str, np.ndarray],
+    r: int,
+    text_rows: np.ndarray,
+    text_pos: np.ndarray,
+    char_buf: np.ndarray,
+    mark_rows: np.ndarray,
+    mark_pos: np.ndarray,
+    table: Dict[str, Dict[str, Any]],
+    attrs: AttrRegistry,
+) -> List[Any]:
+    """``(pos, patch)`` pairs of replica ``r`` from the patched sorted
+    merge's planes records (``universe.assemble_patches_sorted``).  Text
+    rows are fused: a run expands to k insert patches at consecutive
+    stream positions and visible indices, sharing one inherited-marks
+    decode."""
+    patches: List[Any] = []
+    op_ids = list(table)
+    mask_cache: Dict[bytes, Dict[str, Any]] = {}
+    kind = records["kind"][r]
+    tvalid = records["tvalid"][r]
+    index0 = records["index0"][r]
+    for l in range(text_rows.shape[0]):
+        kd = int(kind[l])
+        if kd == K.KIND_PAD or not tvalid[l]:
+            continue
+        pos0 = int(text_pos[l])
+        idx0 = int(index0[l])
+        if kd == K.KIND_DELETE:
+            patches.append((pos0, {"path": ["text"], "action": "delete", "index": idx0, "count": 1}))
+            continue
+        if kd == K.KIND_INSERT_RUN:
+            n = int(text_rows[l, K.K_RUN_LEN])
+            start = int(text_rows[l, K.K_PAYLOAD])
+            values = [chr(int(c)) for c in char_buf[start : start + n]]
+        else:
+            n = 1
+            values = [chr(int(text_rows[l, K.K_PAYLOAD]))]
+        row_mask = records["ins_mask"][r, l]
+        for j in range(n):
+            patches.append((pos0 + j, {
+                "path": ["text"],
+                "action": "insert",
+                "index": idx0 + j,
+                "values": [values[j]],
+                "marks": copy_jsonlike(decode_mask_row(row_mask, op_ids, table, mask_cache)),
+            }))
+    for m in range(mark_rows.shape[0]):
+        if int(mark_rows[m, K.K_KIND]) != K.KIND_MARK:
+            continue
+        pos = int(mark_pos[m])
+        for patch in mark_patch_list(
+            records["written"][r, m], records["during"][r, m], records["changed"][r, m],
+            records["vis"][r, m], int(records["obj_len"][r, m]), mark_rows[m], attrs,
+        ):
+            patches.append((pos, patch))
+    return patches
+
+
+def assemble_patches_sorted_compact(
+    records: Dict[str, np.ndarray],
+    r: int,
+    text_rows: np.ndarray,
+    text_pos: np.ndarray,
+    char_buf: np.ndarray,
+    mark_rows: np.ndarray,
+    mark_pos: np.ndarray,
+    table: Dict[str, Dict[str, Any]],
+    attrs: AttrRegistry,
+) -> List[Any]:
+    """``assemble_patches_sorted`` over the compact run-table records,
+    vectorized (``universe.assemble_patches_sorted_compact``): run
+    expansion, index and position arithmetic and char decoding are numpy
+    operations over all text rows at once, and mark patches come straight
+    from the device-compacted spans.  Emits the same ``(pos, patch)`` set
+    as the planes assembler; every stream position is unique per op, so
+    the caller's stable sort by position gives the same stream."""
+    patches: List[Any] = []
+    op_ids = list(table)
+    mask_cache: Dict[bytes, Dict[str, Any]] = {}
+    kind = np.asarray(text_rows[:, K.K_KIND])
+    tvalid = np.asarray(records["tvalid"][r]).astype(bool)
+    index0 = np.asarray(records["index0"][r])
+    live = (kind != K.KIND_PAD) & tvalid
+
+    for l in np.flatnonzero(live & (kind == K.KIND_DELETE)).tolist():
+        patches.append((
+            int(text_pos[l]),
+            {"path": ["text"], "action": "delete", "index": int(index0[l]), "count": 1},
+        ))
+
+    ins = np.flatnonzero(live & ((kind == K.KIND_INSERT) | (kind == K.KIND_INSERT_RUN)))
+    if ins.size:
+        is_run = kind[ins] == K.KIND_INSERT_RUN
+        lens = np.where(is_run, text_rows[ins, K.K_RUN_LEN], 1).astype(np.int64)
+        payload = text_rows[ins, K.K_PAYLOAD].astype(np.int64)
+        total = int(lens.sum())
+        row_of = np.repeat(np.arange(ins.size), lens)
+        off = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+        buf_idx = np.minimum(payload[row_of] + off, char_buf.shape[0] - 1)
+        codes = np.where(is_run[row_of], np.asarray(char_buf)[buf_idx], payload[row_of])
+        text = codepoints_to_str(codes)
+        pos_flat = (text_pos[ins][row_of] + off).tolist()
+        idx_flat = (index0[ins][row_of] + off).tolist()
+        row_marks = [
+            decode_mask_row(records["ins_mask"][r, l], op_ids, table, mask_cache) for l in ins.tolist()
+        ]
+        for j in range(total):
+            patches.append((pos_flat[j], {
+                "path": ["text"],
+                "action": "insert",
+                "index": idx_flat[j],
+                "values": [text[j]],
+                "marks": copy_jsonlike(row_marks[row_of[j]]),
+            }))
+
+    mcount = np.asarray(records["mcount"][r])
+    mk = np.flatnonzero((np.asarray(mark_rows[:, K.K_KIND]) == K.KIND_MARK) & (mcount > 0))
+    for m in mk.tolist():
+        pos = int(mark_pos[m])
+        for patch in mark_span_patches(
+            records["mstart"][r, m], records["mend"][r, m], int(mcount[m]), mark_rows[m], attrs,
+        ):
+            patches.append((pos, patch))
+    return patches
+
+
+def fold_multi_groups(
+    census: Dict[Tuple[int, int], Set[Tuple[int, int]]], *, types, attr_ids, ctrs, act_ids
+) -> None:
+    """Fold mark-op columns into an allowMultiple group census
+    (``universe.fold_multi_groups``): ``census[(type_id, attr_id)]``
+    gathers the distinct ``(ctr, act_id)`` op identities, the one
+    definition of group identity for the live census, the pre-launch gate
+    and the checkpoint rebuild.  Each set keeps at most PATCH_GROUP_K + 1
+    of its smallest identities: the gate only asks whether a group is past
+    the cap, and the kept subset does not depend on the fold order."""
+    multi_by_id = schema.ALLOW_MULTIPLE_BY_ID
+    cap = PATCH_GROUP_K + 1
+    for t, attr, ctr, act in zip(types, attr_ids, ctrs, act_ids):
+        t = int(t)
+        if t < len(multi_by_id) and multi_by_id[t]:
+            ops = census.setdefault((t, int(attr)), set())
+            ops.add((int(ctr), int(act)))
+            if len(ops) > cap:
+                ops.discard(max(ops))
+
+
+def fold_multi_group_rows(census: Dict[Tuple[int, int], Set[Tuple[int, int]]], rows) -> None:
+    """``fold_multi_groups`` over encoded op rows (mark rows only)."""
+    rows = np.asarray(rows)
+    if rows.size == 0:
+        return
+    marks = rows[rows[:, K.K_KIND] == K.KIND_MARK]
+    fold_multi_groups(
+        census, types=marks[:, K.K_MTYPE], attr_ids=marks[:, K.K_MATTR],
+        ctrs=marks[:, K.K_CTR], act_ids=marks[:, K.K_ACT],
+    )

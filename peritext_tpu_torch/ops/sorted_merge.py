@@ -65,9 +65,10 @@ def _to_int32_bits(x: torch.Tensor) -> torch.Tensor:
 
 
 def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table[r, idx[r, n]]`` for [R, N, W] tables and [R, K] indices."""
+    """``table[r, idx[r, n]]`` for [R, N, ...] tables and [R, K] indices."""
     r, k = idx.shape
-    return torch.gather(table, 1, idx[:, :, None].expand(r, k, table.shape[2]))
+    tail = table.shape[2:]
+    return torch.gather(table, 1, idx.reshape(r, k, *([1] * len(tail))).expand(r, k, *tail))
 
 
 # ---------------------------------------------------------------------------

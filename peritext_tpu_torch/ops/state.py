@@ -15,7 +15,9 @@ same shapes, so a state moves between the engines as numpy arrays
 - The mark-op table [M] and the scalars ``length`` / ``mark_count``.
 
 Every integer plane is int32 and the flags are bool.  A batched state has a
-leading replica axis on every field.
+leading replica axis on every field.  ``wcache_to_numpy`` /
+``wcache_from_numpy`` carry the patched sorted route's winner cache across
+the same bridge.
 """
 from __future__ import annotations
 
@@ -162,3 +164,14 @@ def state_to_numpy(state: DocState) -> Dict[str, np.ndarray]:
         a = getattr(state, name).detach().cpu().numpy()
         out[name] = a.view(np.uint32) if name == "bnd_mask" else a
     return out
+
+
+def wcache_to_numpy(wcache: torch.Tensor) -> np.ndarray:
+    """The patched sorted route's winner cache [R, 2C, T, 4] as the JAX
+    universe holds its ``_wcaches`` (int32: ctr, actor rank, action, attr)."""
+    return wcache.detach().cpu().numpy().astype(np.int32)
+
+
+def wcache_from_numpy(wcache: np.ndarray, device: str | torch.device = "cpu") -> torch.Tensor:
+    """A winner cache from its numpy form, on ``device``."""
+    return torch.from_numpy(np.array(wcache, dtype=np.int32, order="C")).to(device)

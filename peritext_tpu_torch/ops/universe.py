@@ -16,11 +16,21 @@ frontier-bounded window when the host census bounds the batch
 the kernels' merge for batches deeper than ``PERITEXT_SORTED_MAX_ROUNDS``
 (counted in ``stats["scan_fallbacks"]``).  On an H100 the sorted route is
 several times slower than the kernels' (``PERF.md``), so it is not the
-default.  ``apply_changes_with_patches``
-emits each replica's reference patch stream through the per-op loop
-``kernels.apply_ops_patched``.  The sorted, windowed and patch paths are
-plain torch on the universe's device: the JAX package runs them as XLA,
-with no Pallas kernel.
+default.  A universe whose capacity is past what the kernels hold in one
+block's shared memory (``cuda_kernels.kernel_capacity_limit``) merges on
+the sorted route with no depth cap instead, on every device, counted in
+``stats["capacity_routes"]``.
+
+``apply_changes_with_patches`` emits each replica's reference patch
+stream.  By default it runs the per-op loop ``kernels.apply_ops_patched``;
+under ``PERITEXT_MERGE_PATH=sorted`` it takes the JAX package's default
+patch route (``sorted_patched``): placement rounds, analytic text records
+and the compact-delta scan over mark rows, inside the census window where
+one is planned, with a per-slot winner cache (``_wcaches``) carried
+between ingests and an allowMultiple group census (``_multi_groups``)
+that sends over-cap groups to the per-op loop.  The sorted, windowed and
+patch paths are plain torch on the universe's device: the JAX package
+runs them as XLA, with no Pallas kernel.
 
 Host responsibilities (the control plane): causal ordering and the
 seq/deps gate per replica, wire-op encoding and interning, capacity
@@ -39,8 +49,7 @@ the CPU and off for one on the card (``PERITEXT_DEGRADE`` overrides both).
 A kernel that cannot build is not retried.
 Fault sites, breakers and telemetry are the port's own runtime modules.
 Fleet membership changes with ``add_replicas``, ``rename_replica`` and
-``drop_replicas``.  Not here yet (the JAX universe has them): the sorted
-and windowed patch paths.
+``drop_replicas``.
 """
 from __future__ import annotations
 
@@ -62,12 +71,14 @@ from peritext_tpu_torch.ids import ActorRegistry, make_op_id, parse_op_id
 from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops import window as W
 from peritext_tpu_torch.ops._build import KernelBuildError
-from peritext_tpu_torch.ops.cuda_kernels import merge_step_full
+from peritext_tpu_torch.ops import sorted_patched as SP
+from peritext_tpu_torch.ops.cuda_kernels import kernel_capacity_limit, merge_step_full
 from peritext_tpu_torch.ops.sorted_merge import (
     merge_step_sorted_batch,
     merge_step_sorted_windowed_batch,
 )
 from peritext_tpu_torch.ops.encode import (
+    TIME_PAD,
     AttrRegistry,
     bucket_length,
     encode_changes,
@@ -78,13 +89,18 @@ from peritext_tpu_torch.ops.encode import (
 )
 from peritext_tpu_torch.ops.patches import (
     assemble_patches,
+    assemble_patches_sorted,
+    assemble_patches_sorted_compact,
+    codepoints_to_str as _codepoints_to_str,
     copy_jsonlike,
+    fold_multi_group_rows,
     initial_span_cap,
     patch_readback,
     strip_pos,
 )
 from peritext_tpu_torch.ops.state import (
     FIELDS,
+    MASK_WORD_BITS,
     DocState,
     grow_state,
     make_empty_state,
@@ -201,6 +217,15 @@ def _merge_path() -> str:
     return path
 
 
+def _patch_path() -> str:
+    """``PERITEXT_PATCH_PATH`` on the sorted route: ``delta`` (unset, the
+    compact-delta mark scan) or ``scan`` (the per-op loop)."""
+    path = os.environ.get("PERITEXT_PATCH_PATH") or "delta"
+    if path not in ("delta", "scan"):
+        raise ValueError(f"PERITEXT_PATCH_PATH must be 'delta' or 'scan', got {path!r}")
+    return path
+
+
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
     """``None`` means the GPU; without one that is an error, never a silent
     move to the CPU (pass ``device="cpu"`` for the CPU)."""
@@ -219,12 +244,6 @@ def apply_host_op(store: ObjectStore, op: Dict[str, Any]) -> List[Dict[str, Any]
     The device plane is the root text list; every other object lives in the
     host store, which shares the oracle's exact semantics."""
     return store.apply_op(op_from_wire(op))
-
-
-def _codepoints_to_str(codepoints: np.ndarray) -> str:
-    """Codepoint array -> str without a per-char loop (surrogatepass, so the
-    batch decode accepts exactly what ``chr()`` accepts)."""
-    return codepoints.astype("<u4").tobytes().decode("utf-32-le", "surrogatepass")
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -290,6 +309,21 @@ class TorchUniverse:
         self.text_objs: List[Optional[str]] = [None] * n
         self._ranks_cache: Optional[Tuple[Tuple[int, int], torch.Tensor]] = None
         self._multi_cache: Optional[Tuple[bytes, torch.Tensor]] = None
+        # allowMultiple group census: (type_id, attr_id) -> distinct (ctr,
+        # act_id) op identities over every ingested change, a bound on any
+        # replica's group width.  The patched sorted scan resolves a group
+        # over at most PATCH_GROUP_K columns; a batch targeting a wider one
+        # takes the per-op loop (stats["multi_group_fallbacks"]).
+        self._multi_groups: Dict[Tuple[int, int], set] = {}
+        # Per-slot per-type winner cache [R, 2C, T, 4] of the patched sorted
+        # merge, carried between its ingests so its init runs once.  Derived
+        # state: dropped by every path that rewrites boundary rows without
+        # maintaining it (the other merges, the per-op loop, degrade,
+        # TorchDoc's local path, capacity growth, fleet membership, row
+        # imports), and keyed to the actor registry's size, since interning
+        # renumbers the ranks it stores.
+        self._wcaches: Optional[torch.Tensor] = None
+        self._wcaches_actors = 0
         # Per-mark-row span capacity of the compact patch readback; grows
         # when a batch overflows it (_span_overflow).
         if "PERITEXT_PATCH_SPAN_CAP" in os.environ:
@@ -308,6 +342,11 @@ class TorchUniverse:
             # the device census check rejected (relaunched full-table),
             # mirror rebuilds, and batches the census backoff skipped.
             "scan_fallbacks": 0,
+            # Patched batches whose allowMultiple group outgrew the sorted
+            # scan's cap, and merges the kernels cannot hold (capacity past
+            # kernel_capacity_limit) that took the sorted merge instead.
+            "multi_group_fallbacks": 0,
+            "capacity_routes": 0,
             "windowed_launches": 0,
             "window_fallbacks": 0,
             "window_rebuilds": 0,
@@ -322,9 +361,10 @@ class TorchUniverse:
             # Wall time of the host control plane (gate, encode, fuse, pad,
             # upload, commit); the merge itself is asynchronous on the card.
             "host_seconds": 0.0,
-            # The patch path's split: the per-op loop on the device (timed
-            # to a synchronize), the record readback to the host, and the
-            # host's patch assembly.
+            # The patch path's split: the patch merge on the device (the
+            # per-op loop or the patched sorted merge, timed to a
+            # synchronize), the record readback to the host, and the host's
+            # patch assembly.
             "patch_loop_seconds": 0.0,
             "patch_readback_seconds": 0.0,
             "patch_assemble_seconds": 0.0,
@@ -361,6 +401,7 @@ class TorchUniverse:
         self._mirror_token = None
         self._mirror_class = []
         self._multi_cache = None
+        self._wcaches = None
 
     # -- fleet membership ----------------------------------------------------
 
@@ -448,6 +489,7 @@ class TorchUniverse:
             self.stats["capacity_growths"] += 1
             self.states = grow_state(self.states, new_c, new_m)
             self.capacity, self.max_mark_ops = new_c, new_m
+            self._wcaches = None  # slot coordinates changed shape
 
     def _ranks(self) -> np.ndarray:
         ranks = self.actors.ranks()
@@ -752,6 +794,7 @@ class TorchUniverse:
         # Every replica converted: publish the device plane, stage the
         # applied stores (a fresh version class each) and commit.
         self.states = state_from_numpy(arrays, self.device)
+        self._wcaches = None  # boundary rows rewritten outside the merges
         for r, store in staged:
             self._store_version_counter += 1
             prep["new_stores"][r] = store
@@ -899,6 +942,25 @@ class TorchUniverse:
         sizes = np.bincount(group_of, minlength=len(groups))
         dupes = np.asarray([g["dupes"] for g in groups], np.int64)
         self.stats["duplicates_dropped"] += int((dupes * sizes).sum())
+        for g in groups:
+            self._count_multi_groups(g["rows"])
+
+    def _count_multi_groups(self, rows: np.ndarray) -> None:
+        """Fold a batch's allowMultiple mark rows into ``_multi_groups``."""
+        fold_multi_group_rows(self._multi_groups, rows)
+
+    def _multi_group_need(self, extra_rows: List[np.ndarray]) -> int:
+        """Largest allowMultiple group any of this batch's multi ops
+        targets once ``extra_rows`` land (``TpuUniverse._multi_group_need``;
+        unioned over all replicas, 0 without multi ops, saturating at
+        PATCH_GROUP_K + 1)."""
+        pending: Dict[Tuple[int, int], set] = {}
+        for rows in extra_rows:
+            fold_multi_group_rows(pending, rows)
+        return max(
+            (len(ops | self._multi_groups.get(key, set())) for key, ops in pending.items()),
+            default=0,
+        )
 
     def _account_rows(self, groups, group_of):
         """Replicas per group and rows per group; tallies ops_applied."""
@@ -1041,7 +1103,14 @@ class TorchUniverse:
         planned; a window the device check rejects is counted and
         relaunched on the full table, and a batch deeper than
         ``PERITEXT_SORTED_MAX_ROUNDS`` (default 8) takes the kernels'
-        merge, counted in ``stats["scan_fallbacks"]``.  Every merge runs
+        merge, counted in ``stats["scan_fallbacks"]``.
+
+        When the capacity is past what the kernels hold
+        (``kernel_capacity_limit``), every batch the kernels would have
+        taken (each one on the default route, a deep one on the sorted
+        route) takes the sorted merge with no depth cap instead, counted in
+        ``stats["capacity_routes"]``: the choice is made from the shapes
+        before the launch, the same on every device.  Every merge runs
         under ``_run_launch``; a batch whose launch budget runs out
         raises ``DeviceLaunchError`` with nothing committed, or completes
         on the oracle CPU path where degradation is on (``_degrade_enabled``).
@@ -1064,14 +1133,24 @@ class TorchUniverse:
             self._commit(prep)
             self.stats["host_seconds"] += time.perf_counter() - t_host
             return
-        sorted_prep = prepare_sorted_batch(
-            text_rows_list,
-            max_run=K.MAX_RUN_LEN if use_scan else 0,
-            fallback_max_rounds=None if use_scan else env_int("PERITEXT_SORTED_MAX_ROUNDS", "8", 0),
-        )
-        if sorted_prep["fell_back"]:
-            use_scan = True
-            self.stats["scan_fallbacks"] += 1
+        max_rounds = None if use_scan else env_int("PERITEXT_SORTED_MAX_ROUNDS", "8", 0)
+        if self.capacity <= kernel_capacity_limit(self.max_mark_ops // MASK_WORD_BITS):
+            sorted_prep = prepare_sorted_batch(
+                text_rows_list, max_run=K.MAX_RUN_LEN if use_scan else 0,
+                fallback_max_rounds=max_rounds,
+            )
+            if sorted_prep["fell_back"]:
+                use_scan = True
+                self.stats["scan_fallbacks"] += 1
+        else:
+            # The capacity route: the kernels cannot hold this capacity, so
+            # a batch they would take places in as many rounds as it needs.
+            sorted_prep = prepare_sorted_batch(text_rows_list, max_run=0)
+            if use_scan or sorted_prep["num_rounds"] > max_rounds:
+                self.stats["capacity_routes"] += 1
+                if telemetry.enabled:
+                    telemetry.counter("ingest.path.capacity")
+            use_scan = False
         mark_pad = bucket_length(max(max(m.shape[0] for m in mark_rows_list), 1))
         g_mark = np.stack([pad_rows(rows, mark_pad) for rows in mark_rows_list])
         pad_per_group = (sorted_prep["text"][:, :, K.K_KIND] == K.KIND_PAD).sum(axis=1) + (
@@ -1128,6 +1207,7 @@ class TorchUniverse:
                     telemetry.counter("ingest.h2d_bytes", h2d_bytes())
                     telemetry.counter("ingest.d2h_bytes", int(sum(v.nbytes for v in wrec_np.values())))
                 t_host = time.perf_counter()
+                self._wcaches = None
                 self._mirror_commit(wplan, wrec_np, prep)
                 self._commit(prep)
                 self.stats["host_seconds"] += time.perf_counter() - t_host
@@ -1159,6 +1239,9 @@ class TorchUniverse:
             telemetry.counter("ingest.launches")
             telemetry.counter("ingest.path.scan" if use_scan else "ingest.path.sorted")
             telemetry.counter("ingest.h2d_bytes", h2d_bytes())
+        # The no-patch merges rewrite boundary rows without maintaining the
+        # patched route's winner cache.
+        self._wcaches = None
         t_host = time.perf_counter()
         self._commit(prep)
         self.stats["host_seconds"] += time.perf_counter() - t_host
@@ -1166,10 +1249,11 @@ class TorchUniverse:
     # -- patch-emitting ingestion -------------------------------------------
 
     @staticmethod
-    def _patch_chunk(n: int) -> int:
+    def _patch_chunk(n: int, limit: Optional[int] = None) -> int:
         """Replicas per patch-path launch (``PERITEXT_PATCH_CHUNK``, 0 or
-        unset = all), equalized so the chunks differ by at most one."""
-        chunk = env_int("PERITEXT_PATCH_CHUNK", "0", 0) or n
+        unset = all, and at most ``limit``), equalized so the chunks differ
+        by at most one."""
+        chunk = min(env_int("PERITEXT_PATCH_CHUNK", "0", 0) or n, limit or n)
         return math.ceil(n / math.ceil(n / chunk))
 
     def _span_overflow(self, record_chunks: List[Dict[str, np.ndarray]], span_cap: int) -> bool:
@@ -1192,13 +1276,22 @@ class TorchUniverse:
         with_positions: bool = False,
     ) -> Dict[str, List[Any]]:
         """Causally gated ingestion that also returns each replica's
-        reference patch stream (micromerge.ts:25-30), on the exact per-op
-        path (``TpuUniverse._patched_scan``).
+        reference patch stream (micromerge.ts:25-30).
+
+        By default the batch runs the exact per-op loop
+        (``TpuUniverse._patched_scan``).  Under ``PERITEXT_MERGE_PATH=sorted``
+        it is routed as ``TpuUniverse.apply_changes_with_patches`` routes
+        it: the patched sorted merge (``_patched_sorted``), windowed where
+        the census plans a window; the per-op loop for a batch deeper than
+        ``PERITEXT_SORTED_MAX_ROUNDS`` (``stats["scan_fallbacks"]``), for
+        one that targets an allowMultiple group wider than PATCH_GROUP_K
+        (``stats["multi_group_fallbacks"]``) and under
+        ``PERITEXT_PATCH_PATH=scan``.
 
         ``PERITEXT_PATCH_READBACK`` picks the record format ("compact", the
         default, or "planes"); a compact batch whose span counts overflow
-        the adaptive cap is run again with planes.  Both give the same
-        stream, and it equals every JAX patch path's stream.
+        the adaptive cap is run again with planes.  Every route and format
+        gives the same stream, and it equals every JAX patch path's stream.
 
         With ``with_positions`` each list holds ``(pos, patch)`` pairs,
         ``pos`` being the patch's op's flat index in the replica's gated
@@ -1219,13 +1312,158 @@ class TorchUniverse:
                 name: strip_pos(sorted(host_patches_for(r), key=lambda t: t[0]), with_positions)
                 for r, name in enumerate(self.replica_ids)
             }
+        patch_path = _patch_path()
+        if _merge_path() == "sorted" and patch_path != "scan":
+            text_rows_list: List[np.ndarray] = []
+            mark_rows_list: List[np.ndarray] = []
+            text_pos_list: List[np.ndarray] = []
+            mark_pos_list: List[np.ndarray] = []
+            for g in groups:
+                rows = g["rows"]
+                rp = np.asarray(g["row_pos"])
+                is_mark = rows[:, K.K_KIND] == K.KIND_MARK
+                text_rows_list.append(rows[~is_mark])
+                mark_rows_list.append(rows[is_mark])
+                text_pos_list.append(rp[~is_mark])
+                mark_pos_list.append(rp[is_mark])
+            sorted_prep = prepare_sorted_batch(
+                text_rows_list, max_run=0,
+                fallback_max_rounds=env_int("PERITEXT_SORTED_MAX_ROUNDS", "8", 0),
+                pos_list=text_pos_list, restack_on_fallback=False,
+            )
+            multi_need = self._multi_group_need(mark_rows_list)
+            if sorted_prep["fell_back"]:
+                self.stats["scan_fallbacks"] += 1
+            elif multi_need > SP.PATCH_GROUP_K:
+                # The sorted scan resolves allowMultiple groups over at most
+                # PATCH_GROUP_K columns; a wider group takes the per-op loop.
+                self.stats["multi_group_fallbacks"] += 1
+            else:
+                return self._patched_sorted(
+                    prep, host_patches_for, sorted_prep, mark_rows_list, mark_pos_list,
+                    group_sizes, multi_need, with_positions, wplan=self._window_plan(prep),
+                )
         return self._patched_scan(prep, host_patches_for, group_sizes, max_rows, with_positions)
 
+    def _launch_patched(self, prep, host_patches_for, with_positions: bool, path: str, h2d: int,
+                        chunk: int, merge_chunk, assemble_one, merge_window=None, wplan=None):
+        """The launch policy both patch routes share.  ``merge_chunk(sl,
+        readback)`` merges the replica slice ``sl`` of the committed states
+        into ``(states, records)``, the records holding the new winner cache
+        under ``wcache`` where the route keeps one; ``merge_window(readback)``
+        (with ``wplan``) merges the whole batch inside its windows.
+
+        Every launch's records come back to the host inside the attempt, so
+        a failure mid-loop drops the partial results and nothing of self is
+        written: the states, the winner cache and the census commit only
+        after the attempt succeeded, and a retried attempt starts from the
+        committed cache.  A window the device check rejects is counted and
+        run again on the full table; a compact readback whose span counts
+        overflow the adaptive cap is run again reading planes;
+        ``PERITEXT_WINDOW_CHECK=1`` recomputes every windowed batch on the
+        full table and raises on any difference.  ``assemble_one(rec, i, r,
+        table, readback)`` turns replica ``r``'s records (row ``i`` of its
+        chunk's) into ``(pos, patch)`` pairs."""
+        n = len(self.replica_ids)
+        span_cap = self._span_cap
+
+        def make_attempt(rb: str, windowed: bool):
+            def attempt():
+                slices = [slice(0, n)] if windowed else [slice(i, min(i + chunk, n)) for i in range(0, n, chunk)]
+                state_slices: List[DocState] = []
+                record_chunks: List[Dict[str, np.ndarray]] = []
+                wcache_slices: List[Optional[torch.Tensor]] = []
+                for sl in slices:
+                    faults.fire("device_launch")
+                    t = time.perf_counter()
+                    st, records = merge_window(rb) if windowed else merge_chunk(sl, rb)
+                    wcache_slices.append(records.pop("wcache", None))
+                    _synchronize(self.device)
+                    self.stats["patch_loop_seconds"] += time.perf_counter() - t
+                    state_slices.append(st)
+                    faults.fire("device_readback")
+                    t_read = time.perf_counter()
+                    with telemetry.span("ingest.readback", readback=rb, chunk=sl.start):
+                        if telemetry.enabled:
+                            telemetry.flow_steps(readback=rb)
+                        record_chunks.append({k: _numpy(v) for k, v in records.items()})
+                    self.stats["patch_readback_seconds"] += time.perf_counter() - t_read
+                states = state_slices[0] if len(state_slices) == 1 else DocState(**{
+                    f: torch.cat([getattr(s_, f) for s_ in state_slices]) for f in FIELDS
+                })
+                # A launch without a cache (the per-op loop, a cacheless
+                # mark-free or cold windowed merge) leaves no stale one.
+                if any(w is None for w in wcache_slices):
+                    wcache = None
+                else:
+                    wcache = wcache_slices[0] if len(wcache_slices) == 1 else torch.cat(wcache_slices)
+                return (states, slices, record_chunks, wcache), states.length
+
+            return attempt
+
+        readback = patch_readback()
+        use_window = merge_window is not None
+        try:
+            result = self._run_launch(make_attempt(readback, use_window))
+            if use_window and not result[2][0]["wok"].all():
+                # The device check rejected the window: drop the result
+                # (nothing was committed) and run the full table.
+                self._window_fallback()
+                use_window = False
+                result = self._run_launch(make_attempt(readback, False))
+            launches = len(result[2])
+            if readback == "compact" and self._span_overflow(result[2], span_cap):
+                # A mark row emitted more spans than the tables hold: run the
+                # batch again from the same states, reading the planes.
+                readback = "planes"
+                result = self._run_launch(make_attempt("planes", use_window))
+                launches += len(result[2])
+        except DeviceLaunchError:
+            if not _degrade_enabled(self.device):
+                raise
+            pairs = self._degrade_apply(prep)
+            return {name: strip_pos(pairs[r], with_positions) for r, name in enumerate(self.replica_ids)}
+        new_states, slices, record_chunks, wcache = result
+        if use_window and os.environ.get("PERITEXT_WINDOW_CHECK") == "1":
+            ref_states = self._run_launch(make_attempt(readback, False))[0]
+            self._assert_states_match(ref_states, new_states, wplan, prep)
+        self.states = new_states
+        self.stats["launches"] += launches
+        if use_window:
+            self.stats["windowed_launches"] += 1
+            self._mirror_commit(wplan, record_chunks[0], prep)
+        if telemetry.enabled:
+            telemetry.counter("ingest.launches", launches)
+            telemetry.counter("ingest.path." + path)
+            if use_window:
+                telemetry.counter("ingest.path.windowed")
+                telemetry.flow_steps(path="windowed", window=int(wplan["w_cap"]))
+            telemetry.counter("ingest.readback." + readback)
+            telemetry.counter("ingest.h2d_bytes", h2d)
+            telemetry.counter("ingest.d2h_bytes", int(sum(v.nbytes for rec in record_chunks for v in rec.values())))
+        self._wcaches = wcache
+        if wcache is not None:
+            # Keyed to the registry this launch's ranks came from.
+            self._wcaches_actors = len(self.actors.actors)
+        self._commit(prep)
+
+        t = time.perf_counter()
+        with telemetry.span("ingest.assemble", replicas=n):
+            if telemetry.enabled:
+                telemetry.flow_steps()
+            tables = self._mark_tables(range(n))
+            out: Dict[str, List[Any]] = {}
+            for sl, rec in zip(slices, record_chunks):
+                for r in range(sl.start, sl.stop):
+                    dev = assemble_one(rec, r - sl.start, r, tables[r], readback)
+                    merged = sorted(dev + host_patches_for(r), key=lambda p: p[0])
+                    out[self.replica_ids[r]] = strip_pos(merged, with_positions)
+        self.stats["patch_assemble_seconds"] += time.perf_counter() - t
+        return out
+
     def _patched_scan(self, prep, host_patches_for, group_sizes, max_rows, with_positions):
-        """The exact interleaved per-op patch path, in replica chunks of
-        ``_patch_chunk``; each chunk's records come back to the host before
-        the next chunk runs.  The committed states are not touched until
-        every chunk has succeeded."""
+        """The exact interleaved per-op patch path (``K.apply_ops_patched``)
+        in replica chunks of ``_patch_chunk``, under ``_launch_patched``."""
         groups, group_of = prep["groups"], prep["group_of"]
         pad = bucket_length(max_rows)
         g_ops = np.stack([pad_rows(g["rows"], pad) for g in groups])
@@ -1236,81 +1474,138 @@ class TorchUniverse:
         d_ops = torch.from_numpy(g_ops).to(self.device).index_select(0, idx)
         ranks = self._ranks_device()
         multi = self._multi_device()
-        n = len(self.replica_ids)
-        chunk = self._patch_chunk(n)
         span_cap = self._span_cap
 
-        def make_attempt(readback: str):
-            # The chunked loop is one launch unit: each chunk's records come
-            # back inside the attempt, so a failure mid-loop drops the
-            # partial results and the committed states stay as they were.
-            def attempt():
-                state_slices: List[DocState] = []
-                record_chunks: List[Dict[str, np.ndarray]] = []
-                for i in range(0, n, chunk):
-                    sl = slice(i, min(i + chunk, n))
-                    faults.fire("device_launch")
-                    t = time.perf_counter()
-                    st, rec = K.apply_ops_patched(
-                        map_state(lambda x: x[sl], self.states), d_ops[sl], ranks, multi,
-                        readback=readback, span_cap=span_cap,
-                    )
-                    _synchronize(self.device)
-                    state_slices.append(st)
-                    faults.fire("device_readback")
-                    t_read = time.perf_counter()
-                    with telemetry.span("ingest.readback", readback=readback, chunk=i):
-                        if telemetry.enabled:
-                            telemetry.flow_steps(readback=readback)
-                        record_chunks.append({k: _numpy(v) for k, v in rec.items()})
-                    self.stats["patch_readback_seconds"] += time.perf_counter() - t_read
-                    self.stats["patch_loop_seconds"] += t_read - t
-                states = state_slices[0] if len(state_slices) == 1 else DocState(**{
-                    f: torch.cat([getattr(s, f) for s in state_slices]) for f in FIELDS
-                })
-                return (states, record_chunks), states.length
+        def merge_chunk(sl, rb):
+            return K.apply_ops_patched(
+                map_state(lambda x: x[sl], self.states), d_ops[sl], ranks, multi,
+                readback=rb, span_cap=span_cap,
+            )
 
-            return attempt
+        def assemble_one(rec, i, r, table, rb):
+            return assemble_patches(rec, i, ops[r], table, self.attrs, row_pos=groups[group_of[r]]["row_pos"])
 
-        readback = patch_readback()
-        try:
-            new_states, record_chunks = self._run_launch(make_attempt(readback))
-            launches = len(record_chunks)
-            if readback == "compact" and self._span_overflow(record_chunks, span_cap):
-                # A mark row emitted more spans than the tables hold: run the
-                # batch again from the same states, reading the planes.
-                readback = "planes"
-                new_states, record_chunks = self._run_launch(make_attempt("planes"))
-                launches += len(record_chunks)
-        except DeviceLaunchError:
-            if not _degrade_enabled(self.device):
-                raise
-            pairs = self._degrade_apply(prep)
-            return {name: strip_pos(pairs[r], with_positions) for r, name in enumerate(self.replica_ids)}
-        self.states = new_states
-        self.stats["launches"] += launches
-        if telemetry.enabled:
-            telemetry.counter("ingest.launches", launches)
-            telemetry.counter("ingest.path.scan")
-            telemetry.counter("ingest.readback." + readback)
-            telemetry.counter("ingest.h2d_bytes", int(ops.nbytes))
-            telemetry.counter("ingest.d2h_bytes", int(sum(v.nbytes for rec in record_chunks for v in rec.values())))
-        self._commit(prep)
+        return self._launch_patched(
+            prep, host_patches_for, with_positions, "scan", int(ops.nbytes),
+            self._patch_chunk(len(self.replica_ids)), merge_chunk, assemble_one,
+        )
 
-        t = time.perf_counter()
-        with telemetry.span("ingest.assemble", replicas=n):
-            if telemetry.enabled:
-                telemetry.flow_steps()
-            tables = self._mark_tables(range(n))
-            out: Dict[str, List[Any]] = {}
-            for r, name in enumerate(self.replica_ids):
-                rec = record_chunks[r // chunk]
-                g = groups[group_of[r]]
-                dev = assemble_patches(rec, r % chunk, ops[r], tables[r], self.attrs, row_pos=g["row_pos"])
-                merged = sorted(dev + host_patches_for(r), key=lambda p: p[0])
-                out[name] = strip_pos(merged, with_positions)
-        self.stats["patch_assemble_seconds"] += time.perf_counter() - t
-        return out
+    @staticmethod
+    def _cand_cap(prep: Dict[str, Any]) -> int:
+        """Candidate-axis width of the sorted route's compact readback:
+        defined boundary slots never outnumber twice the mark table (anchor
+        writes are the only first definitions), and the host knows every
+        replica's post-batch mark count."""
+        return bucket_length(2 * int(np.asarray(prep["new_mark_counts"]).max(initial=0)) + 2, minimum=8)
+
+    def _assert_states_match(self, ref: DocState, got: DocState, wplan, prep) -> None:
+        """``PERITEXT_WINDOW_CHECK=1``: a windowed result against the
+        full-table recompute of the same batch, field by field."""
+        ref_np, got_np = state_to_numpy(ref), state_to_numpy(got)
+        for f in FIELDS:
+            bad = np.argwhere(ref_np[f] != got_np[f])
+            if bad.size:
+                groups, group_of = prep["groups"], prep["group_of"]
+                rows = {r: groups[group_of[r]]["rows"].tolist() for r in {int(x[0]) for x in bad[:8]}}
+                raise RuntimeError(
+                    f"windowed merge diverged from full-table on plane {f}: first diffs "
+                    f"{bad[:8].tolist()}; wplan starts={wplan['starts'].tolist()} "
+                    f"hulls={wplan['hulls'].tolist()} w_cap={wplan['w_cap']}; rows={rows}"
+                )
+
+    def _patched_sorted(self, prep, host_patches_for, sorted_prep, mark_rows_list, mark_pos_list,
+                        sizes, multi_need: int, with_positions: bool,
+                        wplan: Optional[Dict[str, Any]] = None):
+        """The patched sorted merge (``TpuUniverse._patched_sorted``):
+        placement rounds, analytic text records and a scan over the mark
+        rows only (``sorted_patched.merge_step_sorted_patched``), or its
+        windowed form when ``wplan`` is given, under ``_launch_patched``.
+        Under the compact readback the mark planes are reduced on the
+        device to run tables and assembled vectorized
+        (``assemble_patches_sorted_compact``).
+
+        The persisted winner cache is passed in when it matches the current
+        shapes and actor registry; the merge's cache becomes the new one.
+        ``multi_need`` (the census's widest targeted group, under
+        PATCH_GROUP_K) sizes the delta scan's group resolution."""
+        groups, group_of = prep["groups"], prep["group_of"]
+        has_multi = multi_need > 0
+        group_k = bucket_length(multi_need, minimum=1)
+        # The batch-winner table needs only the live type registry.
+        t_act = min(bucket_length(schema.NUM_MARK_TYPES, minimum=1), schema.MAX_MARK_TYPES)
+        mark_pad = bucket_length(max(max((m.shape[0] for m in mark_rows_list), default=1), 1))
+        g_mark = np.stack([pad_rows(m, mark_pad) for m in mark_rows_list])
+        g_mark_pos = np.stack([
+            np.pad(p.astype(np.int64), (0, mark_pad - p.shape[0]), constant_values=TIME_PAD)
+            for p in mark_pos_list
+        ]).astype(np.int32)
+        pad_per_group = (sorted_prep["text"][:, :, K.K_KIND] == K.KIND_PAD).sum(axis=1) + (
+            g_mark[:, :, K.K_KIND] == K.KIND_PAD
+        ).sum(axis=1)
+        self.stats["rows_padded"] += int((pad_per_group * sizes).sum())
+
+        # One upload per group; the replica batch is a device gather.
+        idx = torch.from_numpy(group_of.astype(np.int64)).to(self.device)
+
+        def per_replica(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device).index_select(0, idx).contiguous()
+
+        d_text, d_rounds, d_bufs, d_tpos, d_mark, d_mpos = (
+            per_replica(a) for a in (
+                sorted_prep["text"], sorted_prep["rounds"], sorted_prep["bufs"],
+                sorted_prep["text_pos"], g_mark, g_mark_pos,
+            )
+        )
+        h2d = int(sum(t.numel() * t.element_size() for t in (d_text, d_rounds, d_bufs, d_tpos, d_mark, d_mpos)))
+        ranks = self._ranks_device()
+        multi = self._multi_device()
+        n = len(self.replica_ids)
+        has_marks = any(m.shape[0] for m in mark_rows_list)
+        wc = self._wcaches
+        if wc is not None and (
+            self._wcaches_actors != len(self.actors.actors)
+            or tuple(wc.shape) != (n, 2 * self.capacity, multi.shape[0], 4)
+        ):
+            wc = None
+        num_rounds, maxk = sorted_prep["num_rounds"], sorted_prep["maxk"]
+        kw = dict(has_marks=has_marks, group_k=group_k, has_multi=has_multi, t_act=t_act,
+                  span_cap=self._span_cap, cand_cap=self._cand_cap(prep))
+
+        def merge_chunk(sl, rb):
+            return SP.merge_step_sorted_patched(
+                map_state(lambda x: x[sl], self.states), d_text[sl], d_rounds[sl], num_rounds,
+                d_mark[sl], ranks, d_bufs[sl], multi, d_tpos[sl], d_mpos[sl], maxk,
+                wcache_in=None if wc is None else wc[sl], readback=rb, **kw,
+            )
+
+        merge_window = None
+        if wplan is not None:
+            d_wstart, d_whull, d_wvb, d_wva = (
+                torch.from_numpy(wplan[k]).to(self.device) for k in ("starts", "hulls", "vis_base", "vis_after")
+            )
+
+            def merge_window(rb):
+                return SP.merge_step_sorted_patched_windowed_batch(
+                    self.states, d_wstart, d_whull, d_wvb, d_wva, d_text, d_rounds, num_rounds, d_mark,
+                    ranks, d_bufs, multi, d_tpos, d_mpos, maxk, wplan["w_cap"], wcache_in=wc,
+                    readback=rb, **kw,
+                )
+
+        def assemble_one(rec, i, r, table, rb):
+            gi = int(group_of[r])
+            assemble = assemble_patches_sorted_compact if rb == "compact" else assemble_patches_sorted
+            return assemble(
+                rec, i, sorted_prep["text"][gi], sorted_prep["text_pos"][gi], sorted_prep["bufs"][gi],
+                g_mark[gi], g_mark_pos[gi], table, self.attrs,
+            )
+
+        # The full-table launches are the only replica slicing: each chunk
+        # keeps the merge's transients under the memory bound.
+        chunk = self._patch_chunk(n, SP.patched_replica_step(self.states, d_text, d_mark, multi, maxk))
+        return self._launch_patched(
+            prep, host_patches_for, with_positions, "delta", h2d, chunk, merge_chunk, assemble_one,
+            merge_window, wplan,
+        )
 
     # -- materialization ----------------------------------------------------
 

@@ -36,6 +36,7 @@ import torch
 from peritext_tpu_torch import schema
 from peritext_tpu_torch.ids import ActorRegistry
 from peritext_tpu_torch.ops.encode import AttrRegistry
+from peritext_tpu_torch.ops.patches import fold_multi_groups
 from peritext_tpu_torch.ops.state import FIELDS, grow_state, map_state, state_from_numpy, state_to_numpy
 from peritext_tpu_torch.ops.universe import TorchUniverse
 from peritext_tpu_torch.oracle.doc import ObjectStore
@@ -224,7 +225,20 @@ def _load_universe(path: str, device: Optional[str | torch.device]) -> TorchUniv
             "(truncated or corrupt .npz)"
         )
     data = np.load(io.BytesIO(payload))
-    uni.states = state_from_numpy({f: data[f] for f in _STATE_FIELDS}, uni.device)
+    # Each read of an npz member decompresses it again: read each once.
+    arrays = {f: data[f] for f in _STATE_FIELDS}
+    uni.states = state_from_numpy(arrays, uni.device)
+    # Rebuild the allowMultiple group census (the patched sorted route's
+    # gate) from the restored mark tables.
+    for r in range(len(uni.replica_ids)):
+        count = uni.mark_counts[r]
+        fold_multi_groups(
+            uni._multi_groups,
+            types=arrays["mark_type"][r][:count],
+            attr_ids=arrays["mark_attr"][r][:count],
+            ctrs=arrays["mark_ctr"][r][:count],
+            act_ids=arrays["mark_act"][r][:count],
+        )
     return uni
 
 
@@ -349,6 +363,7 @@ def _import_replica(uni: TorchUniverse, replica: str, payload: Dict[str, Any]) -
 
     # Assigning ``uni.states`` invalidates the census mirror.
     uni.states = type(uni.states)(**{f: put_row(getattr(uni.states, f), getattr(row, f)) for f in _STATE_FIELDS})
+    uni._wcaches = None  # row contents changed under the winner cache
     uni.clocks[i] = dict(payload["clock"])
     uni.lengths[i] = int(payload["length"])
     uni.mark_counts[i] = int(payload["mark_count"])
@@ -356,6 +371,14 @@ def _import_replica(uni: TorchUniverse, replica: str, payload: Dict[str, Any]) -
     uni._store_version_counter += 1
     uni.store_versions[i] = uni._store_version_counter
     uni.text_objs[i] = payload["text_obj"]
+    # The imported mark rows (remapped ids) join the group census.
+    fold_multi_groups(
+        uni._multi_groups,
+        types=np.asarray(arrays["mark_type"])[:mc],
+        attr_ids=mark_attr[:mc],
+        ctrs=np.asarray(arrays["mark_ctr"])[:mc],
+        act_ids=mark_act[:mc],
+    )
 
 
 class CheckpointManager:

@@ -742,6 +742,10 @@ class ServePlane:
         ctxs = tuple(s.ctx for s in subs if s.ctx is not None)
         err: Optional[BaseException] = None
         out = None
+        # Windowed-merge attribution: the cohort's window is the union of
+        # its members' (one census over the gated batch), so engagement is
+        # read off the universe's stats around the launch.
+        windowed0 = self._uni.stats.get("windowed_launches", 0)
         t0 = time.perf_counter()
         with telemetry.span(
             "serve.flush", flush=seq, sessions=len(per_replica), changes=n_changes
@@ -781,9 +785,14 @@ class ServePlane:
             raise err
         self.stats["flushes"] += 1
         self.stats["flushed_changes"] += n_changes
+        flush_windowed = self._uni.stats.get("windowed_launches", 0) > windowed0
+        if flush_windowed:
+            self.stats["windowed_flushes"] = self.stats.get("windowed_flushes", 0) + 1
         if telemetry.enabled:
             telemetry.counter("serve.flushes")
             telemetry.counter("serve.flushed_changes", n_changes)
+            if flush_windowed:
+                telemetry.counter("serve.windowed_flushes")
             telemetry.observe("serve.flush_seconds", flush_s)
             telemetry.observe("serve.batch_changes", n_changes)
             telemetry.record(

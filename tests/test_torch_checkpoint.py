@@ -302,6 +302,38 @@ def test_exported_row_imports_into_the_other_engine(direction):
     assert target.clock("fresh") == src.clock("doc1")
 
 
+@pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])
+def test_census_folds_alike_on_load_and_import(tmp_path, monkeypatch, direction):
+    """A snapshot saved by one engine loads in the other with the
+    allowMultiple group census folded from its mark tables as the live
+    universes folded it; an imported row joins the census and drops the
+    winner cache; and the next patched ingest on the sorted route is the
+    same in both."""
+    monkeypatch.setenv("PERITEXT_MERGE_PATH", "sorted")
+    docs, _, port = build_session()
+    _, _, ref = build_session(make=TpuUniverse, log_cls=JaxChangeLog)
+    assert port._multi_groups == ref._multi_groups and port._multi_groups
+    path = os.path.join(tmp_path, "snap")
+    if direction == "jax_to_torch":
+        jckpt.save_universe(ref, path)
+        loaded, other = load_universe(path, device="cpu"), ref
+    else:
+        save_universe(port, path)
+        loaded, other = jckpt.load_universe(path), port
+    assert loaded._multi_groups == other._multi_groups
+    fresh_port, fresh_ref = TorchUniverse(["fresh"], device="cpu"), TpuUniverse(["fresh"])
+    import_replica(fresh_port, "fresh", export_replica(port, "doc1"))
+    jckpt.import_replica(fresh_ref, "fresh", jckpt.export_replica(ref, "doc1"))
+    assert fresh_port._multi_groups == fresh_ref._multi_groups == port._multi_groups
+    assert fresh_port._wcaches is None
+    c2, _ = docs[0].change([{"path": ["text"], "action": "addMark", "startIndex": 1, "endIndex": 6,
+                             "markType": "comment", "attrs": {"id": "c1"}}])
+    batch = {"doc1": [c2], "doc2": [c2]}
+    assert loaded.apply_changes_with_patches(batch) == other.apply_changes_with_patches(batch)
+    assert_same(loaded, other)
+    assert loaded._multi_groups == other._multi_groups
+
+
 def test_import_refuses_a_torn_payload_and_a_busy_row():
     _, _, uni = build_session()
     payload = export_replica(uni, "doc1")

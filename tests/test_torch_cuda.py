@@ -8,6 +8,8 @@ inserted later in the batch, and C = 16384.  Byte-equal or fail.  Then a
 on the scan path, the default path (sorted, windowed or not) equals the
 scan path at C = 4096, the per-op patch path's records on the card equal
 those on the CPU, and a ``TorchDoc`` session on the card equals the oracle.
+A universe grows past the kernels' C = 16384 on the capacity route, and
+the patched sorted route gives the per-op loop's streams.
 
 Needs a CUDA device; without one every test skips.  This file imports no
 JAX, so it runs where JAX is absent:
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from peritext_tpu_torch import TorchDoc, TorchUniverse, state_to_numpy
-from peritext_tpu_torch.bench.workloads import doc_session, make_merge_workload, make_writer_rounds
+from peritext_tpu_torch.bench.workloads import doc_session, make_merge_workload, make_writer_rounds, wire_rounds
 from peritext_tpu_torch.ids import ActorRegistry
 from peritext_tpu_torch.ops import cuda_kernels
 from peritext_tpu_torch.ops import kernels as K
@@ -494,3 +496,70 @@ def test_failing_kernel_on_the_card_raises_instead_of_degrading(card, monkeypatc
     after = state_to_numpy(uni.states)
     assert all((after[f] == before[f]).all() for f in before)
     assert [dict(c) for c in uni.clocks] == clocks
+
+
+def test_capacity_route_on_the_card_grows_past_16384(card, monkeypatch):
+    """Four replicas at C = 16384 take a 16,300-char genesis through both
+    kernels, then runs that push the document past 16384: every later
+    merge takes the capacity route (counted, no kernel launch, no
+    ValueError), and the states equal the same merges on the CPU."""
+    for var in ("PERITEXT_MERGE_PATH", "PERITEXT_SORTED_MAX_ROUNDS", "PERITEXT_MERGE_WINDOW"):
+        monkeypatch.delenv(var, raising=False)
+    hist = wire_rounds(16_300, 2, 2, 128, seed=5)
+    history = [[c for rnd in hist["rounds"] for c in rnd[w]] for w in range(2)]
+    steps = [[[hist["genesis"]]] * 4] + [[rnd[i % 2] for i in range(4)] for rnd in hist["rounds"]]
+    steps.append([history[1 - i % 2] for i in range(4)])
+    unis = [TorchUniverse([f"r{i}" for i in range(4)], capacity=16384, max_mark_ops=256, device=d)
+            for d in (card, "cpu")]
+    cuda_kernels.reset_launch_counts()
+    for k, batch in enumerate(steps):
+        for uni in unis:
+            uni.apply_changes(batch)
+        if k == 0:
+            assert cuda_kernels.LAUNCHES == {"text_phase": 1, "mark_phase": 1}
+    on_card = unis[0]
+    assert on_card.capacity == 32768
+    assert on_card.stats["capacity_routes"] == len(steps) - 1
+    assert cuda_kernels.LAUNCHES == {"text_phase": 1, "mark_phase": 1}
+    a, b = state_to_numpy(on_card.states), state_to_numpy(unis[1].states)
+    assert all((a[f] == b[f]).all() for f in a)
+    assert len(set(on_card.digests().tolist())) == 1
+
+
+@pytest.mark.parametrize("window", ["1", "0"])
+def test_patched_sorted_route_on_the_card_equals_the_per_op_loop(card, monkeypatch, window):
+    """64 replicas at C = 2048 load a 1000-char genesis (hotspot edits) and
+    round 1 through the kernels, then take rounds 2-3 with patches: the
+    patched sorted route (windowed unless PERITEXT_MERGE_WINDOW=0) gives
+    the per-op loop's streams, with and without positions, and its states,
+    and launches no kernel."""
+    for var in ("PERITEXT_PATCH_PATH", "PERITEXT_PATCH_CHUNK", "PERITEXT_SORTED_CHUNK",
+                "PERITEXT_MERGE_WINDOW_MIN", "PERITEXT_MERGE_PATH"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("PERITEXT_MERGE_WINDOW", window)
+    wl = make_writer_rounds(doc_len=1000, ops_per_round=32, num_writers=4, rounds=3, seed=6, locality=128)
+    names = [f"r{i}" for i in range(64)]
+    runs = {}
+    for route in ("scan", "sorted"):
+        monkeypatch.delenv("PERITEXT_MERGE_PATH", raising=False)
+        uni = TorchUniverse(names, capacity=2048, max_mark_ops=256, device=card)
+        uni.apply_changes([[wl["genesis"]]] * 64)
+        uni.apply_changes([wl["rounds"][0][i % 4] for i in range(64)])
+        if route == "sorted":
+            monkeypatch.setenv("PERITEXT_MERGE_PATH", "sorted")
+        cuda_kernels.reset_launch_counts()
+        outs = [uni.apply_changes_with_patches([rnd[i % 4] for i in range(64)], with_positions=k == 0)
+                for k, rnd in enumerate(wl["rounds"][1:])]
+        assert cuda_kernels.LAUNCHES == {"text_phase": 0, "mark_phase": 0}
+        runs[route] = (uni, outs)
+    (scan, want), (srt, got) = runs["scan"], runs["sorted"]
+    assert got == want
+    if window == "1":
+        # A windowed call from a cold start leaves no cache (as in JAX).
+        assert srt.stats["windowed_launches"] >= 1
+    else:
+        assert srt._wcaches is not None and srt._wcaches.device.type == "cuda"
+    a, b = state_to_numpy(scan.states), state_to_numpy(srt.states)
+    assert all((a[f] == b[f]).all() for f in a)
+    for r in range(4):
+        assert srt.spans(r) == wl["writers"][r].get_text_with_formatting(["text"])

@@ -392,3 +392,50 @@ def test_insert_heavy_rows_match_xla(seed):
         assert (b.numpy() == _np(getattr(xla, name))).all(), f"{name} diverged from XLA"
     assert (out[5].numpy() == _np(xla.length)).all()
     assert (out[5] > pst.elem_ctr.shape[1]).any()  # some replica grew past C
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_merge_step_matches_merge_step_pallas_and_xla(seed):
+    """``cuda_kernels.merge_step`` (``merge_step_pallas``'s counterpart; on
+    CPU tensors the text phase's plain version, then the permute and the
+    per-op mark scan) equals ``merge_step_pallas`` in interpret mode and the
+    XLA merge on every state field."""
+    batch = _batch(seed)
+    st = batch["states"]
+    args = (jnp.asarray(batch["text_ops"]), jnp.asarray(batch["mark_ops"]), jnp.asarray(batch["ranks"]))
+    pallas = JP.merge_step_pallas(st, *args, interpret=None)
+    xla = JK.merge_step_batch(st, *args)
+    out = cuda_kernels.merge_step(
+        _port_state(st), *(torch.from_numpy(np.asarray(a)) for a in
+                           (batch["text_ops"], batch["mark_ops"], batch["ranks"])),
+    )
+    _assert_int32_state(out)
+    _assert_state_equal(pallas, out)
+    _assert_state_equal(xla, out)
+
+
+def test_merge_step_latency_shape_matches_pallas():
+    """``test_pallas_latency_shape_matches_xla``'s configuration cut to the
+    CPU (a 1000-char document at C = 2048 instead of 10,000 at 16384): one
+    8-replica block of replica 0's fused runs and char buffer tiled, with
+    marks, through ``merge_step`` against ``merge_step_pallas`` and the XLA
+    fused merge.  Seed 2's replica 0 carries both runs and marks (the JAX
+    test's seed 3 has neither at this size)."""
+    workload = make_merge_workload(doc_len=1000, ops_per_merge=64, num_streams=2, with_marks=True, seed=2)
+    batch = build_device_batch(workload, num_replicas=8, capacity=2048, max_mark_ops=256)
+    fr, fb, _ = fuse_insert_runs(batch["text_ops"][0])
+    text = np.repeat(fr[None], 8, axis=0)
+    char_buf = np.repeat(pad_buffer(fb, max(fb.shape[0], JK.MAX_RUN_LEN))[None], 8, axis=0)
+    mark_ops = np.repeat(np.asarray(batch["mark_ops"][0])[None], 8, axis=0)
+    ranks = np.asarray(batch["ranks"])
+    assert (text[..., JK.K_KIND] == JK.KIND_INSERT_RUN).any() and (mark_ops[..., JK.K_KIND] == JK.KIND_MARK).any()
+    st = batch["states"]
+    jargs = tuple(jnp.asarray(a) for a in (text, mark_ops, ranks))
+    pallas = JP.merge_step_pallas(st, *jargs, char_buf=jnp.asarray(char_buf), interpret=None)
+    xla = JK.merge_step_fused_batch(st, *jargs, jnp.asarray(char_buf))
+    out = cuda_kernels.merge_step(
+        _port_state(st), *(torch.from_numpy(np.ascontiguousarray(a)) for a in (text, mark_ops, ranks)),
+        char_buf=torch.from_numpy(np.ascontiguousarray(char_buf)),
+    )
+    _assert_state_equal(pallas, out)
+    _assert_state_equal(xla, out)

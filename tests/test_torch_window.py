@@ -409,15 +409,17 @@ def test_stale_mirror_is_rejected_on_device_and_relaunched(window_env):
     _assert_same(port, tpu, "relaunch vs TpuUniverse")
 
 
-def test_mirror_is_rebuilt_after_the_states_change_elsewhere(window_env):
+def test_mirror_is_rebuilt_after_the_states_change_elsewhere(window_env, monkeypatch):
     """The mirror is keyed to the states' version: windowed commits splice
-    it (no rebuild); a patched ingest reassigns the states, and an
+    it (no rebuild), the windowed patched merge included; an ingest on the
+    per-op loop (PERITEXT_PATCH_PATH=scan) reassigns the states, and an
     in-place write to a state tensor changes its version, so the next
     windowed merge rebuilds the mirror.  The result equals TpuUniverse's."""
     window_env(True)
+    monkeypatch.delenv("PERITEXT_PATCH_PATH", raising=False)
     d, genesis = _genesis(600)
     edits = [d.change([{"path": ["text"], "action": "insert", "index": 100 + 20 * i,
-                        "values": list("ok")}])[0] for i in range(5)]
+                        "values": list("ok")}])[0] for i in range(6)]
     port = TorchUniverse(["r1", "r2"], capacity=1024, max_mark_ops=64, device="cpu")
     tpu = TpuUniverse(["r1", "r2"], capacity=1024, max_mark_ops=64)
     for uni in (port, tpu):
@@ -425,15 +427,19 @@ def test_mirror_is_rebuilt_after_the_states_change_elsewhere(window_env):
         uni.apply_changes([[edits[0]]] * 2)
         uni.apply_changes([[edits[1]]] * 2)
         assert uni.stats["windowed_launches"] == 2 and uni.stats["window_rebuilds"] == 1
-        # The port's patch path is the per-op scan; JAX's is windowed.
+        # The patched route windows and splices in both engines.
         uni.apply_changes_with_patches([[edits[2]]] * 2)
-        uni.apply_changes([[edits[3]]] * 2)
-    assert port.stats["windowed_launches"] == 3 and port.stats["window_rebuilds"] == 2
-    _assert_same(port, tpu, "after a patched ingest")
+        assert uni.stats["windowed_launches"] == 3 and uni.stats["window_rebuilds"] == 1
+        monkeypatch.setenv("PERITEXT_PATCH_PATH", "scan")
+        uni.apply_changes_with_patches([[edits[3]]] * 2)
+        monkeypatch.delenv("PERITEXT_PATCH_PATH")
+        uni.apply_changes([[edits[4]]] * 2)
+    assert port.stats["windowed_launches"] == 4 and port.stats["window_rebuilds"] == 2
+    _assert_same(port, tpu, "after a per-op patched ingest")
     port.states.deleted[0, 0] = port.states.deleted[0, 0].clone()  # same bytes, new version
-    port.apply_changes([[edits[4]]] * 2)
-    assert port.stats["windowed_launches"] == 4 and port.stats["window_rebuilds"] == 3
-    tpu.apply_changes([[edits[4]]] * 2)
+    port.apply_changes([[edits[5]]] * 2)
+    assert port.stats["windowed_launches"] == 5 and port.stats["window_rebuilds"] == 3
+    tpu.apply_changes([[edits[5]]] * 2)
     _assert_same(port, tpu, "after an in-place write")
 
 
