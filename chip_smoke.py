@@ -112,11 +112,40 @@ Phases, in order; any failure exits non-zero:
    16384: every merge above the kernels' limit must be counted in
    ``stats["capacity_routes"]`` and launch no kernel; one digest, and
    sampled spans equal to an oracle's.
-16. Print the resilience counts of every phase (the script runs under
+16. The sharded serving tier on the card: ``ShardedServePlane`` with 4
+   shards (``devices=None``: the card), C = 2048, M = 1024, each shard
+   as wide as its sessions (so an evicted row frees a device row), a DWRR quantum of 1 (the widest
+   and shallowest cohorts: a flush's per-op loop takes one step per op row
+   of its deepest replica), manual mode.  256 documents of 4 collaborators (1024 sessions; rr
+   placement puts collaborator w on shard w, 256 rows a shard): the
+   genesis fans out from collaborator 0 and is drained, then collaborator
+   w submits writer w's rounds 1-2 in changes of 8 ops (``split_rounds``),
+   with ``drain``/``anti_entropy``/``drain`` after each round.  During
+   round 2 ``migrate_session`` moves collaborator 0 of 64 documents to
+   shard 1; each mover is held after it parks, so its round-2 submissions
+   park and replay.  Then a ``DocLifecycle`` evicts every session of 64
+   documents (256 rows) and round 3 hydrates each cold (the 64 migrated
+   documents take round 3 first, warm), and once more under a watermark
+   of 768 resident sessions: 64 more documents are evicted and round 3
+   hydrates 16 of them, each hydration evicting the least recently active
+   session first.  A threaded leg serves 16 documents (64 sessions) with
+   one scheduler thread per shard: the genesis and the first half of
+   round 1 drained by hand, then the second half on the threads, so the
+   two modes are timed at one width on the same plane.  After each leg every
+   document's sessions share one
+   digest and the spans of an oracle ``Doc`` that merged all four writers,
+   every session's accumulated stream equals its spans, and 16 sessions'
+   streams equal oracle twins that ingest exactly what each was handed, in
+   order.  Prints flush ms and submissions per second beside phase 10's
+   manual leg, migration, evict and hydrate ms, warm and cold
+   admit-to-applied, the bytes of one generation and the tenancy ratio
+   (sessions served / device rows, above 1).  No kernel and no plain
+   version runs.
+17. Print the resilience counts of every phase (the script runs under
    ``PERITEXT_DEGRADE=0`` but for legs (b) and (c); launch retries,
    fast-fails and degraded batches must be 0 outside the legs that inject
    them, which assert their exact counts), the kernels' JSON summary
-   (launches summed over phases 4, 5 and 8-15; ``ms`` per wrapper call
+   (launches summed over phases 4, 5 and 8-16; ``ms`` per wrapper call
    between CUDA events, ``device_ms`` the kernel alone with a cold L2,
    both at phase 2), the card, and as the last line ``{"ok": true,
    "device": {...}}``.  Peak device memory is printed after every phase.
@@ -126,12 +155,14 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -155,8 +186,20 @@ from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops import sorted_patched as SP
 from peritext_tpu_torch.ops.state import FIELDS, map_state
 from peritext_tpu_torch.oracle import Doc, accumulate_patches
-from peritext_tpu_torch.runtime import ChangeLog, ServePlane, ServeShedError, faults, health, telemetry
+from peritext_tpu_torch.runtime import (
+    ChangeLog,
+    DocLifecycle,
+    ServePlane,
+    ServeSession,
+    ServeShedError,
+    ShardedServePlane,
+    faults,
+    health,
+    migrate_session,
+    telemetry,
+)
 from peritext_tpu_torch.runtime import checkpoint as ckpt
+from peritext_tpu_torch.runtime.serve_shard import ParkedSubmission
 from peritext_tpu_torch.runtime.sync import causal_order
 
 DOC_LEN = 1000
@@ -182,6 +225,16 @@ DEGRADE_REPLICAS = 64
 CAPACITY_DOC_LEN = 16_300
 CAPACITY_RUN = 128
 CAPACITY_REPLICAS = 64
+# Phase 16: documents of WRITERS collaborators each over SHARDS shards.
+SHARDS = 4
+SHARD_DOCS = 256
+MIGRATED = 64
+EVICTED_DOCS = 64
+WATERMARK = 768
+WATERMARK_DOCS = 16  # of the EVICTED_DOCS evicted again, those round 3 hydrates
+THREADED_DOCS = 16
+TWINS = 16
+SHARD_DEVICES = None  # None: every visible CUDA device
 
 
 def log(msg: str) -> None:
@@ -1496,6 +1549,371 @@ def phase_capacity(replicas: int, samples: int) -> dict:
     return {"launches": launches}
 
 
+@contextlib.contextmanager
+def record_handed(names):
+    """Record every batch handed to the named sessions' shard-local
+    admission lanes, in order: client submits, fan-out and anti-entropy
+    deliveries, migration and hydration replays."""
+    handed = {n: [] for n in names}
+    submit = ServeSession.submit
+
+    def recording(self, changes, wait=False, timeout=None):
+        if self.name in handed:
+            handed[self.name].extend(changes)
+        return submit(self, changes, wait, timeout)
+
+    ServeSession.submit = recording
+    try:
+        yield handed
+    finally:
+        ServeSession.submit = submit
+
+
+def twin_stream(base: Doc, base_patches: list, handed: list) -> list:
+    """The patches of an oracle twin that ingests exactly ``handed`` in
+    order under the admission gate's rules (a change already seen drops,
+    a causally unready one waits); ``base`` has taken the genesis,
+    ``handed[0]``."""
+    twin = copy.deepcopy(base)
+    out, held = list(base_patches), []
+    for change in handed[1:]:
+        held.append(change)
+        fresh = [c for c in held if c["seq"] > twin.clock.get(c["actor"], 0)]
+        for c in causal_order(fresh, dict(twin.clock)):
+            out += twin.apply_change(c)
+        held = [c for c in held if c["seq"] > twin.clock.get(c["actor"], 0)]
+    return out
+
+
+def drain_shards(label: str, splane: ShardedServePlane) -> list:
+    """Step every shard until none flushes; the ms of each flush."""
+    flush_ms, worked = [], True
+    while worked:
+        worked = False
+        for plane in splane._planes():
+            t = time.perf_counter()
+            if plane.step():
+                flush_ms.append(1e3 * (time.perf_counter() - t))
+                worked = True
+    if splane.drain() != 0:
+        raise AssertionError(f"[{label}] the sharded plane did not drain")
+    return flush_ms
+
+
+def settle(label: str, splane: ShardedServePlane) -> list:
+    """Drain, redeliver every doc group's missing suffix, drain again."""
+    flush_ms = drain_shards(label, splane)
+    splane.anti_entropy()
+    return flush_ms + drain_shards(label, splane)
+
+
+def check_sharded(label: str, splane: ShardedServePlane, docs: list, expect: list, handed: dict,
+                  genesis: dict) -> None:
+    """Each document's sessions share one digest and the spans of its
+    oracle; every session's accumulated stream equals its spans; each
+    recorded session's stream equals its oracle twin's."""
+    t = time.perf_counter()
+    rows = {}
+    for shard in splane.shards:
+        uni = shard.universe
+        for r, spans, digest in zip(uni.replica_ids, uni.spans_batch(), uni.digests().tolist()):
+            rows[r] = (spans, digest)
+    for d, sessions in enumerate(docs):
+        if len({rows[s.replica][1] for s in sessions}) != 1:
+            raise AssertionError(f"[{label}] document {d}'s sessions disagree")
+        if rows[sessions[0].replica][0] != expect[d]:
+            raise AssertionError(f"[{label}] document {d}'s spans differ from its oracle's")
+        for s in sessions:
+            if accumulate_patches(s.patch_log) != rows[s.replica][0]:
+                raise AssertionError(f"[{label}] session {s.name}'s accumulated stream differs from its spans")
+    base = Doc("twin")
+    base_patches = base.apply_change(genesis)
+    by_name = {s.name: s for sessions in docs for s in sessions}
+    for name, changes in handed.items():
+        if changes[0] != genesis:
+            raise AssertionError(f"[{label}] session {name} was not handed the genesis first")
+        if by_name[name].patch_log != twin_stream(base, base_patches, changes):
+            raise AssertionError(f"[{label}] session {name}'s patches differ from its oracle twin's")
+    log(f"  [{label}] {len(docs)} documents of {len(docs[0])} sessions: one digest each, spans equal to the "
+        f"oracle's; {sum(map(len, docs))} accumulated streams equal their spans; {len(handed)} sessions' streams "
+        f"equal their twins' ({sum(map(len, handed.values()))} changes handed); checked in "
+        f"{time.perf_counter() - t:.2f} s (host)")
+
+
+def oracle_spans(wl: dict, rounds: int) -> list:
+    doc = Doc("oracle")
+    doc.apply_change(wl["genesis"])
+    for rnd in wl["rounds"][:rounds]:
+        for w in range(WRITERS):
+            for c in rnd[w]:
+                doc.apply_change(c)
+    return doc.get_text_with_formatting(["text"])
+
+
+def submit_round(docs, wl: dict, k: int, subs: list | None = None, part: slice = slice(None)) -> int:
+    """Collaborator w of each document submits ``part`` of writer w's
+    round k, one change per submission; returns the count."""
+    n = 0
+    for sessions in docs:
+        for w, s in enumerate(sessions):
+            for c in wl["rounds"][k][w][part]:
+                sub = s.submit([c])
+                if subs is not None:
+                    subs.append(sub)
+                n += 1
+    return n
+
+
+def leg_line(label: str, leg: str, flush_ms: list, subs: int, seconds: float, p10: dict) -> None:
+    base = p10["manual"]
+    log(f"  [{label}] {leg}: {subs} submissions in {seconds:.3f} s ({subs / seconds:.1f} submissions/s); "
+        f"{len(flush_ms)} flushes, flush ms {median_p95(flush_ms)}; phase 10's manual leg (one plane, this run): "
+        f"{median_p95(base['flush_ms'])}, {base['subs'] / base['seconds']:.1f} submissions/s")
+
+
+def serve_totals(splane: ShardedServePlane) -> dict:
+    """Flushes, flushed changes and the patch calls' loop, readback and
+    assembly seconds, summed over the shards."""
+    out = {k: sum(s.plane.stats[k] for s in splane.shards) for k in ("flushes", "flushed_changes")}
+    for k in ("patch_loop_seconds", "patch_readback_seconds", "patch_assemble_seconds"):
+        out[k] = sum(s.universe.stats[k] for s in splane.shards)
+    return out
+
+
+def totals_line(before: dict, after: dict, seconds: float) -> str:
+    d = {k: after[k] - before[k] for k in after}
+    return (f"{d['flushes']} flushes of {d['flushed_changes'] / max(1, d['flushes']):.1f} changes on average; "
+            f"summed over the shards, loop {d['patch_loop_seconds']:.3f} s, readback "
+            f"{d['patch_readback_seconds']:.3f} s, assembly {d['patch_assemble_seconds']:.3f} s "
+            f"in {seconds:.3f} s of wall time")
+
+
+def widths(splane: ShardedServePlane) -> list:
+    return [len(s.universe.replica_ids) if s.universe is not None else 0 for s in splane.shards]
+
+
+def phase_sharded(p10: dict) -> dict:
+    """The sharded serving tier on the card: doc groups over SHARDS
+    shards, live migration, the lifecycle and a threaded fleet."""
+    label = "phase 16"
+    wl = p10["wl"]
+    t0 = time.perf_counter()
+    expect12, expect123 = oracle_spans(wl, 2), oracle_spans(wl, 3)
+    log(f"{label}: oracles built in {time.perf_counter() - t0:.2f} s (host); {SHARD_DOCS} documents x {WRITERS} "
+        f"collaborators over {SHARDS} shards, C=2048, M=1024")
+    reset_counts()
+    telemetry.reset()
+    splane = ShardedServePlane(SHARDS, start=False, capacity=2048, max_mark_ops=1024, batch_target=256,
+                               quantum=1, devices=SHARD_DEVICES)
+    docs = [[splane.session(f"d{d}w{w}", replica=f"d{d}w{w}", doc=f"doc{d}", record_stream=True)
+             for w in range(WRITERS)] for d in range(SHARD_DOCS)]
+    if any(s.shard != w for sessions in docs for w, s in enumerate(sessions)):
+        raise AssertionError(f"[{label}] rr placement did not put collaborator w on shard w")
+    log(f"  [{label}] shard widths {widths(splane)} on {[str(s.device) for s in splane.shards]}")
+    # Twins: two movers, then sessions spread over every quarter of the
+    # documents (migrated, pressure-evicted, evicted, watermark).
+    picks = [(0, 0), (1, 0)] + [((d * SHARD_DOCS // (TWINS - 2) + 2) % SHARD_DOCS, d % WRITERS)
+                                for d in range(TWINS - 2)]
+    twins = sorted({docs[d][w].name for d, w in picks})
+    with record_handed(twins) as handed, tempfile.TemporaryDirectory(prefix="chip_smoke_lifecycle_") as store:
+        # Setup: the genesis fans out from collaborator 0 and is drained
+        # (one cohort a shard: the per-op loop takes one step per char of
+        # an insert), then round 1.
+        t = time.perf_counter()
+        for sessions in docs:
+            sessions[0].submit([wl["genesis"]])
+        flush_ms = drain_shards(label, splane)
+        log(f"  [{label}] genesis: {SHARD_DOCS} submissions fanned out to {SHARD_DOCS * WRITERS} sessions in "
+            f"{time.perf_counter() - t:.3f} s; {len(flush_ms)} flushes, ms {' '.join(f'{x:.1f}' for x in flush_ms)}")
+        t = time.perf_counter()
+        n_subs = submit_round(docs, wl, 0)
+        flush_ms = settle(label, splane)
+        leg_line(label, "round 1", flush_ms, n_subs, time.perf_counter() - t, p10)
+
+        # Migration leg: collaborator 0 of the first MIGRATED documents
+        # moves from shard 0 to shard 1 while its document's round 2
+        # arrives.  The shard-0 plane's lock holds each migration after it
+        # parks the session and before it drains the source lane, so
+        # every round-2 submission of the mover parks and is replayed.
+        src = splane.shards[0].plane
+        move_ms, parked = [], 0
+        t = time.perf_counter()
+        n_subs = 0
+        for d in range(MIGRATED):
+            mover, out = docs[d][0], {}
+
+            def move(name=mover.name, out=out):
+                try:
+                    migrate_session(splane, name, 1)
+                except BaseException as exc:  # re-raised below
+                    out["error"] = exc
+                out["t"] = time.perf_counter()
+
+            with src._lock:
+                thread = threading.Thread(target=move)
+                thread.start()
+                while mover._parked is None and thread.is_alive():
+                    time.sleep(0.0002)
+                for w, s in enumerate(docs[d]):
+                    for c in wl["rounds"][1][w]:
+                        parked += isinstance(s.submit([c]), ParkedSubmission)
+                        n_subs += 1
+                released = time.perf_counter()
+            thread.join()
+            if "error" in out:
+                raise AssertionError(f"[{label}] migrating {mover.name} failed") from out["error"]
+            move_ms.append(1e3 * (out["t"] - released))
+        n_subs += submit_round(docs[MIGRATED:], wl, 1)
+        flush_ms = settle(label, splane)
+        seconds = time.perf_counter() - t
+        if parked != MIGRATED * len(wl["rounds"][1][0]) or any(docs[d][0].shard != 1 for d in range(MIGRATED)):
+            raise AssertionError(f"[{label}] {parked} parked submissions; movers on shards "
+                                 f"{sorted({docs[d][0].shard for d in range(MIGRATED)})}")
+        leg_line(label, "round 2 with the migration", flush_ms, n_subs, seconds, p10)
+        log(f"  [{label}] {MIGRATED} migrations shard 0 -> 1, ms (lock release to commit) {median_p95(move_ms)}; "
+            f"{parked} client submissions parked and replayed; shard widths after the move {widths(splane)}")
+        check_sharded(f"{label} migration", splane, docs, [expect12] * SHARD_DOCS, handed, wl["genesis"])
+
+        # Lifecycle leg: evict every session of EVICTED_DOCS documents, then
+        # round 3 hydrates each on its first submission (the migrated
+        # documents take round 3 first, warm, for the comparison).
+        lc = DocLifecycle(splane, directory=store, start=False, watermark=0, keep=2, cooldown=0.0)
+        cold_docs = list(range(SHARD_DOCS // 2, SHARD_DOCS // 2 + EVICTED_DOCS))
+        evict_ms = []
+        for d in cold_docs:
+            for s in docs[d]:
+                t = time.perf_counter()
+                lc.evict(s.name)
+                evict_ms.append(1e3 * (time.perf_counter() - t))
+        status = lc._status()
+        gen = os.path.join(lc._doc_dir(docs[cold_docs[0]][0].name), "gen-00000000")
+        gen_bytes = os.path.getsize(gen + ".npz") + os.path.getsize(gen + ".json")
+        log(f"  [{label}] evicted {len(evict_ms)} sessions of {EVICTED_DOCS} documents: evict ms "
+            f"{median_p95(evict_ms)}; one generation {gen_bytes} B (npz + sidecar); shard widths {widths(splane)}; "
+            f"{status['docs']} sessions on {status['device_rows']} device rows (tenancy {status['tenancy_ratio']})")
+        lat = {"warm": [], "cold": []}
+        t = time.perf_counter()
+        n_subs, flush_ms = 0, []
+        for group in (range(MIGRATED), cold_docs):
+            subs: list = []
+            n_subs += submit_round([docs[d] for d in group], wl, 2, subs)
+            flush_ms += drain_shards(label, splane)
+            for sub in subs:
+                lat[sub.lat_class].append(sub.t_done - sub.t0)
+        flush_ms += settle(label, splane)
+        seconds = time.perf_counter() - t
+        hydrate_ms = [1e3 * x for x in lc._cold_starts]
+        lc._cold_starts.clear()
+        if lc.stats["hydrations"] != len(evict_ms) or len(lat["cold"]) != len(evict_ms):
+            raise AssertionError(f"[{label}] {lc.stats['hydrations']} hydrations, {len(lat['cold'])} cold "
+                                 f"submissions after {len(evict_ms)} evictions")
+        leg_line(label, "round 3 with the hydrations", flush_ms, n_subs, seconds, p10)
+        log(f"  [{label}] {lc.stats['hydrations']} hydrations, ms {median_p95(hydrate_ms)}; admit-to-applied ms "
+            f"warm p50 {quantile_ms(lat['warm'], 0.5):.4f} p95 {quantile_ms(lat['warm'], 0.95):.4f} "
+            f"({len(lat['warm'])}), cold p50 {quantile_ms(lat['cold'], 0.5):.4f} p95 "
+            f"{quantile_ms(lat['cold'], 0.95):.4f} ({len(lat['cold'])}); fallbacks {lc.stats['corrupt_fallbacks']}, "
+            f"full replays {lc.stats['full_replays']}")
+        third = set(range(MIGRATED)) | set(cold_docs)
+        expect = [expect123 if d in third else expect12 for d in range(SHARD_DOCS)]
+        check_sharded(f"{label} lifecycle", splane, docs, expect, handed, wl["genesis"])
+
+        # Once more under a watermark: evict the last EVICTED_DOCS
+        # documents (the resident count falls to the watermark), then round
+        # 3 hydrates the sessions of WATERMARK_DOCS of them, each past the
+        # watermark, which evicts the least recently active resident
+        # session first.  Each session's first change goes first, so the
+        # drain each pressure eviction makes of its victim's shard finds
+        # one change per hydrated session.
+        lc.watermark = WATERMARK
+        for d in range(SHARD_DOCS - EVICTED_DOCS, SHARD_DOCS):
+            for s in docs[d]:
+                lc.evict(s.name)
+        warm_docs = list(range(SHARD_DOCS - WATERMARK_DOCS, SHARD_DOCS))
+        before = dict(lc.stats)
+        t = time.perf_counter()
+        batch = [docs[d] for d in warm_docs]
+        n_subs = submit_round(batch, wl, 2, part=slice(0, 1))
+        n_subs += submit_round(batch, wl, 2, part=slice(1, None))
+        flush_ms = drain_shards(label, splane)
+        seconds = time.perf_counter() - t
+        status = lc._status()
+        pressure = lc.stats["pressure_evictions"] - before["pressure_evictions"]
+        if status["resident"] > WATERMARK or status["tenancy_ratio"] <= 1 or pressure != len(warm_docs) * WRITERS:
+            raise AssertionError(f"[{label}] under the watermark: {status}, {pressure} pressure evictions")
+        leg_line(label, f"round 3 under a watermark of {WATERMARK}", flush_ms, n_subs, seconds, p10)
+        log(f"  [{label}] {pressure} pressure evictions; {status['resident']} resident of {status['docs']} sessions "
+            f"on {status['device_rows']} device rows: tenancy ratio {status['tenancy_ratio']}; hydrate ms "
+            f"{median_p95([1e3 * x for x in lc._cold_starts])}; shard widths {widths(splane)}")
+        lc.watermark = 0
+        for sessions in docs:
+            for s in sessions:
+                lc.hydrate(s.name)
+        settle(label, splane)
+        third |= set(warm_docs)
+        expect = [expect123 if d in third else expect12 for d in range(SHARD_DOCS)]
+        check_sharded(f"{label} watermark", splane, docs, expect, handed, wl["genesis"])
+        splane.close()
+    no_kernel_or_plain_calls(label)
+    launches = dict(cuda_kernels.LAUNCHES)
+    log(f"  [{label}] kernel launches {launches}, plain calls {PLAIN_CALLS}; lifecycle stats {lc.stats}")
+    del splane, docs, lc
+    torch.cuda.empty_cache()
+
+    # Threaded leg: the genesis and the first half of round 1 are drained
+    # by hand, then one scheduler thread per shard, all on the card,
+    # serves the second half: both modes at one width, on one plane.
+    tplane = ShardedServePlane(SHARDS, start=False, capacity=2048, max_mark_ops=1024, deadline_ms=25.0,
+                               quantum=1, devices=SHARD_DEVICES)
+    tdocs = [[tplane.session(f"t{d}w{w}", replica=f"t{d}w{w}", doc=f"tdoc{d}", record_stream=True)
+              for w in range(WRITERS)] for d in range(THREADED_DOCS)]
+    with record_handed([tdocs[d][d % WRITERS].name for d in range(THREADED_DOCS)]) as thanded:
+        t = time.perf_counter()
+        for sessions in tdocs:
+            sessions[0].submit([wl["genesis"]])
+        drain_shards(label, tplane)
+        genesis_s = time.perf_counter() - t
+        half = len(wl["rounds"][0][0]) // 2
+        m_before = serve_totals(tplane)
+        t = time.perf_counter()
+        msubs: list = []
+        m_subs = submit_round(tdocs, wl, 0, msubs, part=slice(0, half))
+        m_flush = drain_shards(label, tplane)
+        m_seconds = time.perf_counter() - t
+        m_totals = totals_line(m_before, serve_totals(tplane), m_seconds)
+        t_before = serve_totals(tplane)
+        telemetry.enable()
+        for plane in tplane._planes():
+            plane.start()
+        t = time.perf_counter()
+        subs: list = []
+        n_subs = submit_round(tdocs, wl, 0, subs, part=slice(half, None))
+        tplane.flush_and_wait(timeout=600.0)
+        tplane.anti_entropy()
+        tplane.flush_and_wait(timeout=600.0)
+        seconds = time.perf_counter() - t
+        t_totals = totals_line(t_before, serve_totals(tplane), seconds)
+        snap = telemetry.snapshot()
+        threads = sum(s.plane._thread is not None for s in tplane.shards)
+        check_sharded(f"{label} threaded", tplane, tdocs, [oracle_spans(wl, 1)] * THREADED_DOCS, thanded,
+                      wl["genesis"])
+    tplane.close()
+    telemetry.reset()
+    no_kernel_or_plain_calls(label)
+    m_e2e = [sub.t_done - sub.t0 for sub in msubs]
+    e2e = [sub.t_done - sub.t0 for sub in subs]
+    fl = telemetry.estimate_quantiles(snap["histograms"]["serve.flush_seconds"], (0.5, 0.95))
+    log(f"  [{label}] threaded leg: {THREADED_DOCS * WRITERS} sessions in {THREADED_DOCS} documents; the genesis "
+        f"drained by hand in {genesis_s:.3f} s; round 1's first half by hand: {m_subs} submissions in "
+        f"{m_seconds:.3f} s ({m_subs / m_seconds:.1f} submissions/s), admit-to-applied ms p50 "
+        f"{quantile_ms(m_e2e, 0.5):.4f} p95 {quantile_ms(m_e2e, 0.95):.4f}, flush ms {median_p95(m_flush)}; "
+        f"{m_totals}")
+    log(f"  [{label}] threaded leg: round 1's second half on {threads} scheduler threads: "
+        f"{n_subs} submissions in {seconds:.3f} s ({n_subs / seconds:.1f} submissions/s); "
+        f"admit-to-applied ms p50 {quantile_ms(e2e, 0.5):.4f} p95 {quantile_ms(e2e, 0.95):.4f}; "
+        f"serve.flush_seconds estimate p50 {1e3 * fl['p50']:.4f} p95 {1e3 * fl['p95']:.4f} ms; {t_totals}")
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1504,7 +1922,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
-    t = time.perf_counter()
+    started = t = time.perf_counter()
     paths = _build.build_all()
     log(f"phase 1: built {sorted(paths)} in {time.perf_counter() - t:.2f} s")
     for name, text in sorted(_build.build_logs.items()):
@@ -1574,12 +1992,18 @@ def main() -> int:
     with resilience("phase 15"):
         capacity = phase_capacity(CAPACITY_REPLICAS, samples=8)
     log_peak("phase 15")
+    t = time.perf_counter()
+    with resilience("phase 16"):
+        sharded = phase_sharded(serving)
+    log_peak("phase 16")
+    log(f"phase 16 took {time.perf_counter() - t:.1f} s")
     runs = (main, past, sorted_run, window, serving, resilient, patched_sorted, patched_window, served_sorted,
-            capacity)
+            capacity, sharded)
     launches = {name: sum(run["launches"].get(name, 0) for run in runs) for name in results}
-    log("phase 16: resilience counts (launch_retries, fastfails, degraded_batches) per phase and leg: " + "; ".join(
+    log("phase 17: resilience counts (launch_retries, fastfails, degraded_batches) per phase and leg: " + "; ".join(
         f"{lbl} {got['launch_retries']}/{got['fastfails']}/{got['degraded_batches']}" for lbl, got in PHASE_TALLIES))
-    log(f"  kernel launches summed over phases 4, 5 and 8-15: {launches}")
+    log(f"  kernel launches summed over phases 4, 5 and 8-16: {launches}; the script so far "
+        f"{time.perf_counter() - started:.1f} s")
 
     replaces = {
         "text_phase": "peritext_tpu/ops/pallas_kernels.py:152",

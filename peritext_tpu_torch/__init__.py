@@ -16,9 +16,12 @@ package's default patch route, the patched sorted and windowed merges
 (``ops/sorted_patched.py``).  A universe past the kernels' capacity merges
 on the sorted route (``stats["capacity_routes"]``).
 Every launch runs under the JAX universe's retry, breaker and degrade
-policy; ``runtime/`` holds the serving plane (``ServePlane``), the fault,
-health, SLO and telemetry planes, change logs and checkpoints.
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+policy; ``runtime/`` holds the serving plane (``ServePlane``) and its
+sharded tier (``ShardedServePlane`` with doc groups over pub/sub, live
+migration and the autoscaler, the ``DocLifecycle`` evict/hydrate cache),
+the fault, health, SLO and telemetry planes, change logs and checkpoints.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(``devices=["cpu"]`` for the sharded plane); without a GPU they raise.
 """
 from peritext_tpu_torch.ops.doc import TorchDoc
 from peritext_tpu_torch.ops.state import (

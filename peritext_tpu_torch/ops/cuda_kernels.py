@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -36,6 +37,8 @@ MAX_SHARED_BYTES = 232448
 _SCRATCH_INTS = 64
 
 LAUNCHES: Dict[str, int] = {"text_phase": 0, "mark_phase": 0}
+# Scheduler threads of a sharded serving plane may launch concurrently.
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -117,8 +120,16 @@ def _fn(kernel: str, symbol: str) -> ctypes._CFuncPtr:
     return fn
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
+    """Call a kernel library's C entry point on ``device``'s current stream
+    with ``device`` made current, so a launch never depends on the calling
+    thread's current device (a shard's universe may sit on another card),
+    and count it."""
+    with torch.cuda.device(device):
+        err = _fn(kernel, symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
+    _raise_on_error(kernel, err)
+    with _LAUNCHES_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def _raise_on_error(kernel: str, err: int) -> None:
@@ -176,15 +187,14 @@ def text_phase(
     ch = torch.empty_like(chars)
     oi = torch.empty_like(elem_ctr)
     ln = torch.empty_like(length)
-    err = _fn("text_phase", "pt_text_phase")(
+    _launch(
+        "text_phase", "pt_text_phase", elem_ctr.device,
         elem_ctr.data_ptr(), elem_act.data_ptr(), deleted.data_ptr(), chars.data_ptr(),
         length.data_ptr(), text_ops.data_ptr(), num_ops, ranks.data_ptr(), ranks.shape[0],
         char_buf.data_ptr() if char_buf is not None else None, buf_len,
         ec.data_ptr(), ea.data_ptr(), dl.data_ptr(), ch.data_ptr(), oi.data_ptr(), ln.data_ptr(),
-        r, c, _stream(),
+        r, c,
     )
-    _raise_on_error("text_phase", err)
-    LAUNCHES["text_phase"] += 1
     return ec, ea, dl, ch, oi, ln
 
 
@@ -222,13 +232,12 @@ def mark_phase(
         )
     new_def = torch.empty_like(bnd_def)
     new_mask = torch.empty_like(bnd_mask)  # the kernel copies the input in
-    err = _fn("mark_phase", "pt_mark_phase")(
+    _launch(
+        "mark_phase", "pt_mark_phase", bnd_def.device,
         bnd_def.data_ptr(), bnd_mask.data_ptr(), elem_ctr.data_ptr(), elem_act.data_ptr(),
         length.data_ptr(), mark_count.data_ptr(), mark_ops.data_ptr(), num_ops,
-        new_def.data_ptr(), new_mask.data_ptr(), r, c, words, _stream(),
+        new_def.data_ptr(), new_mask.data_ptr(), r, c, words,
     )
-    _raise_on_error("mark_phase", err)
-    LAUNCHES["mark_phase"] += 1
     return new_def, new_mask
 
 

@@ -15,19 +15,35 @@ same shapes, so a state moves between the engines as numpy arrays
 - The mark-op table [M] and the scalars ``length`` / ``mark_count``.
 
 Every integer plane is int32 and the flags are bool.  A batched state has a
-leading replica axis on every field.  ``wcache_to_numpy`` /
+leading replica axis on every field.  The constructors put a state on
+``device``; ``None`` (the default) is the GPU, and without one they raise
+(``resolve_device``): pass ``device="cpu"`` for the CPU.  ``wcache_to_numpy`` /
 ``wcache_from_numpy`` carry the patched sorted route's winner cache across
 the same bridge.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 MASK_WORD_BITS = 32
+
+Device = Optional[str | torch.device]
+
+
+def resolve_device(device: Device) -> torch.device:
+    """``None`` means the GPU; without one that is an error, never a silent
+    move to the CPU (pass ``device="cpu"`` for the CPU)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,12 +84,12 @@ def map_state(fn, state: DocState) -> DocState:
     return DocState(**{name: fn(getattr(state, name)) for name in FIELDS})
 
 
-def make_empty_state(
-    capacity: int = 1024, max_mark_ops: int = 128, device: str | torch.device = "cpu"
-) -> DocState:
+def make_empty_state(capacity: int = 1024, max_mark_ops: int = 128, device: Device = None) -> DocState:
+    """An empty state on ``device`` (``None``: the GPU, see ``resolve_device``)."""
     if max_mark_ops % MASK_WORD_BITS != 0:
         raise ValueError("max_mark_ops must be a multiple of 32")
     words = max_mark_ops // MASK_WORD_BITS
+    device = resolve_device(device)
 
     def z(*shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -140,9 +156,11 @@ def grow_state(state: DocState, capacity: int | None = None, max_mark_ops: int |
     )
 
 
-def state_from_numpy(fields: Dict[str, np.ndarray], device: str | torch.device = "cpu") -> DocState:
+def state_from_numpy(fields: Dict[str, np.ndarray], device: Device = None) -> DocState:
     """A state from the JAX package's field arrays (``jax.device_get`` of
-    its DocState, as numpy): uint32 masks become int32 bitcasts."""
+    its DocState, as numpy) on ``device`` (``None``: the GPU): uint32 masks
+    become int32 bitcasts."""
+    device = resolve_device(device)
     out = {}
     for name in FIELDS:
         a = np.asarray(fields[name])
@@ -172,6 +190,6 @@ def wcache_to_numpy(wcache: torch.Tensor) -> np.ndarray:
     return wcache.detach().cpu().numpy().astype(np.int32)
 
 
-def wcache_from_numpy(wcache: np.ndarray, device: str | torch.device = "cpu") -> torch.Tensor:
-    """A winner cache from its numpy form, on ``device``."""
-    return torch.from_numpy(np.array(wcache, dtype=np.int32, order="C")).to(device)
+def wcache_from_numpy(wcache: np.ndarray, device: Device = None) -> torch.Tensor:
+    """A winner cache from its numpy form, on ``device`` (``None``: the GPU)."""
+    return torch.from_numpy(np.array(wcache, dtype=np.int32, order="C")).to(resolve_device(device))

@@ -105,6 +105,7 @@ from peritext_tpu_torch.ops.state import (
     grow_state,
     make_empty_state,
     map_state,
+    resolve_device,
     state_from_numpy,
     state_to_numpy,
 )
@@ -224,18 +225,6 @@ def _patch_path() -> str:
     if path not in ("delta", "scan"):
         raise ValueError(f"PERITEXT_PATCH_PATH must be 'delta' or 'scan', got {path!r}")
     return path
-
-
-def resolve_device(device: Optional[str | torch.device]) -> torch.device:
-    """``None`` means the GPU; without one that is an error, never a silent
-    move to the CPU (pass ``device="cpu"`` for the CPU)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def apply_host_op(store: ObjectStore, op: Dict[str, Any]) -> List[Dict[str, Any]]:

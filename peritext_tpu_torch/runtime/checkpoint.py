@@ -293,7 +293,7 @@ def import_replica(uni: TorchUniverse, replica: str, payload: Dict[str, Any]) ->
     """Graft an exported replica row onto an EMPTY row of another universe.
 
     The target row must never have ingested anything (empty clock) — the
-    migration protocol provisions it via the pow2 pad plane + rename.  Actor
+    migration protocol provisions it as one more row or the spare.  Actor
     and attr ids are remapped through the target registries with MASKS
     (elem_act only where ``elem_ctr > 0``, mark rows only below
     ``mark_count``, attrs only where ``>= 0``): inert slots hold 0, which is

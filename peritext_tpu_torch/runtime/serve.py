@@ -205,6 +205,7 @@ class Submission:
         "ctx",
         "t0",
         "t_done",
+        "lat_class",
         "fresh",
         "flush_seq",
         "_range",
@@ -219,6 +220,11 @@ class Submission:
         self.ctx = ctx
         self.t0 = time.perf_counter()
         self.t_done: Optional[float] = None  # perf_counter at resolution
+        # Warm/cold admission class (runtime/lifecycle.py): "cold" when this
+        # submission's admission had to hydrate an evicted doc first, "warm"
+        # for lifecycle-managed resident admissions, None otherwise.  Feeds
+        # the e2e.admit_to_applied_{warm,cold} split histograms.
+        self.lat_class: Optional[str] = None
         self.fresh: Optional[List[Change]] = None
         self.flush_seq: Optional[int] = None
         self._range: Tuple[int, int] = (0, 0)
@@ -329,9 +335,16 @@ class ServePlane:
         on_open: str = ON_OPEN_DEGRADE,
         start: bool = True,
         name: str = "serve",
+        shard: Optional[int] = None,
     ) -> None:
         self._uni = universe
         self.name = name
+        # Shard id when this plane is one slice of a ShardedServePlane
+        # (runtime/serve_shard.py): stamps the serve.submit causal lanes
+        # and the serve.flush spans, and keys the per-shard
+        # serve.shard.<i>.compile_cache_* counters (the plane-global
+        # aggregate stays).
+        self.shard = shard
         self._batch_target = _bucket_pow2(max(1, batch_target))
         self._deadline_s = deadline_ms / 1000.0
         self._quantum = max(1, quantum)
@@ -375,8 +388,42 @@ class ServePlane:
             "flush_failures": 0,
         }
         self._thread: Optional[threading.Thread] = None
+        # Live ops surface: the plane contributes per-session lane depth +
+        # DWRR deficit to telemetry.status().  Held as a weakref — a
+        # dropped plane silently leaves the surface.
+        telemetry.register_status_source("serve", self._status)
         if start:
             self.start()
+
+    def _status(self) -> Dict[str, Any]:
+        """This plane's slice of :func:`telemetry.status`: per-session
+        admission-lane occupancy (depth in changes, lane entries, DWRR
+        deficit, priority/weight) plus the flush/miss/shed tallies an
+        operator watches, read under the plane lock."""
+        with self._lock:
+            sessions = {
+                name: {
+                    "depth": s._pending,
+                    "lane": len(s._lane),
+                    "deficit": round(s._deficit, 3),
+                    "priority": s.priority,
+                    "weight": s.weight,
+                }
+                for name, s in self._sessions.items()
+            }
+            out: Dict[str, Any] = {
+                "plane": self.name,
+                "sessions": sessions,
+                "flushes": self.stats["flushes"],
+                "deadline_misses": self.stats["deadline_misses"],
+                "deferred": self.stats["deferred"],
+                "shed": self.stats["shed"],
+                "compiled_shapes": len(self._shapes),
+                "closed": self._closed,
+            }
+            if self.shard is not None:
+                out["shard"] = self.shard
+            return out
 
     # -- sessions ------------------------------------------------------------
 
@@ -417,6 +464,28 @@ class ServePlane:
                 telemetry.gauge("serve.sessions", len(self._sessions))
         return s
 
+    def evict_session(self, name: str) -> List[Submission]:
+        """Detach a session from this plane (live migration, elastic.py;
+        eviction, lifecycle.py).
+
+        Runs under ``run_quiesced`` semantics on the caller's side: no
+        cohort may be forming while a session leaves mid-protocol.  Any
+        submissions still in the lane are popped and RETURNED — unresolved,
+        so the caller can graft them onto another lane and the callers'
+        futures still resolve with their exact patches.  The replica row
+        itself stays in the universe; evacuating it is the caller's job."""
+        with self._lock:
+            s = self._sessions.pop(name, None)
+            if s is None:
+                raise KeyError(f"unknown session {name!r}")
+            self._by_replica.pop(s.replica, None)
+            leftover = list(s._lane)
+            s._lane = []
+            s._pending = 0
+            if telemetry.enabled:
+                telemetry.gauge("serve.sessions", len(self._sessions))
+        return leftover
+
     # -- admission -----------------------------------------------------------
 
     def _submit(
@@ -433,9 +502,12 @@ class ServePlane:
         faults.fire("serve_admit")
         changes = faults.filter_stream("serve_admit", changes, stream=session.name)
         if telemetry.enabled:
-            ctx = telemetry.flow(
-                "serve.submit", session=session.name, changes=len(changes)
-            )
+            flow_meta: Dict[str, Any] = {
+                "session": session.name, "changes": len(changes),
+            }
+            if self.shard is not None:
+                flow_meta["shard"] = self.shard
+            ctx = telemetry.flow("serve.submit", **flow_meta)
         else:
             ctx = None
         sub = Submission(session, changes, ctx)
@@ -739,6 +811,9 @@ class ServePlane:
         if telemetry.enabled:
             suffix = "compile_cache_hit" if hit else "compile_cache_miss"
             telemetry.counter("serve." + suffix)
+            if self.shard is not None:
+                # Per-shard attribution, keyed beside the aggregate above.
+                telemetry.counter(f"serve.shard.{self.shard}.{suffix}")
         ctxs = tuple(s.ctx for s in subs if s.ctx is not None)
         err: Optional[BaseException] = None
         out = None
@@ -747,9 +822,12 @@ class ServePlane:
         # read off the universe's stats around the launch.
         windowed0 = self._uni.stats.get("windowed_launches", 0)
         t0 = time.perf_counter()
-        with telemetry.span(
-            "serve.flush", flush=seq, sessions=len(per_replica), changes=n_changes
-        ):
+        span_meta: Dict[str, Any] = {
+            "flush": seq, "sessions": len(per_replica), "changes": n_changes,
+        }
+        if self.shard is not None:
+            span_meta["shard"] = self.shard
+        with telemetry.span("serve.flush", **span_meta):
             for ctx in ctxs:
                 telemetry.flow_point(ctx)
             with telemetry.flowing(ctxs):
@@ -826,6 +904,10 @@ class ServePlane:
             elapsed = now - sub.t0
             if telemetry.enabled:
                 telemetry.observe("e2e.admit_to_applied", elapsed)
+                if sub.lat_class is not None:
+                    telemetry.observe(
+                        f"e2e.admit_to_applied_{sub.lat_class}", elapsed
+                    )
             if elapsed > window:
                 misses += 1
                 self.stats["deadline_misses"] += 1

@@ -59,10 +59,15 @@ reports through:
   :func:`_install_slo_sinks`; :func:`counter` / :func:`observe` (and span
   exits) forward matching names to the active plan's sliding-window
   evaluators.  With no plan installed the cost is one module-attribute
-  load + ``None`` check per already-enabled call.
+  load + ``None`` check per already-enabled call;
+- a **live status surface**: :func:`status` assembles one operator-facing
+  JSON object — breaker states, queue depth/high-water, per-session serve
+  lane depth + deficit, per-shard occupancy, the elastic and lifecycle
+  blocks (via :func:`register_status_source`), windowed-merge engagement,
+  per-SLO compliance/burn, and sampler verdicts.
 
-The JAX package's periodic metrics flusher and live status surface are
-left out of the port (no port caller reads them yet).
+The JAX package's periodic metrics flusher and its status file
+(``PERITEXT_STATUS``, ``dump_status``) are left out of the port.
 
 Activation
 ==========
@@ -112,6 +117,7 @@ import os
 import random
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 # NOTE: `enabled` is deliberately NOT in __all__ — `from telemetry import
@@ -149,6 +155,8 @@ __all__ = [
     "blackbox_dir",
     "blackbox_dump",
     "estimate_quantiles",
+    "status",
+    "register_status_source",
 ]
 
 # THE hot-path gate (see the overhead contract above).
@@ -597,6 +605,11 @@ _LANE_BUF_CAP = 4096
 # None (the common case) costs one module-attribute load per enabled call.
 _observe_sinks: Optional[Dict[str, Callable[[float], None]]] = None
 _counter_sinks: Optional[Dict[str, Callable[[int], None]]] = None
+
+# -- status surface -----------------------------------------------------------
+# (kind, WeakMethod) pairs registered by live planes (serve, serve_shard,
+# elastic, lifecycle); dead refs are pruned on read.
+_status_sources: List[Tuple[str, Any]] = []
 
 
 def counter(name: str, n: int = 1) -> None:
@@ -1165,6 +1178,136 @@ def _install_slo_sinks(
         _breach_probe = breach_probe
 
 
+def register_status_source(kind: str, method: Any) -> None:
+    """Register a live plane's status contributor (a *bound method*
+    returning a JSON-able dict; held as a weakref, so a dropped plane
+    silently leaves the surface).  ``kind`` groups the payload in
+    :func:`status` — the serving planes register ``"serve"`` /
+    ``"serve_shards"``, the controllers ``"elastic"`` / ``"lifecycle"``."""
+    ref = weakref.WeakMethod(method)
+    with _config_lock:
+        # Opportunistic prune: long test sessions mint many short-lived
+        # planes; dead refs must not accumulate.
+        _status_sources[:] = [(k, r) for k, r in _status_sources if r() is not None]
+        _status_sources.append((kind, ref))
+
+
+def status() -> Dict[str, Any]:
+    """One operator-facing snapshot of the live process: breaker states,
+    queue pressure, serving-plane occupancy (per-session lane depth +
+    deficit, per-shard width/occupancy + fleet shape pressure),
+    windowed-merge engagement, per-SLO compliance/burn, e2e latency
+    quantiles, and the trace sampler's verdict counts.  Built entirely
+    from already-collected state — calling it never perturbs the planes
+    it reports on."""
+    snap = _registry.snapshot()
+    counters, gauges = snap["counters"], snap["gauges"]
+    out: Dict[str, Any] = {
+        "pid": os.getpid(),
+        "time": time.time(),
+        "enabled": enabled,
+    }
+    # Health plane: breaker state + tallies per site.  Late import — the
+    # health module imports this one, so the dependency must stay one-way
+    # at import time.
+    try:
+        from peritext_tpu_torch.runtime import health as _health
+
+        breakers = _health.summary()
+    except Exception:
+        breakers = {}
+    if breakers:
+        out["breakers"] = breakers
+    queue_block: Dict[str, Any] = {}
+    for label, src in (
+        ("flushes", "queue.flushes"),
+        ("reenqueues", "queue.reenqueues"),
+        ("shed", "queue.shed"),
+        ("coalesced", "queue.coalesced"),
+        ("blocked", "queue.blocked"),
+    ):
+        if src in counters:
+            queue_block[label] = counters[src]
+    if "queue.depth_max" in gauges:
+        queue_block["depth_max"] = gauges["queue.depth_max"]
+    if queue_block:
+        out["queue"] = queue_block
+    launches = counters.get("ingest.launches", 0)
+    if launches:
+        windowed = counters.get("ingest.path.windowed", 0)
+        out["ingest"] = {
+            "launches": launches,
+            "degraded_batches": counters.get("ingest.degraded_batches", 0),
+            "launch_failures": counters.get("ingest.launch_failures", 0),
+            "fastfails": counters.get("health.fastfail", 0),
+            "windowed_launches": windowed,
+            "window_engagement_pct": round(100.0 * windowed / launches, 1),
+            "window_fallbacks": counters.get("ingest.window_fallbacks", 0),
+        }
+    # Live plane contributors (serve / serve_shards / elastic / lifecycle).
+    with _config_lock:
+        sources = list(_status_sources)
+    by_kind: Dict[str, List[Dict[str, Any]]] = {}
+    for kind, ref in sources:
+        method = ref()
+        if method is None:
+            continue
+        try:
+            payload = method()
+        except Exception:  # a closing plane must not break the surface
+            continue
+        if payload:
+            by_kind.setdefault(kind, []).append(payload)
+    for kind, payloads in by_kind.items():
+        out[kind] = payloads
+    # SLO plane verdicts (late import, same one-way rationale as health).
+    try:
+        from peritext_tpu_torch.runtime import slo as _slo
+
+        slo_summary = _slo.summary()
+    except Exception:
+        slo_summary = {}
+    if slo_summary:
+        out["slo"] = slo_summary
+    e2e = {}
+    for name, h in snap["histograms"].items():
+        if name.startswith("e2e."):
+            q = estimate_quantiles(h)
+            if q is not None:
+                q["count"] = h["count"]
+                e2e[name[len("e2e.") :]] = q
+    if e2e:
+        out["e2e"] = e2e
+    trace_block: Dict[str, Any] = {}
+    if _tracer is not None:
+        trace_block["path"] = _tracer.path
+    if sampling_active():
+        trace_block["sample"] = _sample_p
+        trace_block["tail"] = {
+            "slow_ms": None if _tail_slow_us is None else _tail_slow_us / 1e3,
+            "error": _tail_error,
+            "breach": _tail_breach,
+        }
+        with _flow_lock:
+            trace_block["open_lanes"] = len(_lane_buf)
+    for label, src in (
+        ("lanes_kept", "trace.lanes_kept"),
+        ("lanes_dropped", "trace.lanes_dropped"),
+        ("lanes_evicted", "trace.lanes_evicted"),
+    ):
+        if src in counters:
+            trace_block[label] = counters[src]
+    if trace_block:
+        out["trace"] = trace_block
+    for label, src in (
+        ("blackbox_dumps", "blackbox.dumps"),
+        ("blackbox_deduped", "blackbox.deduped"),
+    ):
+        if src in counters:
+            out[label] = counters[src]
+    return out
+
+
 def trace_path() -> Optional[str]:
     """Path of the active trace file, or None when not tracing."""
     tracer = _tracer
@@ -1206,7 +1349,8 @@ def disable() -> None:
 def reset() -> None:
     """Back to a pristine, disabled plane: counters cleared, tracer closed,
     exit dump canceled, recorder ring dropped, black-box disarmed,
-    sampling back to direct emission, SLO sinks cleared.  Does NOT re-read the environment (tests
+    sampling back to direct emission, SLO sinks and status sources
+    cleared.  Does NOT re-read the environment (tests
     own the lifecycle after a reset)."""
     global enabled, _tracer, _metrics_path, _recorder, _blackbox_dir
     global _sample_p, _sample_seed, _tail_slow_us, _tail_error, _tail_breach
@@ -1228,6 +1372,7 @@ def reset() -> None:
         _counter_sinks = None
         _dump_last.clear()
         _registry.clear()
+        _status_sources.clear()
     with _flow_lock:
         _lane_buf.clear()
 

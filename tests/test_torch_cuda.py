@@ -9,7 +9,10 @@ on the scan path, the default path (sorted, windowed or not) equals the
 scan path at C = 4096, the per-op patch path's records on the card equal
 those on the CPU, and a ``TorchDoc`` session on the card equals the oracle.
 A universe grows past the kernels' C = 16384 on the capacity route, and
-the patched sorted route gives the per-op loop's streams.
+the patched sorted route gives the per-op loop's streams.  A sharded
+serving plane on the card (a migration and an evict/hydrate round trip
+included) equals the same run on the CPU, and kernel launches from two
+threads count and land on the card.
 
 Needs a CUDA device; without one every test skips.  This file imports no
 JAX, so it runs where JAX is absent:
@@ -338,7 +341,7 @@ def test_patch_records_on_the_card_equal_the_cpus(card, readback):
     ranks[: len(actors.ranks())] = actors.ranks()
     pad = max(s.shape[0] for s in streams)
     first = np.stack([np.concatenate([g_rows, pad_rows(streams[(r + 1) % 4], pad)]) for r in range(6)])
-    empty = map_state(lambda x: x.expand(6, *x.shape).contiguous(), make_empty_state(256, 64))
+    empty = map_state(lambda x: x.expand(6, *x.shape).contiguous(), make_empty_state(256, 64, device="cpu"))
     base = K.apply_ops(empty, torch.from_numpy(first), torch.from_numpy(ranks))
     ops = torch.from_numpy(np.stack([pad_rows(streams[r % 4], pad) for r in range(6)]))
     multi = torch.from_numpy(allow_multiple_array())
@@ -563,3 +566,76 @@ def test_patched_sorted_route_on_the_card_equals_the_per_op_loop(card, monkeypat
     assert all((a[f] == b[f]).all() for f in a)
     for r in range(4):
         assert srt.spans(r) == wl["writers"][r].get_text_with_formatting(["text"])
+
+
+def _sharded_run(devices, store):
+    """A manual sharded plane: a two-session doc group and two lone
+    sessions over 2 shards; one session migrates, one is evicted and
+    hydrates on its next submit.  Returns each session's stream."""
+    from peritext_tpu_torch.runtime import DocLifecycle, ShardedServePlane, migrate_session
+
+    wl = make_writer_rounds(120, 16, 2, 3, True, seed=12)
+    plane = ShardedServePlane(2, start=False, capacity=256, devices=devices)
+    lc = DocLifecycle(plane, directory=str(store), start=False)
+    group = [plane.session(f"g{w}", replica=f"g{w}", doc="doc", record_stream=True) for w in range(2)]
+    lone = [plane.session(f"l{w}", replica=f"l{w}", record_stream=True) for w in range(2)]
+    for sessions in (group, lone):
+        sessions[0].submit([wl["genesis"]])
+    lone[1].submit([wl["genesis"]])
+    for k, rnd in enumerate(wl["rounds"]):
+        for w in range(2):
+            group[w].submit(rnd[w])
+            lone[w].submit(rnd[w])
+        assert plane.drain() == 0
+        if k == 0:
+            migrate_session(plane, "g0", 1 - group[0].shard)
+            lc.evict("l1")
+    plane.anti_entropy()
+    assert plane.drain() == 0
+    assert lc.stats["hydrations"] == 1
+    streams = [s.patch_log for s in group + lone]
+    spans = [plane.spans(s.replica) for s in group + lone]
+    plane.close()
+    return plane, streams, spans
+
+
+def test_sharded_plane_on_the_card_equals_the_cpus(card, tmp_path):
+    """ShardedServePlane with devices=None puts every shard on the card;
+    with a migration and an evict/hydrate round trip, every stream and
+    spans equal the same run with devices=["cpu"]."""
+    plane, streams, spans = _sharded_run(None, tmp_path / "card")
+    assert all(s.universe.device.type == "cuda" for s in plane.shards)
+    _, want_streams, want_spans = _sharded_run(["cpu"], tmp_path / "cpu")
+    assert streams == want_streams and spans == want_spans
+    assert spans[0] == spans[1]
+
+
+def test_kernel_launches_from_threads_count_and_land_on_the_card(card):
+    """Two threads merge into two universes on the card at once (as the
+    scheduler threads of a sharded plane may): every launch counts, and
+    the states equal the same merges on the CPU."""
+    import threading
+
+    wl = make_writer_rounds(200, 16, 2, 4, True, seed=13)
+
+    def run(uni):
+        uni.apply_changes([[wl["genesis"]]] * 2)
+        for rnd in wl["rounds"]:
+            uni.apply_changes([rnd[0], rnd[1]])
+
+    unis = [TorchUniverse(["a", "b"], capacity=512, device=card) for _ in range(2)]
+    cuda_kernels.reset_launch_counts()
+    threads = [threading.Thread(target=run, args=(u,)) for u in unis]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    merges = sum(u.stats["launches"] for u in unis)
+    assert merges == 2 * (1 + len(wl["rounds"]))
+    assert all(n == merges for n in cuda_kernels.LAUNCHES.values())
+    cpu = TorchUniverse(["a", "b"], capacity=512, device="cpu")
+    run(cpu)
+    want = state_to_numpy(cpu.states)
+    for u in unis:
+        got = state_to_numpy(u.states)
+        assert all((got[f] == want[f]).all() for f in want)

@@ -349,7 +349,7 @@ def test_winner_cache_persists_and_interning_drops_it():
     _assert_same_universe(port, ref)
     assert port.spans("obs") == obs.get_text_with_formatting(["text"])
     # The bridge round-trips the cache.
-    again = wcache_from_numpy(wcache_to_numpy(port._wcaches))
+    again = wcache_from_numpy(wcache_to_numpy(port._wcaches), device="cpu")
     assert again.dtype == torch.int32 and torch.equal(again, port._wcaches)
 
 
@@ -455,11 +455,11 @@ def _kernel_pair(states_j, sp, mark_ops, mark_time, ranks, wcache=None, jax_mode
         states_j, *(jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args),
         wcache_in=None if wcache is None else jnp.asarray(wcache), mode=jax_mode, **kw,
     )
-    port_st = state_from_numpy({f: np.asarray(getattr(states_j, f)) for f in FIELDS})
+    port_st = state_from_numpy({f: np.asarray(getattr(states_j, f)) for f in FIELDS}, device="cpu")
     st, rec = SP.merge_step_sorted_patched_batch(
         port_st, *(torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
                    for a in args),
-        wcache_in=None if wcache is None else wcache_from_numpy(wcache), **kw,
+        wcache_in=None if wcache is None else wcache_from_numpy(wcache, device="cpu"), **kw,
     )
     got = state_to_numpy(st)
     for f in FIELDS:

@@ -78,7 +78,7 @@ def test_apply_ops_patched_matches_jax(seed, readback):
         base, jnp.asarray(ops_rows), jnp.asarray(ranks), jnp.asarray(multi),
         readback=readback, span_cap=8,
     )
-    port = state_from_numpy({f: _np(getattr(base, f)) for f in FIELDS})
+    port = state_from_numpy({f: _np(getattr(base, f)) for f in FIELDS}, device="cpu")
     got_state, got = K.apply_ops_patched(
         port, torch.from_numpy(ops_rows), torch.from_numpy(ranks), torch.from_numpy(multi),
         readback=readback, span_cap=8,
@@ -105,7 +105,7 @@ def test_apply_ops_patched_matches_jax(seed, readback):
 def test_apply_ops_matches_jax(seed):
     base, ops_rows, ranks = _patched_inputs(seed, replicas=4)
     want = JK.apply_ops_batch(base, jnp.asarray(ops_rows), jnp.asarray(ranks))
-    port = state_from_numpy({f: _np(getattr(base, f)) for f in FIELDS})
+    port = state_from_numpy({f: _np(getattr(base, f)) for f in FIELDS}, device="cpu")
     got = state_to_numpy(K.apply_ops(port, torch.from_numpy(ops_rows), torch.from_numpy(ranks)))
     for f in FIELDS:
         assert (got[f] == _np(getattr(want, f))).all(), f"state field {f} diverged"
@@ -119,7 +119,7 @@ def test_views_match_jax():
     base, _ = JK.apply_ops_patched_batch(
         base, jnp.asarray(ops_rows), jnp.asarray(ranks), jnp.asarray(multi)
     )
-    port = state_from_numpy({f: _np(getattr(base, f)) for f in FIELDS})
+    port = state_from_numpy({f: _np(getattr(base, f)) for f in FIELDS}, device="cpu")
     r = port.elem_ctr.shape[0]
     idx = np.tile(np.arange(-1, 90, dtype=np.int32), (r, 1))
     peeked = 0

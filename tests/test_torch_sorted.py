@@ -39,7 +39,7 @@ def _np(x):
 
 
 def _port_state(jax_state):
-    return state_from_numpy({f: _np(getattr(jax_state, f)) for f in FIELDS})
+    return state_from_numpy({f: _np(getattr(jax_state, f)) for f in FIELDS}, device="cpu")
 
 
 def _assert_state_equal(jax_state, port_state, context=""):

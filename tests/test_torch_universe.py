@@ -136,7 +136,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "assert 'peritext_tpu_torch.runtime.serve' in mods and 'peritext_tpu_torch.runtime.checkpoint' in mods\n"
+        "assert {'peritext_tpu_torch.runtime.' + m for m in ('serve', 'checkpoint', 'pubsub', 'serve_shard', "
+        "'elastic', 'lifecycle')} <= set(mods)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'peritext_tpu') "
         "and sys.modules[m] is not None]\n"
         "print(len(mods), bad)\n"

@@ -205,7 +205,7 @@ def test_windowed_merge_matches_jax():
             jnp.asarray(sp["bufs"]), sp["maxk"], plan["w_cap"],
         )
         got, rec = sorted_merge.merge_step_sorted_windowed_batch(
-            state_from_numpy({f: np.array(getattr(st, f)) for f in FIELDS}), torch.from_numpy(starts),
+            state_from_numpy({f: np.array(getattr(st, f)) for f in FIELDS}, device="cpu"), torch.from_numpy(starts),
             torch.from_numpy(plan["hulls"]), torch.from_numpy(sp["text"]), torch.from_numpy(sp["rounds"]),
             sp["num_rounds"], torch.from_numpy(marks), torch.from_numpy(ranks), torch.from_numpy(sp["bufs"]),
             sp["maxk"], plan["w_cap"],
@@ -268,7 +268,7 @@ def test_windowed_merge_in_slices_bounds_its_transients(monkeypatch):
     ref, ref_rec = JK.merge_step_sorted_windowed_batch(
         tpu.states, *(jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args)
     )
-    port_states = state_from_numpy({f: np.array(getattr(tpu.states, f)) for f in FIELDS})
+    port_states = state_from_numpy({f: np.array(getattr(tpu.states, f)) for f in FIELDS}, device="cpu")
     port_args = tuple(torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args)
     runs = {}
     for chunk in (sorted_merge._CHUNK_ELEMS, 4096):
