@@ -141,11 +141,41 @@ Phases, in order; any failure exits non-zero:
    admit-to-applied, the bytes of one generation and the tenancy ratio
    (sessions served / device rows, above 1).  No kernel and no plain
    version runs.
-17. Print the resilience counts of every phase (the script runs under
+17. Streamed replica cohorts at the north-star population (BASELINE
+   config 5): ``make_merge_workload(10_000, 64, 4, seed=5)`` at C = 16384,
+   M = 128; replica r takes stream r % 4; the host population is a
+   broadcast of the genesis state plus tiled op rows.  8,192 replicas
+   streamed in cohorts of 3,000 (a padded tail) at depth 1 and 2 must give
+   states and digests byte-equal to one resident ``merge_step_full`` plus
+   the digest, whose rows (one replica a stream) must equal
+   ``merge_step_plain``'s on the card, digests included; the depth-2 sweep
+   runs traced and ``scripts/trace_report.py``
+   must find every ``stream.cohort`` lane ended.  Then 100,000 replicas in
+   25 cohorts of 4,096 (the last 1,696 rows padded), digests only, at
+   depth 2, 1, 1, 2: exactly 4 distinct digests, replica r's equal to the
+   resident digest of stream r % 4.  A readback sweep of the first cohort
+   and of the last two (the padded tail) gives the resident rows.  Every
+   sweep launches each kernel once a cohort.  Prints the host's memory,
+   the population's bytes beside the card's and ``cohort_for_budget``,
+   each sweep's seconds and merged ops/s, per-cohort staging, enqueue,
+   H2D, merge, digest and D2H times, peak device memory a slot beside the
+   estimate, and the calls that wait on the host in a profiled sweep.
+18. The reference's host-side drivers on ``TorchDoc(device="cuda")``, each
+   leg under the status surface (``PERITEXT_STATUS`` with a 0.25 s
+   ``PERITEXT_METRICS_INTERVAL``) and rendered by ``scripts/ops_top.py
+   --once``: the fuzzer on TorchDocs, on mixed engines under
+   ``DEFAULT_CHAOS_SPEC``, with a serving plane, and with a 4-shard plane
+   that migrates and evicts; ``replay.assert_replay_converges`` on
+   ``traces/fail-seed3.json`` equal to the oracle's replay; an
+   ``EditorNetwork`` of three editors, manual (equal to an oracle network)
+   and interval-driven (equal to oracle twins of every change made); and
+   ``python -m peritext_tpu_torch.fuzz --engine torch --device cuda`` with
+   the variables set.  Prints each leg's iterations and seconds.
+19. Print the resilience counts of every phase (the script runs under
    ``PERITEXT_DEGRADE=0`` but for legs (b) and (c); launch retries,
    fast-fails and degraded batches must be 0 outside the legs that inject
    them, which assert their exact counts), the kernels' JSON summary
-   (launches summed over phases 4, 5 and 8-16; ``ms`` per wrapper call
+   (launches summed over phases 4, 5 and 8-18; ``ms`` per wrapper call
    between CUDA events, ``device_ms`` the kernel alone with a cold L2,
    both at phase 2), the card, and as the last line ``{"ok": true,
    "device": {...}}``.  Peak device memory is printed after every phase.
@@ -168,7 +198,7 @@ import time
 import numpy as np
 import torch
 
-from peritext_tpu_torch import TorchDoc, TorchUniverse, state_to_numpy
+from peritext_tpu_torch import TorchDoc, TorchUniverse, replay, state_to_numpy
 from peritext_tpu_torch.bench.bounds import bound, nbytes, text_phase_bytes
 from peritext_tpu_torch.bench.timing import call_ms, device_ms
 from peritext_tpu_torch.bench.workloads import (
@@ -181,11 +211,20 @@ from peritext_tpu_torch.bench.workloads import (
     text_row_mix,
     wire_rounds,
 )
+from peritext_tpu_torch.bridge import EditorNetwork
+from peritext_tpu_torch.fuzz import DEFAULT_CHAOS_SPEC, fuzz
 from peritext_tpu_torch.ops import _build, cuda_kernels
 from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops import sorted_patched as SP
-from peritext_tpu_torch.ops.state import FIELDS, map_state
+from peritext_tpu_torch.ops.encode import prepare_sorted_batch
+from peritext_tpu_torch.ops.state import FIELDS, map_state, state_from_numpy
 from peritext_tpu_torch.oracle import Doc, accumulate_patches
+from peritext_tpu_torch.parallel.stream import (
+    cohort_for_budget,
+    state_bytes_per_replica,
+    stream_merge_sorted,
+    transient_bytes_per_replica,
+)
 from peritext_tpu_torch.runtime import (
     ChangeLog,
     DocLifecycle,
@@ -200,7 +239,10 @@ from peritext_tpu_torch.runtime import (
 )
 from peritext_tpu_torch.runtime import checkpoint as ckpt
 from peritext_tpu_torch.runtime.serve_shard import ParkedSubmission
-from peritext_tpu_torch.runtime.sync import causal_order
+from peritext_tpu_torch.runtime.sync import apply_changes, causal_order
+from peritext_tpu_torch.schema import allow_multiple_array
+
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 DOC_LEN = 1000
 OPS_PER_ROUND = 64
@@ -235,6 +277,18 @@ WATERMARK_DOCS = 16  # of the EVICTED_DOCS evicted again, those round 3 hydrates
 THREADED_DOCS = 16
 TWINS = 16
 SHARD_DEVICES = None  # None: every visible CUDA device
+# Phase 17, the north-star stream (BASELINE config 5): 100,000 replicas of
+# a 10,000-char document at C = 16384, M = 128, in cohorts of 4,096.
+STREAM_REPLICAS = 100_000
+STREAM_MARKS = 128
+STREAM_COHORT = 4096
+STREAM_CHECK_REPLICAS = 8192  # the resident-equality population
+STREAM_CHECK_COHORT = 3000  # leaves a padded tail at 8192
+STREAM_CLASSES = 4
+# Phase 18, the reference's drivers on TorchDocs on the card.
+FUZZ_ITERS = 40
+SERVE_FUZZ_ITERS = 30
+STATUS_INTERVAL = "0.25"
 
 
 def log(msg: str) -> None:
@@ -1914,6 +1968,370 @@ def phase_sharded(p10: dict) -> dict:
     return {"launches": launches}
 
 
+def meminfo() -> str:
+    """The host's memory from /proc/meminfo (pinned buffers come out of it)."""
+    fields = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields[key] = value.strip()
+    return ", ".join(f"{k} {fields.get(k, 'n/a')}" for k in ("MemTotal", "MemAvailable"))
+
+
+def stream_population() -> dict:
+    """BASELINE config 5's workload: a 10,000-char genesis, 4 writer
+    streams of 64 ops with marks (seed 5), encoded at C = 16384, M = 128 as
+    the stream takes it (``prepare_sorted_batch`` rows)."""
+    wl = make_merge_workload(doc_len=LARGE_DOC_LEN, ops_per_merge=64, num_streams=STREAM_CLASSES,
+                             with_marks=True, seed=5)
+    batch = build_device_batch(wl, STREAM_CLASSES, LARGE_CAPACITY, STREAM_MARKS, device=DEVICE)
+    sp = prepare_sorted_batch([batch["text_ops"][r].cpu().numpy() for r in range(STREAM_CLASSES)])
+    ops = [sum(len(c["ops"]) for c in stream) for stream in wl["streams"]]
+    return {"genesis": state_to_numpy(batch["states"]), "text": sp["text"], "rounds": sp["rounds"],
+            "num_rounds": sp["num_rounds"], "marks": batch["mark_ops"].cpu().numpy(),
+            "ranks": batch["ranks"].cpu().numpy(), "bufs": sp["bufs"], "maxk": sp["maxk"], "ops": ops}
+
+
+def stream_args(pop: dict, lo: int, hi: int) -> tuple:
+    """Population rows [lo, hi): a host broadcast of the genesis state (one
+    replica's bytes, stride 0) and tiled op rows, replica r taking stream
+    r % 4."""
+    pick = np.arange(lo, hi) % STREAM_CLASSES
+    states = {f: np.broadcast_to(a[:1], (hi - lo,) + a.shape[1:]) for f, a in pop["genesis"].items()}
+    return (states, pop["text"][pick], pop["rounds"][pick], pop["num_rounds"], pop["marks"][pick],
+            pop["ranks"], pop["bufs"][pick], pop["maxk"])
+
+
+def stream_sweep(label: str, args: tuple, launches: dict, **kw) -> tuple:
+    """One counted sweep: each kernel launches once a cohort, and the
+    launches join the phase's."""
+    reset_counts()
+    t = time.perf_counter()
+    out, dg, stats = stream_merge_sorted(*args, device=DEVICE, **kw)
+    secs = time.perf_counter() - t
+    want = {"text_phase": stats["n_cohorts"], "mark_phase": stats["n_cohorts"]}
+    if stats["route"] != "kernels" or cuda_kernels.LAUNCHES != want:
+        raise AssertionError(f"[{label}] route {stats['route']}, launches {cuda_kernels.LAUNCHES}, expected {want}")
+    add_launches(launches)
+    return out, dg, stats, secs
+
+
+def stage_line(stats: dict) -> str:
+    """Per-cohort stage times of a sweep: median and max over its cohorts."""
+    parts = []
+    for key, unit, scale in (("stage_s", "ms", 1e3), ("enqueue_s", "ms", 1e3), ("h2d_ms", "ms", 1.0),
+                             ("merge_ms", "ms", 1.0), ("digest_ms", "ms", 1.0), ("d2h_ms", "ms", 1.0),
+                             ("drain_s", "ms", 1e3)):
+        xs = [t[key] * scale for t in stats["timings"]]
+        parts.append(f"{key.rsplit('_', 1)[0]} {statistics.median(xs):.3f}/{max(xs):.3f} {unit}")
+    return "; ".join(parts) + " (median/max a cohort)"
+
+
+def same_rows(label: str, out: dict, lo: int, classes: dict) -> None:
+    """Every row of ``out`` (population rows from ``lo``) equals the
+    resident row of its stream, field by field."""
+    for cls, want in classes.items():
+        rows = slice((cls - lo) % STREAM_CLASSES, None, STREAM_CLASSES)
+        for f in FIELDS:
+            if not (out[f][rows] == want[f]).all():
+                raise AssertionError(f"[{label}] field {f} of stream {cls}'s rows differs from the resident merge")
+
+
+def phase_stream() -> dict:
+    """Phase 17: the north-star population streamed through both kernels."""
+    log(f"phase 17: host memory before pinning: {meminfo()}")
+    t = time.perf_counter()
+    pop = stream_population()
+    launches: dict = {}
+    c, m = LARGE_CAPACITY, STREAM_MARKS
+    per = state_bytes_per_replica(c, m)
+    free, total = torch.cuda.mem_get_info()
+    log(f"  workload: {LARGE_DOC_LEN}-char genesis, {STREAM_CLASSES} streams of {pop['ops']} ops, "
+        f"text rows {pop['text'].shape[1]}, mark rows {pop['marks'].shape[1]}, sorted rounds "
+        f"{pop['num_rounds']}; built in {time.perf_counter() - t:.1f} s")
+    log(f"  state {per:,} B a replica; {STREAM_REPLICAS:,} replicas = {STREAM_REPLICAS * per / 1e9:.2f} GB "
+        f"against the card's {total / 1e9:.2f} GB ({free / 1e9:.2f} GB free); cohort_for_budget(free, "
+        f"depth 2) = {cohort_for_budget(c, m, pop['text'].shape[1], hbm_bytes=free, depth=2)}, "
+        f"depth 1 = {cohort_for_budget(c, m, pop['text'].shape[1], hbm_bytes=free, depth=1)}; "
+        f"the sweeps use {STREAM_COHORT}")
+
+    # The resident reference: one merge_step_full plus the digest over the
+    # STREAM_CHECK_REPLICAS population, which fits on the card.
+    r = STREAM_CHECK_REPLICAS
+    args = stream_args(pop, 0, r)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    ranks_d = to(pop["ranks"])
+    st = state_from_numpy(args[0], device=DEVICE)
+    resident = cuda_kernels.merge_step_full(st, to(args[1]), to(args[4]), ranks_d, to(args[6]))
+    multi = to(allow_multiple_array())
+    res_dg = K.convergence_digest(resident, ranks_d, multi).cpu().numpy().astype(np.uint32)
+    res_host = state_to_numpy(resident)
+    del st, resident
+    if not (res_dg == res_dg[np.arange(r) % STREAM_CLASSES]).all() or np.unique(res_dg).size != STREAM_CLASSES:
+        raise AssertionError(f"[phase 17] resident digests do not follow the {STREAM_CLASSES} streams")
+    classes = {cls: {f: res_host[f][cls].copy() for f in FIELDS} for cls in range(STREAM_CLASSES)}
+
+    # The kernels against their plain versions at the stream's inputs: rows
+    # of one stream have the same inputs, so one replica a stream suffices.
+    t = time.perf_counter()
+    few = stream_args(pop, 0, STREAM_CLASSES)
+    plain = K.merge_step_plain(state_from_numpy(few[0], device=DEVICE), to(few[1]), to(few[4]), ranks_d,
+                               to(few[6]))
+    plain_dg = K.convergence_digest(plain, ranks_d, multi).cpu().numpy().astype(np.uint32)
+    plain_host = state_to_numpy(plain)
+    del plain
+    if not np.array_equal(plain_dg, res_dg[:STREAM_CLASSES]):
+        raise AssertionError(f"[phase 17] resident digests {res_dg[:STREAM_CLASSES]} differ from merge_step_plain's "
+                             f"{plain_dg}")
+    for cls, want in classes.items():
+        for f in FIELDS:
+            if plain_host[f].dtype != want[f].dtype or not np.array_equal(plain_host[f][cls], want[f]):
+                raise AssertionError(f"[phase 17] field {f} of stream {cls}: the resident kernel merge differs "
+                                     "from merge_step_plain")
+    log(f"  the resident kernel merge of {r} replicas equals merge_step_plain (one replica a stream) on all "
+        f"{len(FIELDS)} fields and the digests, byte for byte; {time.perf_counter() - t:.2f} s")
+    reset_counts()
+    torch.cuda.empty_cache()
+
+    # Resident equality at r replicas, a padded tail, depth 1 and 2; the
+    # depth-2 sweep runs traced and every cohort lane must end.
+    trace = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_stream_"), "trace.jsonl")
+    for depth in (1, 2):
+        if depth == 2:
+            telemetry.reset()
+            telemetry.enable(trace=trace)
+        out, dg, stats, secs = stream_sweep("phase 17", args, launches, cohort=STREAM_CHECK_COHORT, depth=depth)
+        if depth == 2:
+            telemetry.flush_trace()
+            telemetry.reset()
+        if not stats["padded_tail"] or not (dg == res_dg).all():
+            raise AssertionError(f"[phase 17] depth {depth}: digests differ from the resident merge")
+        for f in FIELDS:
+            if out[f].dtype != res_host[f].dtype or not np.array_equal(out[f], res_host[f]):
+                raise AssertionError(f"[phase 17] depth {depth}: field {f} differs from the resident merge")
+        log(f"  {r} replicas, cohort {STREAM_CHECK_COHORT}, depth {depth}: {stats['n_cohorts']} cohorts, "
+            f"states and digests byte-equal to the resident merge_step_full; {secs:.2f} s")
+        del out
+    del res_host
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "trace_report.py"), trace],
+                          capture_output=True, text=True, timeout=120)
+    summary = (proc.stdout.strip().splitlines() or [""])[-1]
+    if proc.returncode != 0 or "problems=0" not in proc.stdout:
+        raise AssertionError(f"[phase 17] trace_report rc {proc.returncode}: {proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    log(f"  traced depth-2 sweep: trace_report rc 0, {summary}")
+
+    # Which calls wait on the host during a sweep (three cohorts, depth 2).
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        stream_sweep("phase 17", stream_args(pop, 0, 3 * STREAM_COHORT), launches, cohort=STREAM_COHORT,
+                     depth=2, readback_states=False)
+    waits = {e.key: e.count for e in prof.key_averages()
+             if any(w in e.key for w in ("Synchronize", "aten::item", "_local_scalar_dense", "aten::nonzero",
+                                         "aten::unique", "cudaMemcpy("))}
+    log(f"  host waits in a 3-cohort depth-2 sweep (torch.profiler, calls): {waits}")
+
+    # The full population, digests only: depth 2 and depth 1 in turns.
+    full = stream_args(pop, 0, STREAM_REPLICAS)
+    ops = int(np.asarray(pop["ops"])[np.arange(STREAM_REPLICAS) % STREAM_CLASSES].sum())
+    walls = {1: [], 2: []}
+    for depth in (2, 1, 1, 2):
+        torch.cuda.reset_peak_memory_stats()
+        _, dg, stats, secs = stream_sweep("phase 17", full, launches, cohort=STREAM_COHORT, depth=depth,
+                                          readback_states=False)
+        peak = torch.cuda.max_memory_allocated()
+        want = res_dg[np.arange(STREAM_REPLICAS) % STREAM_CLASSES]
+        if stats["n_cohorts"] != -(-STREAM_REPLICAS // STREAM_COHORT) or not stats["padded_tail"]:
+            raise AssertionError(f"[phase 17] cohorts {stats}")
+        if np.unique(dg).size != STREAM_CLASSES or not (dg == want).all():
+            raise AssertionError(f"[phase 17] depth {depth}: {np.unique(dg).size} distinct digests, or a "
+                                 "replica's digest differs from its stream's resident digest")
+        walls[depth].append(secs)
+        est = STREAM_COHORT * (per + transient_bytes_per_replica(c, m, pop["text"].shape[1]))
+        log(f"  {STREAM_REPLICAS:,} replicas, depth {depth}: {stats['n_cohorts']} cohorts (tail "
+            f"{STREAM_REPLICAS % STREAM_COHORT} padded to {STREAM_COHORT}), {np.unique(dg).size} distinct digests, "
+            f"each replica's equal to its stream's resident digest; sweep {secs:.3f} s, "
+            f"{ops / secs:,.0f} merged ops/s (BASELINE's target: <1 s for 100k 10k-char replicas; no claim)")
+        log(f"    {stage_line(stats)}")
+        log(f"    peak device memory {peak / 2**30:.3f} GiB, {peak / depth / 2**30:.3f} GiB a slot; estimate a slot "
+            f"(cohort x (state + the sorted merge's transients)) {est / 2**30:.3f} GiB, state alone "
+            f"{STREAM_COHORT * per / 2**30:.3f} GiB")
+    log(f"  depth 1 against depth 2 on {STREAM_REPLICAS:,} replicas (in turns 2, 1, 1, 2): depth 1 "
+        f"{', '.join(f'{w:.3f}' for w in walls[1])} s, depth 2 {', '.join(f'{w:.3f}' for w in walls[2])} s")
+
+    # State readback of the first cohort, and of the last two (the second
+    # is the padded tail: a sweep of fewer rows than a cohort would shrink
+    # its cohort instead of padding it).
+    tail = STREAM_REPLICAS // STREAM_COHORT * STREAM_COHORT
+    for lo, hi in ((0, STREAM_COHORT), (tail - STREAM_COHORT, STREAM_REPLICAS)):
+        out, dg, stats, secs = stream_sweep("phase 17", stream_args(pop, lo, hi), launches,
+                                            cohort=STREAM_COHORT, depth=2)
+        same_rows("phase 17", out, lo, classes)
+        padded = (hi - lo) % STREAM_COHORT != 0
+        if not (dg == res_dg[np.arange(lo, hi) % STREAM_CLASSES]).all() or stats["padded_tail"] != padded:
+            raise AssertionError(f"[phase 17] readback of rows {lo}:{hi}: digests or padding wrong")
+        log(f"  readback of rows {lo}:{hi} ({stats['n_cohorts']} cohorts"
+            f"{', the last a padded tail' if padded else ''}): states equal to the resident rows; {secs:.2f} s")
+        del out
+    log(f"  phase 17 kernel launches (the stream's sweeps): {launches}")
+    return {"launches": launches}
+
+
+def card_doc(actor: str) -> TorchDoc:
+    return TorchDoc(actor, device=DEVICE)
+
+
+def mixed_docs():
+    engines = iter([card_doc, Doc, card_doc, Doc])
+    return lambda actor: next(engines)(actor)
+
+
+def status_leg(label: str, tmp: str, run) -> None:
+    """One leg under the status surface (armed as ``PERITEXT_STATUS`` and
+    ``PERITEXT_METRICS_INTERVAL`` arm it at import), then rendered by
+    ``scripts/ops_top.py --once``."""
+    path = os.path.join(tmp, f"{label}.status.json")
+    telemetry.reset()
+    telemetry.enable(status_path=path, metrics_interval=float(STATUS_INTERVAL))
+    t = time.perf_counter()
+    try:
+        detail = run()
+        telemetry.dump_status()
+    finally:
+        telemetry.reset()
+    secs = time.perf_counter() - t
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "ops_top.py"), path, "--once"],
+                          capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0:
+        raise AssertionError(f"[phase 18 {label}] ops_top rc {proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"  [{label}] {detail}; {secs:.1f} s; ops_top --once rc 0")
+
+
+def fuzz_leg(**kw) -> str:
+    out = fuzz(**kw)
+    docs = [d for d in out["docs"] if isinstance(d, TorchDoc)]
+    if not docs or any(d._uni.device.type != torch.device(DEVICE).type for d in docs):
+        raise AssertionError(f"[phase 18] the fuzz's TorchDocs are not on {DEVICE}: {out['docs']}")
+    extra = ""
+    if out["serve_stats"]:
+        extra += f", {out['serve_stats'].get('flushes', 0)} flushes"
+    if out["migrate_stats"]:
+        extra += f", migrations {out['migrate_stats']}"
+    if out["evict_stats"]:
+        extra += f", evictions {out['evict_stats']['evictions']} hydrations {out['evict_stats']['lifecycle']['hydrations']}"
+    return f"{out['iterations']} iterations, final length {sum(len(s['text']) for s in out['final_spans'])}{extra}"
+
+
+def bridge_script(rng, net, n: int) -> None:
+    """``n`` random editor commands, a manual sync every 4."""
+    names = sorted(net.editors)
+    for k in range(n):
+        editor = net[rng.choice(names)]
+        length = len(editor.text())
+        kind = rng.choice(["insert", "insert", "delete", "bold", "link", "comment"])
+        a = rng.randrange(length) if length else 0
+        b = min(length, a + 1 + rng.randrange(4))
+        if kind == "insert" or length < 2:
+            editor.insert(a, rng.choice(["x", "yz", "hello "]))
+        elif kind == "delete":
+            editor.delete(a, b - a)
+        elif kind == "bold":
+            editor.toggle_mark(a, b, "strong")
+        elif kind == "link":
+            editor.add_link(a, b, f"{rng.choice('abc')}.example")
+        else:
+            editor.add_comment(a, b, "note")
+        if k % 4 == 3:
+            net.sync_all()
+
+
+def bridge_leg() -> str:
+    """Three editors on card TorchDocs against oracle twins: manual sync,
+    then interval-driven delivery on the queues' timer threads."""
+    import random as _random
+
+    actors = ["alice", "bob", "carol"]
+    nets = {"card": EditorNetwork(actors, initial_text="a shared note", doc_factory=card_doc),
+            "oracle": EditorNetwork(actors, initial_text="a shared note")}
+    for net in nets.values():
+        _random.seed(17)
+        bridge_script(_random.Random(5), net, 24)
+        net.sync_all()
+    for a in actors:
+        if nets["card"][a].spans() != nets["oracle"][a].spans() or nets["card"][a].text() != nets["oracle"][a].text():
+            raise AssertionError(f"[phase 18 bridge] manual: {a}'s spans differ from its oracle twin's")
+    # Interval-driven: the queues' timer threads deliver while the editors
+    # type; each editor must end on the spans of an oracle twin that
+    # ingests every change the editors made.
+    card = nets["card"]
+    card.start_all()
+    try:
+        for i, a in enumerate(actors):
+            card[a].insert(i, f"[{a}]")
+        card["bob"].toggle_mark(0, 5, "em")
+        deadline = time.monotonic() + 60.0
+        while not card.converged() and time.monotonic() < deadline:
+            time.sleep(0.05)
+    finally:
+        card.stop_all()
+    card.sync_all()
+    changes = [card.genesis] + [c for a in actors for c in card[a].change_log]
+    for a in actors:
+        twin = Doc(a)
+        apply_changes(twin, changes)
+        if card[a].spans() != twin.get_text_with_formatting(["text"]):
+            raise AssertionError(f"[phase 18 bridge] interval-driven: {a}'s spans differ from its oracle twin's")
+    return f"3 editors, manual then interval-driven, {len(card['alice'].text())} chars, spans equal to oracle twins"
+
+
+def phase_drivers() -> dict:
+    """Phase 18: the reference's host-side drivers on TorchDocs on the card."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+    t0 = time.perf_counter()
+    reset_counts()
+    status_leg("fuzz torch", tmp, lambda: fuzz_leg(iterations=FUZZ_ITERS, seed=1, doc_factory=card_doc))
+    status_leg("fuzz mixed chaos", tmp, lambda: fuzz_leg(
+        iterations=FUZZ_ITERS, seed=2, doc_factory=mixed_docs(), chaos=DEFAULT_CHAOS_SPEC))
+    status_leg("fuzz serve", tmp, lambda: fuzz_leg(
+        iterations=SERVE_FUZZ_ITERS, seed=3, doc_factory=card_doc, serve=True, chaos=DEFAULT_CHAOS_SPEC,
+        device=DEVICE))
+    status_leg("fuzz sharded", tmp, lambda: fuzz_leg(
+        iterations=SERVE_FUZZ_ITERS, seed=4, doc_factory=card_doc, serve=True, serve_shards=4,
+        migrate_every=3, evict_every=4, chaos=DEFAULT_CHAOS_SPEC, device=DEVICE))
+
+    def replay_leg() -> str:
+        queues = replay.load_trace(os.path.join(REPO, "traces", "fail-seed3.json"))["queues"]
+        spans = replay.assert_replay_converges(queues, card_doc)
+        if spans != replay.assert_replay_converges(queues):
+            raise AssertionError("[phase 18 replay] the card's replay differs from the oracle's")
+        return f"traces/fail-seed3.json: {sum(map(len, queues.values()))} changes, 3 TorchDocs converge to the oracle's spans"
+
+    status_leg("replay", tmp, replay_leg)
+    status_leg("bridge", tmp, bridge_leg)
+
+    # The CLI, with the status surface armed from the environment.
+    path = os.path.join(tmp, "cli.status.json")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "peritext_tpu_torch.fuzz", str(FUZZ_ITERS), "5", "--engine", "torch",
+         "--device", DEVICE, "--report-every", "0", "--trace-dir", tmp],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PERITEXT_STATUS=path, PERITEXT_METRICS_INTERVAL=STATUS_INTERVAL),
+    )
+    if proc.returncode != 0 or f"ok: {FUZZ_ITERS} iterations" not in proc.stdout:
+        raise AssertionError(f"[phase 18 cli] rc {proc.returncode}: {proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    top = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "ops_top.py"), path, "--once"],
+                         capture_output=True, text=True, timeout=60)
+    if top.returncode != 0:
+        raise AssertionError(f"[phase 18 cli] ops_top rc {top.returncode}: {top.stderr[-2000:]}")
+    log(f"  [cli] python -m peritext_tpu_torch.fuzz {FUZZ_ITERS} 5 --engine torch --device {DEVICE} under "
+        f"PERITEXT_STATUS: {proc.stdout.strip().splitlines()[-1]}; {time.perf_counter() - t:.1f} s; "
+        "ops_top --once rc 0")
+    launches = dict(cuda_kernels.LAUNCHES)
+    reset_counts()
+    log(f"phase 18 took {time.perf_counter() - t0:.1f} s; kernel launches {launches}")
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1997,12 +2415,20 @@ def main() -> int:
         sharded = phase_sharded(serving)
     log_peak("phase 16")
     log(f"phase 16 took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    with resilience("phase 17"):
+        streamed = phase_stream()
+    log_peak("phase 17")
+    log(f"phase 17 took {time.perf_counter() - t:.1f} s")
+    with resilience("phase 18"):
+        drivers = phase_drivers()
+    log_peak("phase 18")
     runs = (main, past, sorted_run, window, serving, resilient, patched_sorted, patched_window, served_sorted,
-            capacity, sharded)
+            capacity, sharded, streamed, drivers)
     launches = {name: sum(run["launches"].get(name, 0) for run in runs) for name in results}
-    log("phase 17: resilience counts (launch_retries, fastfails, degraded_batches) per phase and leg: " + "; ".join(
+    log("phase 19: resilience counts (launch_retries, fastfails, degraded_batches) per phase and leg: " + "; ".join(
         f"{lbl} {got['launch_retries']}/{got['fastfails']}/{got['degraded_batches']}" for lbl, got in PHASE_TALLIES))
-    log(f"  kernel launches summed over phases 4, 5 and 8-16: {launches}; the script so far "
+    log(f"  kernel launches summed over phases 4, 5 and 8-18: {launches}; the script so far "
         f"{time.perf_counter() - started:.1f} s")
 
     replaces = {

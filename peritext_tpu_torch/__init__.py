@@ -20,6 +20,10 @@ policy; ``runtime/`` holds the serving plane (``ServePlane``) and its
 sharded tier (``ShardedServePlane`` with doc groups over pub/sub, live
 migration and the autoscaler, the ``DocLifecycle`` evict/hydrate cache),
 the fault, health, SLO and telemetry planes, change logs and checkpoints.
+``parallel.stream_merge_sorted`` streams a replica population larger
+than the card in cohorts through both kernels; ``testing``, ``replay``,
+``bridge`` and ``fuzz`` are the JAX package's host-side drivers over the
+port's engines.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``devices=["cpu"]`` for the sharded plane); without a GPU they raise.
 """

@@ -1,8 +1,8 @@
 """Merge workloads for the port, generated with the port's own oracle.
 
-``make_merge_workload`` and its op generators are copies of the JAX
-package's (``peritext_tpu/bench/workloads.py`` and ``peritext_tpu/fuzz.py``):
-the same seed gives the same changes.  ``make_writer_rounds`` extends the
+``make_merge_workload`` is a copy of the JAX package's
+(``peritext_tpu/bench/workloads.py``) over the op generators of the port's
+``fuzz`` module: the same seed gives the same changes.  ``make_writer_rounds`` extends the
 same generator to chained rounds, ``build_device_batch`` encodes a
 workload into the stacked device batch the merge kernels take, and
 ``doc_session`` drives live document replicas through random edits, each
@@ -13,7 +13,6 @@ for the oracle's O(n) index walks to author quickly (past 16k chars).
 from __future__ import annotations
 
 import copy
-import math
 import random
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -21,6 +20,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from peritext_tpu_torch.fuzz import _random_add_mark, _random_delete, _random_insert, _text_len
 from peritext_tpu_torch.ids import ActorRegistry
 from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops.encode import (
@@ -34,58 +34,6 @@ from peritext_tpu_torch.ops.encode import (
 )
 from peritext_tpu_torch.ops.state import make_empty_state, map_state
 from peritext_tpu_torch.oracle import Doc, accumulate_patches
-
-MARK_TYPES = ["strong", "em", "link", "comment"]
-EXAMPLE_URLS = [f"{c}.com" for c in "ABCDEFGHIJKLMNOPQRSTUVWXYZ"]
-
-
-def _text_len(doc: Any) -> int:
-    """Visible length of the list at path ["text"] (robust to the root
-    'text' key being LWW-overwritten with a plain value)."""
-    t = doc.root.get("text")
-    if isinstance(t, list):
-        return len(t)
-    return sum(len(s["text"]) for s in doc.get_text_with_formatting(["text"]))
-
-
-def _random_add_mark(rng: random.Random, doc: Doc, comment_history: List[str]) -> Dict[str, Any]:
-    length = _text_len(doc)
-    start = rng.randrange(length)
-    end = start + rng.randrange(length - start) + 1
-    mark_type = rng.choice(MARK_TYPES)
-    op: Dict[str, Any] = {
-        "path": ["text"],
-        "action": "addMark",
-        "startIndex": start,
-        "endIndex": end,
-        "markType": mark_type,
-    }
-    if mark_type == "link":
-        op["attrs"] = {"url": rng.choice(EXAMPLE_URLS)}
-    elif mark_type == "comment":
-        comment_id = f"comment-{rng.randrange(1 << 16):04x}"
-        comment_history.append(comment_id)
-        op["attrs"] = {"id": comment_id}
-    return op
-
-
-def _random_insert(rng: random.Random, doc: Doc, max_chars: int) -> Optional[Dict[str, Any]]:
-    length = _text_len(doc)
-    index = rng.randrange(length) if length else 0
-    num = rng.randrange(max_chars)
-    values = [rng.choice("0123456789abcdef") for _ in range(num)]
-    return {"path": ["text"], "action": "insert", "index": index, "values": values}
-
-
-def _random_delete(rng: random.Random, doc: Doc) -> Optional[Dict[str, Any]]:
-    length = _text_len(doc)
-    # The reference fuzzer's bounds (fuzz.ts:128-129): never the whole doc.
-    index = rng.randrange(length) + 1
-    count = math.ceil(rng.random() * (length - index))
-    if count <= 0:
-        return None
-    return {"path": ["text"], "action": "delete", "index": index, "count": count}
-
 
 def _writer_changes(
     rng: random.Random, writer: Doc, op_budget: int, with_marks: bool

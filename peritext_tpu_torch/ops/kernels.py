@@ -299,18 +299,20 @@ _TABLE_FIELDS = (
 def append_mark_table(states: DocState, mark_ops: torch.Tensor) -> DocState:
     """Append each replica's mark rows to its mark table: entry = mark_count
     + rank of the row among the batch's mark rows.  Rows past the table
-    drop, as the JAX scatter's out-of-bounds writes do."""
+    drop, as the JAX scatter's out-of-bounds writes do: they (and the
+    batch's other rows) scatter into one spare column past the table,
+    which is cut off, so the append never waits on the host."""
+    m = states.max_mark_ops
     is_mark = mark_ops[:, :, K_KIND] == KIND_MARK  # [R, L]
     order = torch.cumsum(is_mark.to(torch.int32), dim=1) - 1
     idx = states.mark_count[:, None] + order
-    ok = is_mark & (idx < states.max_mark_ops)
-    rr, ll = ok.nonzero(as_tuple=True)
-    cols = idx[rr, ll].long()
+    cols = torch.where(is_mark & (idx < m), idx, m).long()
+    spare = torch.zeros_like(states.mark_ctr[:, :1])
     updates = {}
     for name, field in _TABLE_FIELDS:
-        col = getattr(states, name).clone()
-        col[rr, cols] = mark_ops[rr, ll, field]
-        updates[name] = col
+        col = torch.cat([getattr(states, name), spare], dim=1)
+        col.scatter_(1, cols, mark_ops[:, :, field])
+        updates[name] = col[:, :m].contiguous()
     updates["mark_count"] = (states.mark_count + is_mark.sum(dim=1)).to(torch.int32)
     return dataclasses.replace(states, **updates)
 
@@ -964,15 +966,22 @@ def resolve_winners(
     dominators with a [M, M] matmul; dominance within a group is a total
     order on unique op ids, so here the winner is the present op whose key
     equals its group's maximum: a scatter-max over M' columns instead of
-    an M'^2 product, with the same result."""
+    an M'^2 product over every element, with the same result.  A column's
+    group label is where its group key's run starts in the replica's
+    sorted keys, so nothing here waits on the host."""
     mp = present.shape[-1]
     mtype = states.mark_type[:, :mp].long()
     attr = states.mark_attr[:, :mp].long()
     is_multi = multi.to(torch.bool)[mtype.clamp(0, multi.shape[0] - 1)]
-    n_attr = int(attr.max().item()) + 2 if attr.numel() else 1
-    gkey = mtype * n_attr + torch.where(is_multi, attr + 1, 0)
-    _, group = torch.unique(gkey, return_inverse=True)  # [R, M']
-    n_groups = int(group.max().item()) + 1 if group.numel() else 1
+    # attr >= -1 is int32, so (type, attr + 1) packs into one int64 key.
+    gkey = (mtype << 32) + torch.where(is_multi, attr + 1, 0)
+    skey, order = torch.sort(gkey, dim=1)
+    pos = torch.arange(mp, device=present.device).expand_as(skey)
+    run_start = torch.ones_like(skey, dtype=torch.bool)
+    run_start[:, 1:] = skey[:, 1:] != skey[:, :-1]
+    start = torch.cummax(torch.where(run_start, pos, 0), dim=1).values
+    group = torch.empty_like(order).scatter_(1, order, start)  # [R, M']
+    n_groups = max(mp, 1)
     rank = _gather_clamped(ranks, states.mark_act[:, :mp].reshape(-1)).reshape(mtype.shape)
     key = states.mark_ctr[:, :mp].long() * (ranks.shape[0] + 1) + rank.long()
     m_live = torch.arange(mp, device=present.device)[None, :] < states.mark_count[:, None]
@@ -984,33 +993,40 @@ def resolve_winners(
     return cand & (torch.gather(best, 2, idx) == key[:, None, :])
 
 
-def _mulmod32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a * b) mod 2**32 for int64 tensors holding uint32 values, without
-    int64 overflow."""
+def _mulmod32(a: torch.Tensor, b) -> torch.Tensor:
+    """(a * b) mod 2**32 for int64 tensors (or, for ``b``, Python ints)
+    holding uint32 values, without int64 overflow.  A constant stays a
+    Python int: a device tensor made from one would wait on the host."""
     lo = a * (b & 0xFFFF)
     hi = ((a * (b >> 16)) & 0xFFFF) << 16
     return (lo + hi) & _U32
 
 
 def convergence_digest(
-    states: DocState, ranks: torch.Tensor, multi: torch.Tensor, chunk_elems: int = 1 << 24
+    states: DocState, ranks: torch.Tensor, multi: torch.Tensor, chunk_elems: int = 1 << 24,
+    mark_cols: Optional[int] = None,
 ) -> torch.Tensor:
     """Order-sensitive checksum of each replica's visible text + resolved
     marks (``kernels.convergence_digest``), as uint32 values in an int64
     tensor [R].  uint32 wraparound is reproduced by computing in int64 and
     masking with ``& 0xFFFFFFFF`` after every product and sum.  Replicas
     go through in chunks of at most ``chunk_elems`` [C, M'] entries, and
-    only the table's used columns (M' = max mark_count) are expanded."""
+    only the table's used columns are expanded: M' is ``mark_cols`` (any
+    bound on every replica's ``mark_count`` the caller knows from its
+    inputs; the digest is the same for every bound, and the call then
+    never waits on the host), else the largest ``mark_count``, read back."""
     r, c = states.elem_ctr.shape
     dev = states.elem_ctr.device
     ar = torch.arange(c, device=dev)[None, :]
     live = ((ar < states.length[:, None]) & ~states.deleted).to(torch.int64)
     vis_rank = torch.cumsum(live, dim=1) - live  # 0-based visible index
     chars = states.chars.to(torch.int64) & _U32
-    char_term = ((_mulmod32(chars, torch.tensor(2654435761, device=dev)) + vis_rank) & _U32) * live
+    char_term = ((_mulmod32(chars, 2654435761) + vis_rank) & _U32) * live
     char_mix = char_term.sum(dim=1) & _U32
 
-    mp = min(max(int(states.mark_count.max().item()) if r else 0, 1), states.max_mark_ops)
+    if mark_cols is None:
+        mark_cols = int(states.mark_count.max().item()) if r else 0
+    mp = min(max(mark_cols, 1), states.max_mark_ops)
     mp = -(-mp // MASK_WORD_BITS) * MASK_WORD_BITS
     mark_value = (
         states.mark_type.to(torch.int64) * 1000003
@@ -1030,5 +1046,5 @@ def convergence_digest(
         factor = (vis_rank[lo : lo + step] * 31 + 7) & _U32
         term = _mulmod32(per_elem, factor) * live[lo : lo + step]
         mark_mix[lo : lo + step] = term.sum(dim=1) & _U32
-    return (2166136261 ^ char_mix ^ _mulmod32(mark_mix, torch.tensor(31, device=dev))) & _U32
+    return (2166136261 ^ char_mix ^ _mulmod32(mark_mix, 31)) & _U32
 

@@ -1,4 +1,4 @@
-"""Host runtime of the PyTorch port: causal ordering, the chaos, health,
+"""Host runtime of the PyTorch port: causal ordering and anti-entropy sync, the chaos, health,
 SLO and telemetry planes, queues, change logs, pub/sub, the serving plane
 and its sharded tier (live migration and the autoscaler, the document
 lifecycle).
@@ -24,13 +24,21 @@ from peritext_tpu_torch.runtime.serve import (
 )
 from peritext_tpu_torch.runtime.serve_shard import ShardedServePlane, ShardSession
 from peritext_tpu_torch.runtime.slo import SloObjective, SloPlan
-from peritext_tpu_torch.runtime.sync import causal_order
+from peritext_tpu_torch.runtime.sync import (
+    ConvergenceError,
+    apply_available,
+    apply_changes,
+    causal_order,
+    causal_sort,
+    sync_pair,
+)
 
 __all__ = [
     "BreakerOpenError",
     "ChangeLog",
     "ChangeQueue",
     "CircuitBreaker",
+    "ConvergenceError",
     "DocLifecycle",
     "ElasticController",
     "FaultError",
@@ -47,10 +55,14 @@ __all__ = [
     "SloObjective",
     "SloPlan",
     "Submission",
+    "apply_available",
+    "apply_changes",
     "causal_order",
+    "causal_sort",
     "faults",
     "health",
     "migrate_session",
     "slo",
+    "sync_pair",
     "telemetry",
 ]

@@ -1,18 +1,121 @@
-"""Causal delivery order for batched ingest.
+"""Anti-entropy synchronization between replicas.
 
-Reference: test/merge.ts:4-23 (the applyChanges retry loop).  The batched
-engine orders a change batch up front with :func:`causal_order`, so one
-device launch applies it with no retries, in exactly the order the
-reference's retry queue would.  A copy of the JAX package's ordering walk
-(``peritext_tpu.runtime.sync``) without its telemetry spans, so the port
-imports nothing of that package.
+Reference: test/merge.ts:4-23 (applyChanges retry loop) and 25-38
+(getMissingChanges).  The reference tolerates out-of-order delivery by
+retrying causally-unready changes in a queue with a divergence guard
+(:func:`apply_available`, :func:`apply_changes`); :func:`causal_order` and
+:func:`causal_sort` order a batch up front so the batched engine applies
+it in one device launch with no retries.  A copy of the JAX package's
+``peritext_tpu.runtime.sync``, its spans and counters included
+(``sync.apply``, ``sync.deferred``, through the port's telemetry), so the
+port imports nothing of that package.
 """
 from __future__ import annotations
 
 import heapq
+from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from peritext_tpu_torch.runtime import telemetry
+
 Change = Dict[str, Any]
+
+
+class ConvergenceError(RuntimeError):
+    """``apply_changes`` could not drain its queue: some changes' causal
+    dependencies never arrived (or duplicates/forks kept being rejected).
+
+    Carries the still-pending changes (``pending``) and their ``(actor,
+    seq)`` ids (``pending_ids``) so chaos-test triage can see exactly which
+    deliveries went missing instead of a bare "did not converge".
+    """
+
+    def __init__(self, pending: Sequence[Change]):
+        self.pending = list(pending)
+        self.pending_ids = [(c["actor"], c["seq"]) for c in self.pending]
+        ids = ", ".join(f"{a}@{s}" for a, s in self.pending_ids[:8])
+        if len(self.pending_ids) > 8:
+            ids += f", ... ({len(self.pending_ids) - 8} more)"
+        actors = len({a for a, _ in self.pending_ids})
+        super().__init__(
+            f"apply_changes did not converge; {len(self.pending)} pending "
+            f"(actor, seq) id(s) across {actors} actor(s): [{ids}]"
+        )
+
+
+def apply_available(
+    doc: Any, changes: Sequence[Change]
+) -> tuple[List[Dict[str, Any]], List[Change]]:
+    """Apply every causally-ready change; return (patches, still_pending).
+
+    The retry-queue core shared by :func:`apply_changes` and gap-tolerant
+    consumers (the Editor's delivery buffer, chaos fuzzing): unready changes
+    rotate to the back (reference test/merge.ts:4-23) until a full rotation
+    makes no progress, and the unapplied remainder comes back to the caller
+    instead of raising.  Already-seen changes (duplicated deliveries) drop
+    idempotently — the same rule as the batched engine's causal gate — so a
+    retry buffer fed duplicates cannot grow without bound.
+    """
+    pending = deque(changes)
+    patches: List[Dict[str, Any]] = []
+    stuck = 0
+    # Causal-flow seam: the retry-queue walk runs inside a span so any lane
+    # scoped onto this thread (a pubsub delivery, a queue flush) steps
+    # through it — this is where a chaotically-delivered change either
+    # applies or defers, exactly the fate a per-change trace must show.
+    with telemetry.span("sync.apply", changes=len(pending)):
+        if telemetry.enabled:
+            telemetry.flow_steps()
+        while pending:
+            change = pending.popleft()
+            if change["seq"] <= doc.clock.get(change["actor"], 0):
+                continue  # duplicate delivery: already applied
+            try:
+                patches.extend(doc.apply_change(change))
+                stuck = 0
+            except ValueError:
+                pending.append(change)
+                stuck += 1
+                if stuck >= len(pending):
+                    break
+            except Exception as exc:
+                # Non-causal failure mid-batch (backend error, malformed
+                # change): earlier changes DID apply and their patches must not
+                # be lost, but a function cannot both return and raise — tag the
+                # exception with the partial progress so consumers with retry
+                # buffers (the Editor) can keep it, and put the failing change
+                # back at the front for redelivery-free retry.
+                pending.appendleft(change)
+                exc.applied_patches = patches  # type: ignore[attr-defined]
+                exc.unapplied = list(pending)  # type: ignore[attr-defined]
+                raise
+        if pending and telemetry.enabled:
+            # Chaotic-delivery accounting: how many causally-unready changes
+            # each gap-tolerant pass handed back (allow_gaps consumers leave
+            # them for a later anti-entropy redelivery).
+            telemetry.counter("sync.deferred", len(pending))
+            telemetry.record("sync.defer", outcome="deferred", count=len(pending))
+            telemetry.flow_steps(deferred=len(pending))
+    return patches, list(pending)
+
+
+def apply_changes(
+    doc: Any, changes: Sequence[Change], allow_gaps: bool = False
+) -> List[Dict[str, Any]]:
+    """Apply changes tolerating causal gaps, retrying until convergence.
+
+    Reference test/merge.ts:4-23: unready changes rotate to the back of the
+    queue.  Divergence (a full rotation with no progress — genuinely
+    missing dependencies) raises :class:`ConvergenceError` carrying the
+    still-pending changes.  With ``allow_gaps`` (chaotic-delivery mode:
+    drops/dups/reorders are expected and a later anti-entropy sync
+    redelivers), the undeliverable remainder is silently left unapplied
+    instead.
+    """
+    patches, pending = apply_available(doc, changes)
+    if pending and not allow_gaps:
+        raise ConvergenceError(pending)
+    return patches
 
 
 def _is_ready(change: Change, clock: Dict[str, int]) -> bool:
@@ -126,3 +229,38 @@ def causal_order(changes: Sequence[Change], clock: Dict[str, int] | None = None)
             f"causal_order: {leftover} changes have unsatisfiable dependencies"
         )
     return ordered
+
+
+def causal_sort(changes: Sequence[Change], clock: Dict[str, int] | None = None) -> List[Change]:
+    """Order a batch of changes so each one's causal dependencies precede it.
+
+    Kahn's algorithm over the (actor seq-chain + deps) DAG, seeded with the
+    receiving replica's current ``clock``.  Ties broken by (startOp, actor)
+    for determinism.  Raises ``ValueError`` if the batch has unsatisfiable
+    dependencies — the batched-engine analog of the reference's
+    causal-readiness throw (micromerge.ts:501-509).  The frontier walk is
+    the shared :func:`_retry_queue_order` over the sorted positions, so the
+    emission order is byte-identical to the repeated-pass formulation at
+    O(n + e) instead of O(n * passes).
+    """
+    clock = dict(clock or {})
+    items = sorted(changes, key=lambda c: (c["startOp"], c["actor"], c["seq"]))
+    ordered, leftover = _retry_queue_order(items, clock)
+    if leftover:
+        raise ValueError(
+            f"causal_sort: {leftover} changes have unsatisfiable dependencies"
+        )
+    return ordered
+
+
+def sync_pair(log: Any, left: Any, right: Any) -> tuple[list, list]:
+    """Anti-entropy sync between two replicas through a shared change log.
+
+    Returns (patches applied to left, patches applied to right).  This is the
+    reference fuzzer's sync step (fuzz.ts:181-202).
+    """
+    to_right = log.missing_changes(left.clock, right.clock)
+    to_left = log.missing_changes(right.clock, left.clock)
+    right_patches = apply_changes(right, to_right)
+    left_patches = apply_changes(left, to_left)
+    return left_patches, right_patches

@@ -66,8 +66,9 @@ reports through:
   blocks (via :func:`register_status_source`), windowed-merge engagement,
   per-SLO compliance/burn, and sampler verdicts.
 
-The JAX package's periodic metrics flusher and its status file
-(``PERITEXT_STATUS``, ``dump_status``) are left out of the port.
+  ``PERITEXT_STATUS=<path>`` writes it periodically (atomic tmp+rename,
+  riding the metrics flusher thread) and at exit (:func:`dump_status`);
+  ``scripts/ops_top.py`` renders the file live in a terminal.
 
 Activation
 ==========
@@ -76,8 +77,13 @@ Activation
 per line; wrap with ``jq -s . trace.jsonl > trace.json`` for
 chrome://tracing — Perfetto's importer reads the newline-delimited form
 directly).  ``PERITEXT_METRICS=<path>`` dumps a JSON metrics snapshot at
-interpreter exit.  ``PERITEXT_BLACKBOX=<dir>`` arms the flight
-recorder's failure dumps (a ring of the last 512 events).  Any of these
+interpreter exit; ``PERITEXT_METRICS_INTERVAL=<secs>`` additionally
+flushes that snapshot periodically from a daemon thread (atomic
+tmp+rename), so a killed or timed-out child leaves a recent snapshot
+instead of nothing.  ``PERITEXT_BLACKBOX=<dir>`` arms the flight
+recorder's failure dumps (a ring of the last 512 events).
+``PERITEXT_STATUS=<path>`` arms the periodic status surface (cadence:
+``PERITEXT_METRICS_INTERVAL``, 2 s when only the status path is set).  Any of these
 env vars enables collection at import; tests and embedders call :func:`enable` /
 :func:`disable` / :func:`reset` programmatically.
 
@@ -136,6 +142,7 @@ __all__ = [
     "snapshot",
     "summary",
     "dump_metrics",
+    "dump_status",
     "flush_trace",
     "trace_path",
     "TraceContext",
@@ -566,6 +573,38 @@ class _FlightRecorder:
         return out
 
 
+class _MetricsFlusher(threading.Thread):
+    """Periodic metrics-snapshot + status flush (PERITEXT_METRICS_INTERVAL
+    / PERITEXT_STATUS): the atexit dump dies exactly when it matters most
+    (a killed child, a timed-out run); this daemon leaves a recent atomic
+    snapshot — and the live ops status surface — behind instead.  Each
+    tick writes whichever of the metrics/status paths are configured."""
+
+    def __init__(self, interval: float) -> None:
+        super().__init__(daemon=True, name="peritext-metrics-flusher")
+        self.interval = interval
+        self.stop_event = threading.Event()
+
+    def run(self) -> None:
+        while not self.stop_event.wait(self.interval):
+            try:
+                dump_metrics()
+            except Exception:  # a full disk must not kill the flusher
+                import logging
+
+                logging.getLogger(__name__).warning(
+                    "periodic metrics flush failed", exc_info=True
+                )
+            try:
+                dump_status()
+            except Exception:
+                import logging
+
+                logging.getLogger(__name__).warning(
+                    "periodic status flush failed", exc_info=True
+                )
+
+
 # -- the process-wide plane ---------------------------------------------------
 
 _registry = Registry()
@@ -584,6 +623,8 @@ _BLACKBOX_RING = 512  # events the flight recorder keeps
 # explicit dedupe key), judged on time.monotonic.
 _dump_last: Dict[str, float] = {}
 _DUMP_COOLDOWN_DEFAULT = 30.0
+_flusher: Optional[_MetricsFlusher] = None
+_status_path: Optional[str] = None
 
 # -- tail-sampled tracing state ----------------------------------------------
 # Head-sampling probability per flow lane (1.0 = emit everything directly,
@@ -1314,16 +1355,37 @@ def trace_path() -> Optional[str]:
     return None if tracer is None else tracer.path
 
 
+def dump_status(path: Optional[str] = None) -> Optional[str]:
+    """Write :func:`status` as JSON, atomically (tmp+rename, per-writer tmp
+    names — same discipline as :func:`dump_metrics`).  Defaults to the
+    ``PERITEXT_STATUS`` path; returns the path written or None."""
+    path = path or _status_path
+    if not path:
+        return None
+    payload = status()
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    with _dump_lock:
+        with open(tmp, "w") as f:
+            json.dump(payload, f)
+        os.replace(tmp, path)
+    return path
+
+
 def enable(
     trace: Optional[str] = None,
     metrics: Optional[str] = None,
     blackbox: Optional[str] = None,
+    metrics_interval: Optional[float] = None,
+    status_path: Optional[str] = None,
 ) -> None:
     """Turn collection on.  ``trace`` opens (truncating) a Chrome trace
-    JSONL file; ``metrics`` schedules a snapshot dump at interpreter exit;
-    ``blackbox`` arms failure dumps to a directory.  All may be omitted — a
-    bare ``enable()`` collects registry metrics only."""
-    global enabled, _tracer, _metrics_path, _blackbox_dir
+    JSONL file; ``metrics`` schedules a snapshot dump at interpreter exit
+    (``metrics_interval`` > 0 additionally flushes it periodically from a
+    daemon thread); ``blackbox`` arms failure dumps to a directory;
+    ``status_path`` arms the live ops status surface (written on the same
+    periodic flusher and at exit).  All may be omitted — a bare
+    ``enable()`` collects registry metrics only."""
+    global enabled, _tracer, _metrics_path, _blackbox_dir, _flusher, _status_path
     with _config_lock:
         if trace:
             if _tracer is not None and _tracer.path != trace:
@@ -1335,8 +1397,17 @@ def enable(
             _metrics_path = metrics
         if blackbox:
             _blackbox_dir = blackbox
+        if status_path:
+            _status_path = status_path
         _ensure_atexit_locked()
         enabled = True
+        if metrics_interval and metrics_interval > 0 and (_metrics_path or _status_path):
+            if _flusher is not None and _flusher.interval != metrics_interval:
+                _flusher.stop_event.set()
+                _flusher = None
+            if _flusher is None:
+                _flusher = _MetricsFlusher(metrics_interval)
+                _flusher.start()
 
 
 def disable() -> None:
@@ -1348,13 +1419,13 @@ def disable() -> None:
 
 def reset() -> None:
     """Back to a pristine, disabled plane: counters cleared, tracer closed,
-    exit dump canceled, recorder ring dropped, black-box disarmed,
-    sampling back to direct emission, SLO sinks and status sources
-    cleared.  Does NOT re-read the environment (tests
+    exit dump canceled, recorder ring dropped, black-box disarmed, the
+    periodic flusher stopped, sampling back to direct emission, SLO sinks
+    and status sources cleared.  Does NOT re-read the environment (tests
     own the lifecycle after a reset)."""
-    global enabled, _tracer, _metrics_path, _recorder, _blackbox_dir
+    global enabled, _tracer, _metrics_path, _recorder, _blackbox_dir, _flusher
     global _sample_p, _sample_seed, _tail_slow_us, _tail_error, _tail_breach
-    global _breach_probe, _observe_sinks, _counter_sinks
+    global _breach_probe, _observe_sinks, _counter_sinks, _status_path
     with _config_lock:
         enabled = False
         if _tracer is not None:
@@ -1363,6 +1434,9 @@ def reset() -> None:
         _metrics_path = None
         _recorder = None
         _blackbox_dir = None
+        if _flusher is not None:
+            _flusher.stop_event.set()
+            _flusher = None
         _sample_p = 1.0
         _sample_seed = 0
         _tail_slow_us = None
@@ -1370,6 +1444,7 @@ def reset() -> None:
         _breach_probe = None
         _observe_sinks = None
         _counter_sinks = None
+        _status_path = None
         _dump_last.clear()
         _registry.clear()
         _status_sources.clear()
@@ -1392,7 +1467,8 @@ def dump_metrics(path: Optional[str] = None) -> Optional[str]:
     """Write the metrics snapshot (+ summary) as JSON, atomically.
     Defaults to the ``PERITEXT_METRICS`` path; returns the path written or
     None.  Serialized under a lock AND written via a per-writer tmp name:
-    a programmatic call can race the atexit dump, and two writers sharing one tmp path would rename an
+    the periodic flusher can race the atexit dump (or a programmatic
+    call), and two writers sharing one tmp path would rename an
     interleaved file into place — exactly the corrupt snapshot this
     feature exists to prevent."""
     path = path or _metrics_path
@@ -1410,8 +1486,12 @@ def dump_metrics(path: Optional[str] = None) -> Optional[str]:
 
 def _at_exit() -> None:
     try:
-        if _metrics_path:
-            dump_metrics(_metrics_path)
+        try:
+            if _metrics_path:
+                dump_metrics(_metrics_path)
+        finally:
+            if _status_path:
+                dump_status(_status_path)
     finally:
         tracer = _tracer
         if tracer is not None:
@@ -1427,7 +1507,7 @@ def _ensure_atexit_locked() -> None:
 
 def _activate_from_env() -> None:
     """Import-time activation from PERITEXT_TRACE / PERITEXT_METRICS /
-    PERITEXT_BLACKBOX.
+    PERITEXT_BLACKBOX / PERITEXT_STATUS (+ PERITEXT_METRICS_INTERVAL).
 
     A bad trace path (missing directory, permissions) must not take the
     whole product down at import — observability degrades to untraced
@@ -1436,10 +1516,25 @@ def _activate_from_env() -> None:
     trace = os.environ.get("PERITEXT_TRACE")
     metrics = os.environ.get("PERITEXT_METRICS")
     blackbox = os.environ.get("PERITEXT_BLACKBOX")
-    if not (trace or metrics or blackbox):
-        return
+    status_p = os.environ.get("PERITEXT_STATUS")
     try:
-        enable(trace=trace or None, metrics=metrics or None, blackbox=blackbox or None)
+        interval = float(os.environ.get("PERITEXT_METRICS_INTERVAL", "0") or 0)
+    except ValueError:
+        interval = 0.0
+    if status_p and not interval:
+        # The status surface is only useful live; give it a cadence even
+        # when the metrics snapshot doesn't ask for one.
+        interval = 2.0
+    if not (trace or metrics or blackbox or status_p):
+        return
+    rest = dict(
+        metrics=metrics or None,
+        blackbox=blackbox or None,
+        metrics_interval=interval or None,
+        status_path=status_p or None,
+    )
+    try:
+        enable(trace=trace or None, **rest)
     except OSError as exc:
         import logging
 
@@ -1448,7 +1543,7 @@ def _activate_from_env() -> None:
             trace,
             exc,
         )
-        enable(metrics=metrics or None, blackbox=blackbox or None)
+        enable(**rest)
 
 
 _activate_from_env()

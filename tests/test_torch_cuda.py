@@ -639,3 +639,165 @@ def test_kernel_launches_from_threads_count_and_land_on_the_card(card):
     for u in unis:
         got = state_to_numpy(u.states)
         assert all((got[f] == want[f]).all() for f in want)
+
+
+def _stream_population(replicas, capacity, max_marks, seed):
+    """A ``make_merge_workload`` batch of 4 streams tiled over ``replicas``,
+    as host numpy (the stream's inputs)."""
+    from peritext_tpu_torch.ops.encode import prepare_sorted_batch
+
+    wl = make_merge_workload(doc_len=300, ops_per_merge=32, num_streams=4, with_marks=True, seed=seed)
+    from peritext_tpu_torch.bench.workloads import build_device_batch
+
+    batch = build_device_batch(wl, replicas, capacity, max_marks)
+    sp = prepare_sorted_batch([batch["text_ops"][r].numpy() for r in range(replicas)])
+    return (state_to_numpy(batch["states"]), sp["text"], sp["rounds"], sp["num_rounds"],
+            batch["mark_ops"].numpy(), batch["ranks"].numpy(), sp["bufs"], sp["maxk"])
+
+
+def test_stream_at_depth_two_equals_the_resident_kernel_merge(card):
+    """Cohorts of 24 over 100 replicas (a padded tail), two in flight on
+    the copy, compute and D2H streams, give the resident merge_step_full's
+    fields and digests byte for byte (and it merge_step_plain's), and
+    launch each kernel once a cohort."""
+    from peritext_tpu_torch.ops.state import state_from_numpy
+    from peritext_tpu_torch.parallel import stream_merge_sorted
+
+    args = _stream_population(100, 1024, 64, seed=12)
+    st = state_from_numpy(args[0], device=card)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)  # noqa: E731
+    ranks = to(args[5])
+    resident = cuda_kernels.merge_step_full(st, to(args[1]), to(args[4]), ranks, to(args[6]))
+    want_dg = K.convergence_digest(resident, ranks, to(allow_multiple_array())).cpu().numpy()
+    want = state_to_numpy(resident)
+    plain = state_to_numpy(K.merge_step_plain(st, to(args[1]), to(args[4]), ranks, to(args[6])))
+    for f in want:
+        np.testing.assert_array_equal(plain[f], want[f], err_msg=f"{f}: kernels vs merge_step_plain")
+    cuda_kernels.reset_launch_counts()
+    out, dg, stats = stream_merge_sorted(*args, cohort=24, depth=2, device=card)
+    assert stats["route"] == "kernels" and stats["n_cohorts"] == 5 and stats["padded_tail"]
+    assert cuda_kernels.LAUNCHES == {"text_phase": 5, "mark_phase": 5}
+    np.testing.assert_array_equal(dg, want_dg.astype(np.uint32))
+    for f in want:
+        assert out[f].dtype == want[f].dtype, f
+        np.testing.assert_array_equal(out[f], want[f], err_msg=f)
+    assert all(t["merge_ms"] > 0 and t["h2d_ms"] > 0 for t in stats["timings"])
+
+
+def test_stream_whose_kernel_launch_fails_raises_and_leaves_no_lane_open(card, monkeypatch, tmp_path):
+    """The text kernel's C entry returns an error on the third cohort: the
+    sweep raises the launch error (no retry, no fallback), and every
+    cohort lane in the trace ends."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    from peritext_tpu_torch.parallel import stream_merge_sorted
+    from peritext_tpu_torch.runtime import telemetry
+
+    args = _stream_population(40, 512, 64, seed=13)
+    cuda_kernels._fn("text_phase", "pt_text_phase")  # build and bind first
+    real = cuda_kernels._fns["pt_text_phase"]
+    calls = []
+
+    def failing(*a):
+        calls.append(1)
+        return 1 if len(calls) == 3 else real(*a)
+
+    monkeypatch.setitem(cuda_kernels._fns, "pt_text_phase", failing)
+    trace = tmp_path / "trace.jsonl"
+    telemetry.reset()
+    telemetry.enable(trace=str(trace))
+    try:
+        with pytest.raises(RuntimeError, match="text_phase kernel launch failed"):
+            stream_merge_sorted(*args, cohort=8, depth=2, readback_states=False, device=card)
+        telemetry.flush_trace()
+    finally:
+        telemetry.reset()
+    assert len(calls) == 3
+    names = {json.loads(line).get("name") for line in trace.read_text().splitlines() if line.strip()}
+    assert {"stream.launch", "stream.drain", "stream.abort"} <= names
+    report = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "trace_report.py"
+    proc = subprocess.run([sys.executable, str(report), str(trace)], capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0 and "problems=0" in proc.stdout, proc.stdout + proc.stderr
+
+
+def _append_with_nonzero(states, mark_ops):
+    """The mark-table append as it was before it became sync-free
+    (``nonzero`` picks the rows), kept as the reference."""
+    import dataclasses
+
+    is_mark = mark_ops[:, :, K.K_KIND] == K.KIND_MARK
+    order = torch.cumsum(is_mark.to(torch.int32), dim=1) - 1
+    idx = states.mark_count[:, None] + order
+    rr, ll = (is_mark & (idx < states.max_mark_ops)).nonzero(as_tuple=True)
+    cols = idx[rr, ll].long()
+    updates = {}
+    for name, field in K._TABLE_FIELDS:
+        col = getattr(states, name).clone()
+        col[rr, cols] = mark_ops[rr, ll, field]
+        updates[name] = col
+    updates["mark_count"] = (states.mark_count + is_mark.sum(dim=1)).to(torch.int32)
+    return dataclasses.replace(states, **updates)
+
+
+def _winners_with_unique(states, present, ranks, multi):
+    """The winner resolution as it was before it became sync-free
+    (``torch.unique`` numbers the groups), kept as the reference."""
+    mp = present.shape[-1]
+    mtype = states.mark_type[:, :mp].long()
+    attr = states.mark_attr[:, :mp].long()
+    is_multi = multi.to(torch.bool)[mtype.clamp(0, multi.shape[0] - 1)]
+    n_attr = int(attr.max().item()) + 2 if attr.numel() else 1
+    gkey = mtype * n_attr + torch.where(is_multi, attr + 1, 0)
+    _, group = torch.unique(gkey, return_inverse=True)
+    n_groups = int(group.max().item()) + 1 if group.numel() else 1
+    rank = K._gather_clamped(ranks, states.mark_act[:, :mp].reshape(-1)).reshape(mtype.shape)
+    key = states.mark_ctr[:, :mp].long() * (ranks.shape[0] + 1) + rank.long()
+    m_live = torch.arange(mp, device=present.device)[None, :] < states.mark_count[:, None]
+    cand = present & m_live[:, None, :]
+    vals = torch.where(cand, key[:, None, :], -1)
+    best = torch.full(present.shape[:2] + (n_groups,), -1, dtype=torch.int64, device=present.device)
+    idx = group[:, None, :].expand_as(vals)
+    best.scatter_reduce_(2, idx, vals, reduce="amax")
+    return cand & (torch.gather(best, 2, idx) == key[:, None, :])
+
+
+def test_sync_free_append_and_digest_equal_the_old_forms(card, monkeypatch):
+    """On the card the masked-scatter append equals the ``nonzero`` append
+    (a table that overflows included), and the digest with first-match
+    groups, with and without a host-known column bound, equals the digest
+    through ``torch.unique``."""
+    rng = np.random.default_rng(21)
+    r, c, m = 16, 256, 64
+    ec, ea, dl, ch, ln, bdef, bmask = _random_state(rng, r, c, m // 32, fill=200)
+    st = make_empty_state(c, m, card)
+    st = map_state(lambda x: x.unsqueeze(0).expand(r, *x.shape).contiguous(), st)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)  # noqa: E731
+    import dataclasses
+
+    counts = rng.integers(0, m, size=r).astype(np.int32)
+    counts[:3] = [m - 2, m, 0]
+    st = dataclasses.replace(
+        st, elem_ctr=to(ec), elem_act=to(ea), deleted=to(dl), chars=to(ch), length=to(ln),
+        bnd_def=to(bdef), bnd_mask=to(bmask), mark_count=to(counts),
+        mark_ctr=to(rng.integers(1, 500, (r, m)).astype(np.int32)),
+        mark_act=to(rng.integers(0, 4, (r, m)).astype(np.int32)),
+        mark_action=to(rng.integers(0, 2, (r, m)).astype(np.int32)),
+        mark_type=to(rng.integers(0, 4, (r, m)).astype(np.int32)),
+        mark_attr=to(rng.integers(-1, 3, (r, m)).astype(np.int32)),
+    )
+    ops = np.zeros((r, 12, K.OP_FIELDS), np.int32)
+    ops[:, :, K.K_KIND] = np.where(rng.random((r, 12)) < 0.7, K.KIND_MARK, K.KIND_PAD)
+    for f in (K.K_CTR, K.K_ACT, K.K_MACTION, K.K_MTYPE, K.K_MATTR):
+        ops[:, :, f] = rng.integers(0, 4, (r, 12))
+    got, want = K.append_mark_table(st, to(ops)), _append_with_nonzero(st, to(ops))
+    for f in ("mark_ctr", "mark_act", "mark_action", "mark_type", "mark_attr", "mark_count"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    ranks, multi = to(np.array([0, 3, 1, 2], np.int32)), to(allow_multiple_array())
+    new = K.convergence_digest(want, ranks, multi)
+    bounded = K.convergence_digest(want, ranks, multi, mark_cols=m)
+    monkeypatch.setattr(K, "resolve_winners", _winners_with_unique)
+    old = K.convergence_digest(want, ranks, multi)
+    assert torch.equal(new, old) and torch.equal(bounded, old)

@@ -38,6 +38,7 @@ from peritext_tpu_torch.ops import sorted_patched as SP
 from peritext_tpu_torch.ops.state import FIELDS, state_from_numpy
 from peritext_tpu_torch.oracle import Doc
 from peritext_tpu_torch.runtime import faults, health
+from peritext_tpu_torch.testing import patch_path_env, patch_readback_env
 
 ROUTE_STATS = ("launches", "scan_fallbacks", "multi_group_fallbacks", "readback_overflows",
                "degraded_batches", "ops_applied", "rows_padded", "changes_ingested")
@@ -60,13 +61,6 @@ def _sorted_route(monkeypatch):
     yield
     for plane in (faults, health, jfaults, jhealth):
         plane.reset()
-
-
-def _patch_env(monkeypatch, mode):
-    if mode == "scan":
-        monkeypatch.setenv("PERITEXT_PATCH_PATH", mode)
-    else:
-        monkeypatch.delenv("PERITEXT_PATCH_PATH", raising=False)
 
 
 def _drive(uni, steps, with_positions=False):
@@ -139,7 +133,7 @@ def _oracle(stream):
 
 
 @pytest.mark.parametrize("seed", range(3))
-def test_delta_dense_and_scan_match_tpu_universe(seed, monkeypatch):
+def test_delta_dense_and_scan_match_tpu_universe(seed):
     """Random multi-writer streams in three batches to two replicas (one a
     lagging prefix): the port's delta scan and per-op loop each equal
     TpuUniverse's default route (whose dense scan gives the same bytes,
@@ -155,10 +149,10 @@ def test_delta_dense_and_scan_match_tpu_universe(seed, monkeypatch):
     ref = TpuUniverse(["observer", "late"])
     want = _drive(ref, steps, with_positions=True)
     for mode in ("delta", "scan"):
-        _patch_env(monkeypatch, mode)
-        port = TorchUniverse(["observer", "late"], device="cpu")
-        for i, step in enumerate(steps):
-            assert port.apply_changes_with_patches(step, with_positions=True) == want[i], (mode, i)
+        with patch_path_env("scan" if mode == "scan" else None):
+            port = TorchUniverse(["observer", "late"], device="cpu")
+            for i, step in enumerate(steps):
+                assert port.apply_changes_with_patches(step, with_positions=True) == want[i], (mode, i)
         _assert_same_universe(port, ref, mode)
         if mode == "scan":
             assert port._wcaches is None
@@ -260,9 +254,9 @@ def test_compact_and_planes_readbacks_and_span_overflow(span_cap, monkeypatch):
     ref = TpuUniverse(["a", "b"])
     want = _drive(ref, steps, with_positions=True)
     for readback in ("compact", "planes"):
-        monkeypatch.setenv("PERITEXT_PATCH_READBACK", readback)
-        port = TorchUniverse(["a", "b"], device="cpu")
-        assert _drive(port, steps, with_positions=True) == want, readback
+        with patch_readback_env(readback):
+            port = TorchUniverse(["a", "b"], device="cpu")
+            assert _drive(port, steps, with_positions=True) == want, readback
         _assert_same_universe(port, ref, readback)
         _assert_same_cache(port, ref, readback)
         if readback == "compact":
@@ -271,7 +265,7 @@ def test_compact_and_planes_readbacks_and_span_overflow(span_cap, monkeypatch):
         assert ref.stats["readback_overflows"] > 0
 
 
-def test_lone_surrogates_assemble_through_both_readbacks(monkeypatch):
+def test_lone_surrogates_assemble_through_both_readbacks():
     """Lone surrogate code points decode in the vectorized assembler as
     ``chr()`` decodes them."""
     docs, _, genesis = generate_docs("ab", 1)
@@ -281,9 +275,9 @@ def test_lone_surrogates_assemble_through_both_readbacks(monkeypatch):
     steps = [{"s": [genesis, change]}]
     want = _drive(TpuUniverse(["s"]), steps)
     for readback in ("compact", "planes"):
-        monkeypatch.setenv("PERITEXT_PATCH_READBACK", readback)
-        port = TorchUniverse(["s"], device="cpu")
-        assert _drive(port, steps) == want
+        with patch_readback_env(readback):
+            port = TorchUniverse(["s"], device="cpu")
+            assert _drive(port, steps) == want
         assert port.texts()[0] == "a\ud800x\udfffb"
 
 

@@ -24,6 +24,7 @@ from peritext_tpu_torch.ops import sorted_patched as SP
 from peritext_tpu_torch.ops.state import FIELDS
 from peritext_tpu_torch.oracle import Doc
 from peritext_tpu_torch.runtime.serve import ServePlane
+from peritext_tpu_torch.testing import window_env
 
 _KNOBS = ("PERITEXT_PATCH_PATH", "PERITEXT_PATCH_READBACK", "PERITEXT_PATCH_SPAN_CAP",
           "PERITEXT_PATCH_CHUNK", "PERITEXT_SORTED_CHUNK", "PERITEXT_SORTED_MAX_ROUNDS",
@@ -42,13 +43,13 @@ def _sorted_route(monkeypatch):
     monkeypatch.setattr(TpuUniverse, "_span_cap_floor", 1)
 
 
-def _drive(make, batches, windowed, monkeypatch, replicas=("r1", "r2"), **kw):
+def _drive(make, batches, windowed, replicas=("r1", "r2"), **kw):
     kw.setdefault("capacity", 1024)
     kw.setdefault("max_mark_ops", 64)
-    monkeypatch.setenv("PERITEXT_MERGE_WINDOW", "1" if windowed else "0")
-    uni = make(list(replicas), **kw)
-    outs = [uni.apply_changes_with_patches({r: b for r in replicas}, with_positions=True)
-            for b in batches]
+    with window_env(windowed, min_cap="64"):
+        uni = make(list(replicas), **kw)
+        outs = [uni.apply_changes_with_patches({r: b for r in replicas}, with_positions=True)
+                for b in batches]
     return uni, outs
 
 
@@ -82,10 +83,10 @@ def _assert_same(a, b, context, same_cache_presence=True):
         assert (wa == wb).all(), f"{context}: winner cache diverged"
 
 
-def _assert_identical(batches, monkeypatch, expect_windowed=True, **kw):
-    pw, ow = _drive(_port, batches, True, monkeypatch, **kw)
-    pf, of = _drive(_port, batches, False, monkeypatch, **kw)
-    jw, oj = _drive(TpuUniverse, batches, True, monkeypatch, **kw)
+def _assert_identical(batches, expect_windowed=True, **kw):
+    pw, ow = _drive(_port, batches, True, **kw)
+    pf, of = _drive(_port, batches, False, **kw)
+    jw, oj = _drive(TpuUniverse, batches, True, **kw)
     if expect_windowed:
         assert pw.stats["windowed_launches"] >= 1, pw.stats
     assert pf.stats["windowed_launches"] == 0
@@ -141,10 +142,10 @@ def _random_stream(seed, steps=10, writers=3, n_chars=420):
 
 
 @pytest.mark.parametrize("seed", [0])
-def test_windowed_matches_full_and_tpu_universe(seed, monkeypatch):
+def test_windowed_matches_full_and_tpu_universe(seed):
     """Random multi-writer steps: windowed = full table = TpuUniverse (seed
     0, as tests/test_window_merge.py runs it in tier 1)."""
-    _assert_identical(_random_stream(seed), monkeypatch)
+    _assert_identical(_random_stream(seed))
 
 
 def test_tombstone_run_straddling_window_edge(monkeypatch):
@@ -160,10 +161,10 @@ def test_tombstone_run_straddling_window_edge(monkeypatch):
     c, _ = d.change([{"path": ["text"], "action": "addMark", "startIndex": 140, "endIndex": 160,
                       "markType": "strong"}])
     batches.append([c])
-    pw, _ = _assert_identical(batches, monkeypatch)
+    pw, _ = _assert_identical(batches)
     # One replica per slice through the window's gather, merge and scatter.
     monkeypatch.setattr(SP, "_CHUNK_ELEMS", 1)
-    ps, _ = _drive(_port, batches, True, monkeypatch)
+    ps, _ = _drive(_port, batches, True)
     assert ps.stats["windowed_launches"] == pw.stats["windowed_launches"]
     _assert_same(ps, pw, "sliced vs unsliced")
 

@@ -137,7 +137,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "assert {'peritext_tpu_torch.runtime.' + m for m in ('serve', 'checkpoint', 'pubsub', 'serve_shard', "
-        "'elastic', 'lifecycle')} <= set(mods)\n"
+        "'elastic', 'lifecycle', 'sync')} <= set(mods)\n"
+        "assert {'peritext_tpu_torch.' + m for m in ('parallel.stream', 'testing', 'replay', 'bridge', "
+        "'fuzz', 'examples.fleet_demo')} <= set(mods)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'peritext_tpu') "
         "and sys.modules[m] is not None]\n"
         "print(len(mods), bad)\n"
