@@ -18,6 +18,13 @@ Phases, in order; any failure exits non-zero:
 3. The same at the 10k-character latency shape (``make_merge_workload(
    10_000, 64, 2)``; 1024 replicas, C = 16384, M = 128), insert-heavy
    input included.
+3b. Both kernels' cluster forms (a replica on 2, 4 or 8 blocks) at C =
+   32768, 65536 and 131072 (M = 128): a 17,000-char ``make_merge_workload``
+   document (2 writer streams) on 256 replicas, and 64 random states aimed
+   at the slice edges (``slice_edge_batch``), each kernel byte-equal to its
+   plain version, timed and bounded as in phase 2; each comparison must be
+   a cluster launch.  Prints the clusters the card holds at once
+   (``cudaOccupancyMaxActiveClusters``) and each shape's shared memory.
 4. The main path: ``TorchUniverse.apply_changes`` (its default route, the
    exact per-op merge with both kernels) on 1024 replicas ingests the
    genesis change, 8 chained rounds in which replica r takes writer
@@ -107,11 +114,13 @@ Phases, in order; any failure exits non-zero:
 14. Phase 10's manual serving leg on the sorted route: the sessions'
    patches equal the observers'; prints the flush median and p95 and the
    submissions per second beside phase 10's from the same run.
-15. The capacity route: 64 replicas at C = 16384 take a 16,300-char
-   genesis through the kernels, then runs that grow the document past
-   16384: every merge above the kernels' limit must be counted in
-   ``stats["capacity_routes"]`` and launch no kernel; one digest, and
-   sampled spans equal to an oracle's.
+15. Past one block: 64 replicas at C = 16384 take a 16,300-char genesis
+   through the one-block kernels, then runs that grow the document past
+   16384: every later merge must launch both kernels' cluster form, with
+   ``stats["capacity_routes"]`` 0; one digest, and sampled spans equal to
+   an oracle's.  The same merges under a kernel limit lowered to 16384
+   take the capacity route (counted, no kernel launch), give the same 13
+   fields, and are timed beside the cluster kernels' merges.
 16. The sharded serving tier on the card: ``ShardedServePlane`` with 4
    shards (``devices=None``: the card), C = 2048, M = 1024, each shard
    as wide as its sessions (so an evicted row frees a device row), a DWRR quantum of 1 (the widest
@@ -175,9 +184,11 @@ Phases, in order; any failure exits non-zero:
    ``PERITEXT_DEGRADE=0`` but for legs (b) and (c); launch retries,
    fast-fails and degraded batches must be 0 outside the legs that inject
    them, which assert their exact counts), the kernels' JSON summary
-   (launches summed over phases 4, 5 and 8-18; ``ms`` per wrapper call
+   (launches summed over phases 4, 5 and 8-18, a cluster launch counted
+   in its kernel's and in its ``_cluster`` entry; ``ms`` per wrapper call
    between CUDA events, ``device_ms`` the kernel alone with a cold L2,
-   both at phase 2), the card, and as the last line ``{"ok": true,
+   both at phase 2, and for the ``_cluster`` entries at phase 3b's
+   C = 32768 document), the card, and as the last line ``{"ok": true,
    "device": {...}}``.  Peak device memory is printed after every phase.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -207,6 +218,7 @@ from peritext_tpu_torch.bench.workloads import (
     insert_heavy_text_ops,
     make_merge_workload,
     make_writer_rounds,
+    slice_edge_batch,
     split_rounds,
     text_row_mix,
     wire_rounds,
@@ -216,6 +228,7 @@ from peritext_tpu_torch.fuzz import DEFAULT_CHAOS_SPEC, fuzz
 from peritext_tpu_torch.ops import _build, cuda_kernels
 from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops import sorted_patched as SP
+from peritext_tpu_torch.ops import universe as port_universe
 from peritext_tpu_torch.ops.encode import prepare_sorted_batch
 from peritext_tpu_torch.ops.state import FIELDS, map_state, state_from_numpy
 from peritext_tpu_torch.oracle import Doc, accumulate_patches
@@ -264,6 +277,11 @@ THREADED_SESSIONS = 64
 DEGRADE_REPLICAS = 64
 # Phase 15: a genesis just under the kernels' limit and the runs that push
 # the document past it, on this many replicas.
+CLUSTER_CAPACITIES = (32768, 65536, 131072)
+CLUSTER_DOC_LEN = 17_000  # past one block's 16,384 slots; make_merge_workload is quadratic in it
+CLUSTER_REPLICAS = 256
+CLUSTER_EDGE_REPLICAS = 64
+CLUSTER_MARKS = 128
 CAPACITY_DOC_LEN = 16_300
 CAPACITY_RUN = 128
 CAPACITY_REPLICAS = 64
@@ -371,19 +389,9 @@ def measure_text(label: str, text_in, capacity: int, runs: int) -> dict:
     }
 
 
-def phase_kernels(label: str, b: dict, capacity: int, runs: int) -> dict:
-    """Both kernels and ``merge_step_full`` against their plain versions on
-    one device batch (``build_device_batch``), timed and bounded."""
-    st, text_ops, char_buf, mark_ops, ranks = (
-        b["states"], b["text_ops"], b["char_buf"], b["mark_ops"], b["ranks"]
-    )
-    log(f"{label}: R={text_ops.shape[0]} C={capacity} M={st.max_mark_ops} "
-        f"text rows={text_ops.shape[1]} mark rows={mark_ops.shape[1]}")
-    results = {}
-
-    text_in = (st.elem_ctr, st.elem_act, st.deleted, st.chars, st.length, text_ops, ranks, char_buf)
-    results["text_phase"] = measure_text(label, text_in, capacity, runs)
-
+def measure_mark(label: str, st, text_in, mark_ops, capacity: int, runs: int) -> dict:
+    """Hold the mark kernel byte-equal to its plain version on the plain
+    text phase's outputs over ``st``, time it and bound it."""
     ec, ea, _, _, oi, ln = K.text_phase_plain(*text_in)
     bnd_def, bnd_mask = K._permute_boundaries(st.bnd_def, st.bnd_mask, oi)
     mark_in = (bnd_def, bnd_mask, ec, ea, ln, st.mark_count, mark_ops)
@@ -397,7 +405,7 @@ def phase_kernels(label: str, b: dict, capacity: int, runs: int) -> dict:
         raise AssertionError(f"[{label}] the mark phase changed no mask word: the check proves nothing")
     live_marks = int((mark_ops[:, :, K.K_KIND] == K.KIND_MARK).sum().item())
     m_bound, m_by = bound(nbytes(*mark_in) + nbytes(*got_m), 8 * live_marks * capacity)
-    results["mark_phase"] = {
+    return {
         "err": err,
         "ms": call_ms(lambda: cuda_kernels.mark_phase(*mark_in), runs),
         "device_ms": device_ms(lambda: cuda_kernels.mark_phase(*mark_in), runs),
@@ -405,6 +413,23 @@ def phase_kernels(label: str, b: dict, capacity: int, runs: int) -> dict:
         "bound_ms": m_bound,
         "bound_by": m_by,
     }
+
+
+def phase_kernels(label: str, b: dict, capacity: int, runs: int) -> dict:
+    """Both kernels and ``merge_step_full`` against their plain versions on
+    one device batch (``build_device_batch``), timed and bounded."""
+    st, text_ops, char_buf, mark_ops, ranks = (
+        b["states"], b["text_ops"], b["char_buf"], b["mark_ops"], b["ranks"]
+    )
+    log(f"{label}: R={text_ops.shape[0]} C={capacity} M={st.max_mark_ops} "
+        f"text rows={text_ops.shape[1]} mark rows={mark_ops.shape[1]}")
+    results = {}
+
+    text_in = (st.elem_ctr, st.elem_act, st.deleted, st.chars, st.length, text_ops, ranks, char_buf)
+    results["text_phase"] = measure_text(label, text_in, capacity, runs)
+
+    results["mark_phase"] = measure_mark(label, st, text_in, mark_ops, capacity, runs)
+    oi = K.text_phase_plain(*text_in)[4]
 
     merge_in = (st, text_ops, mark_ops, ranks, char_buf)
     full = cuda_kernels.merge_step_full(*merge_in)
@@ -478,6 +503,62 @@ def phase_large_shape(replicas: int, runs: int) -> dict:
     b = build_device_batch(wl, replicas, LARGE_CAPACITY, 128, device=DEVICE)
     log(f"phase 3: workload + batch built in {time.perf_counter() - t0:.2f} s (host)")
     return phase_kernels("phase 3", b, LARGE_CAPACITY, runs)
+
+
+def measure_cluster(label: str, b: dict, capacity: int, runs: int) -> dict:
+    """Both kernels' cluster form on one batch: byte-equal to the plain
+    versions, timed and bounded; each kernel's comparison launch must be a
+    cluster launch, and the card must hold its clusters."""
+    st = b["states"]
+    words = st.bnd_mask.shape[-1]
+    blocks = cuda_kernels.cluster_size(capacity, words)
+    if blocks < 2:
+        raise AssertionError(f"[{label}] C={capacity} takes {blocks} block(s), not a cluster")
+    log(f"{label}: R={st.length.shape[0]} C={capacity} M={st.max_mark_ops} clusters of {blocks} blocks "
+        f"(text {cuda_kernels.text_phase_smem_bytes(capacity, blocks)} B, mark "
+        f"{cuda_kernels.mark_phase_smem_bytes(capacity, words, blocks)} B of shared memory a block); "
+        f"lengths {int(st.length.min())}-{int(st.length.max())}; "
+        f"text rows={b['text_ops'].shape[1]} mark rows={b['mark_ops'].shape[1]}")
+    text_in = (st.elem_ctr, st.elem_act, st.deleted, st.chars, st.length, b["text_ops"], b["ranks"], b["char_buf"])
+    before = dict(cuda_kernels.CLUSTER_LAUNCHES)
+    out = {
+        "text_phase": measure_text(label, text_in, capacity, runs),
+        "mark_phase": measure_mark(label, st, text_in, b["mark_ops"], capacity, runs),
+    }
+    for name, r in out.items():
+        if cuda_kernels.CLUSTER_LAUNCHES[name] == before[name]:
+            raise AssertionError(f"[{label}] {name} ran no cluster launch")
+        active = {k[1:3]: n for k, n in cuda_kernels.ACTIVE_CLUSTERS.items() if k[0] == name and k[1] == blocks}
+        r["active_clusters"] = min(active.values())
+        report(label, name, r)
+        log(f"  [{label}] {name}: {cuda_kernels.CLUSTER_LAUNCHES[name] - before[name]} cluster launches; "
+            f"active clusters (cudaOccupancyMaxActiveClusters, blocks and shared bytes): {active}")
+    return out
+
+
+def phase_cluster(runs: int) -> dict:
+    """Both kernels past one block: at each C in CLUSTER_CAPACITIES, a
+    ``make_merge_workload`` document of CLUSTER_DOC_LEN chars (past one
+    block's 16,384 slots) on CLUSTER_REPLICAS replicas, and
+    CLUSTER_EDGE_REPLICAS random states aimed at the slice edges
+    (``slice_edge_batch``).  Returns the C = 32768 document's results."""
+    t0 = time.perf_counter()
+    wl = make_merge_workload(CLUSTER_DOC_LEN, OPS_PER_ROUND, 2, True, seed=0)
+    log(f"phase 3b: a {CLUSTER_DOC_LEN}-char make_merge_workload document built in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    first = None
+    for capacity in CLUSTER_CAPACITIES:
+        b = build_device_batch(wl, CLUSTER_REPLICAS, capacity, CLUSTER_MARKS, device=DEVICE)
+        res = measure_cluster(f"phase 3b C={capacity} document", b, capacity, runs)
+        first = first or res
+        del b
+        blocks = cuda_kernels.cluster_size(capacity, CLUSTER_MARKS // 32)
+        rb = slice_edge_batch(np.random.default_rng(capacity), CLUSTER_EDGE_REPLICAS, capacity, CLUSTER_MARKS,
+                              blocks, device=DEVICE)
+        measure_cluster(f"phase 3b C={capacity} slice edges", rb, capacity, max(2, runs // 4))
+        del rb
+        torch.cuda.empty_cache()
+    return first
 
 
 def drive(uni: TorchUniverse, batches: list):
@@ -1022,9 +1103,12 @@ def resilience(label: str, **expected: int):
 
 
 def add_launches(acc: dict) -> None:
-    """Add the kernels' counts since the last reset to ``acc``, and reset."""
+    """Add the kernels' counts since the last reset to ``acc`` (each
+    kernel's cluster-form launches also under ``<name>_cluster``), and
+    reset."""
     for name, n in cuda_kernels.LAUNCHES.items():
         acc[name] = acc.get(name, 0) + n
+        acc[f"{name}_cluster"] = acc.get(f"{name}_cluster", 0) + cuda_kernels.CLUSTER_LAUNCHES[name]
     reset_counts()
 
 
@@ -1551,9 +1635,10 @@ def phase_serving_sorted(p10: dict, replicas: int) -> dict:
 
 
 def phase_capacity(replicas: int, samples: int) -> dict:
-    """A universe on the default route grown from C = 16384 (the kernels'
-    limit) to 32768: the merges above the limit take the capacity route,
-    counted, and launch no kernel."""
+    """A universe on the default route grown from C = 16384 (one block) to
+    32768: the merges past one block run both kernels' cluster form, with
+    no capacity route.  The same merges under a limit lowered to 16384
+    take the capacity route, timed beside them, and give the same states."""
     label = "phase 15"
     t0 = time.perf_counter()
     hist = wire_rounds(CAPACITY_DOC_LEN, 2, 2, CAPACITY_RUN, seed=5)
@@ -1564,29 +1649,42 @@ def phase_capacity(replicas: int, samples: int) -> dict:
     log(f"{label}: workload + oracle built in {time.perf_counter() - t0:.2f} s (host); a {CAPACITY_DOC_LEN}-char "
         f"genesis, 2 rounds of 2 writers' {CAPACITY_RUN}-char runs and marks, then the all-to-all")
     names = [f"replica{i}" for i in range(replicas)]
-    launches: dict = {}
-    reset_counts()
-    uni = TorchUniverse(names, capacity=LARGE_CAPACITY, max_mark_ops=256, device=DEVICE)
-    limit = cuda_kernels.kernel_capacity_limit(uni.max_mark_ops // 32)
-    uni.apply_changes([[hist["genesis"]]] * replicas)
-    if uni.capacity > limit or any(n != 1 for n in cuda_kernels.LAUNCHES.values()):
-        raise AssertionError(f"[{label}] the genesis did not merge through the kernels: {cuda_kernels.LAUNCHES}")
-    add_launches(launches)
     history = [[c for rnd in hist["rounds"] for c in rnd[w]] for w in range(2)]
     batches = [[rnd[r % 2] for r in range(replicas)] for rnd in hist["rounds"]]
     batches.append([history[1 - r % 2] for r in range(replicas)])
-    above, times = 0, []
-    for batch in batches:
-        t = time.perf_counter()
-        uni.apply_changes(batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        above += uni.capacity > limit
-    if uni.capacity != 2 * LARGE_CAPACITY or above != len(batches):
-        raise AssertionError(f"[{label}] capacity {uni.capacity}, {above} merges above the limit")
-    if uni.stats["capacity_routes"] != above or any(cuda_kernels.LAUNCHES.values()) or any(PLAIN_CALLS.values()):
-        raise AssertionError(f"[{label}] capacity_routes {uni.stats['capacity_routes']} != {above}, or launches "
-                             f"{cuda_kernels.LAUNCHES} / plain calls {PLAIN_CALLS} moved above the limit")
+    launches: dict = {}
+
+    def grow(leg: str):
+        """The genesis through the one-block kernels, then ``batches``
+        timed; returns the universe and each merge's seconds."""
+        reset_counts()
+        uni = TorchUniverse(names, capacity=LARGE_CAPACITY, max_mark_ops=256, device=DEVICE)
+        uni.apply_changes([[hist["genesis"]]] * replicas)
+        if uni.capacity != LARGE_CAPACITY or cuda_kernels.LAUNCHES != {"text_phase": 1, "mark_phase": 1} \
+                or any(cuda_kernels.CLUSTER_LAUNCHES.values()):
+            raise AssertionError(f"[{label} {leg}] the genesis did not merge through the one-block kernels: "
+                                 f"{cuda_kernels.LAUNCHES}, cluster {cuda_kernels.CLUSTER_LAUNCHES}")
+        add_launches(launches)
+        times = []
+        for batch in batches:
+            t = time.perf_counter()
+            uni.apply_changes(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        if uni.capacity != 2 * LARGE_CAPACITY:
+            raise AssertionError(f"[{label} {leg}] capacity {uni.capacity}, expected {2 * LARGE_CAPACITY}")
+        return uni, times
+
+    uni, times = grow("cluster kernels")
+    n = len(batches)
+    want = {"text_phase": n, "mark_phase": n}
+    if (uni.stats["capacity_routes"] != 0 or cuda_kernels.LAUNCHES != want
+            or cuda_kernels.CLUSTER_LAUNCHES != want or any(PLAIN_CALLS.values())):
+        raise AssertionError(f"[{label}] capacity_routes {uni.stats['capacity_routes']}, launches "
+                             f"{cuda_kernels.LAUNCHES}, cluster launches {cuda_kernels.CLUSTER_LAUNCHES}, plain "
+                             f"calls {PLAIN_CALLS}: expected every merge past C = 16384 on the cluster kernels")
+    cluster = dict(cuda_kernels.CLUSTER_LAUNCHES)
+    add_launches(launches)
     if len(set(uni.digests().tolist())) != 1:
         raise AssertionError(f"[{label}] replicas that took the same changes disagree")
     for r in list(range(0, replicas, max(1, replicas // samples)))[:samples] + [replicas - 1]:
@@ -1594,13 +1692,31 @@ def phase_capacity(replicas: int, samples: int) -> dict:
             raise AssertionError(f"[{label}] replica {r}'s spans differ from the oracle's")
     if not any(span["marks"] for span in expect):
         raise AssertionError(f"[{label}] the document carries no marks: the check proves nothing")
-    log(f"  R={replicas}: C {LARGE_CAPACITY} -> {uni.capacity} (kernel limit {limit}); {above} merges above the "
-        f"limit, capacity_routes={uni.stats['capacity_routes']}, kernel launches after the genesis "
-        f"{cuda_kernels.LAUNCHES}; one digest; {samples + 1} replicas' spans equal the oracle's; merge ms "
-        + " ".join(f"{1e3 * t:.4f}" for t in times))
-    del uni
+
+    real_limit = port_universe.kernel_capacity_limit
+    port_universe.kernel_capacity_limit = lambda words: LARGE_CAPACITY
+    try:
+        routed, route_times = grow("capacity route")
+    finally:
+        port_universe.kernel_capacity_limit = real_limit
+    if (routed.stats["capacity_routes"] != n or any(cuda_kernels.LAUNCHES.values())
+            or any(PLAIN_CALLS.values())):
+        raise AssertionError(f"[{label}] under a limit of {LARGE_CAPACITY}: capacity_routes "
+                             f"{routed.stats['capacity_routes']} != {n}, or launches {cuda_kernels.LAUNCHES} / "
+                             f"plain calls {PLAIN_CALLS} moved")
+    same_fields(f"{label} capacity route", routed.states, uni.states)
+    log(f"  R={replicas}: C {LARGE_CAPACITY} -> {uni.capacity} (kernel limit "
+        f"{cuda_kernels.kernel_capacity_limit(uni.max_mark_ops // 32)}, clusters of "
+        f"{cuda_kernels.cluster_size(uni.capacity, uni.max_mark_ops // 32)} blocks); {n} merges past one block, "
+        f"capacity_routes=0, cluster launches {cluster}; one digest; {samples + 1} replicas' spans equal the "
+        f"oracle's; merge ms on the cluster kernels " + " ".join(f"{1e3 * t:.4f}" for t in times)
+        + f"; the same merges on the capacity route (limit lowered to {LARGE_CAPACITY}, "
+        f"capacity_routes={routed.stats['capacity_routes']}, all 13 fields equal) "
+        + " ".join(f"{1e3 * t:.4f}" for t in route_times))
+    del uni, routed
     torch.cuda.empty_cache()
-    return {"launches": launches}
+    return {"launches": launches, "merge_ms": [1e3 * t for t in times],
+            "route_ms": [1e3 * t for t in route_times]}
 
 
 @contextlib.contextmanager
@@ -2364,6 +2480,11 @@ def main() -> int:
     with resilience("phase 3"):
         phase_large_shape(REPLICAS, runs=10)
     log_peak("phase 3")
+    t = time.perf_counter()
+    with resilience("phase 3b"):
+        cluster_results = phase_cluster(runs=10)
+    log_peak("phase 3b")
+    log(f"phase 3b took {time.perf_counter() - t:.1f} s")
     with resilience("phase 4"):
         main = phase_main_path("phase 4", REPLICAS, DOC_LEN, WRITERS, ROUNDS, 2048, 1024,
                                samples=8, seed=1, scan=True)
@@ -2425,6 +2546,7 @@ def main() -> int:
     log_peak("phase 18")
     runs = (main, past, sorted_run, window, serving, resilient, patched_sorted, patched_window, served_sorted,
             capacity, sharded, streamed, drivers)
+    results.update({f"{name}_cluster": r for name, r in cluster_results.items()})
     launches = {name: sum(run["launches"].get(name, 0) for run in runs) for name in results}
     log("phase 19: resilience counts (launch_retries, fastfails, degraded_batches) per phase and leg: " + "; ".join(
         f"{lbl} {got['launch_retries']}/{got['fastfails']}/{got['degraded_batches']}" for lbl, got in PHASE_TALLIES))
@@ -2435,12 +2557,14 @@ def main() -> int:
         "text_phase": "peritext_tpu/ops/pallas_kernels.py:152",
         "mark_phase": "peritext_tpu/ops/pallas_kernels.py:331",
     }
+    # Each kernel's two forms, one block and a cluster, from one source;
+    # the cluster form's numbers are phase 3b's at C = 32768.
     kernels = [
         {
             "name": name,
             "route": "cuda",
-            "source": f"peritext_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces[name],
+            "source": f"peritext_tpu_torch/csrc/{name.removesuffix('_cluster')}.cu",
+            "replaces": replaces[name.removesuffix("_cluster")],
             "launches": launches[name],
             "max_abs_err": r["err"],
             "ms": r["ms"],

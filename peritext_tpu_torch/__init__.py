@@ -13,8 +13,10 @@ plain torch on the card) with the kernels' exact merge as its fallback.
 reference patch stream through the exact per-op loop (``ops/kernels.py``)
 by default, and under ``PERITEXT_MERGE_PATH=sorted`` through the JAX
 package's default patch route, the patched sorted and windowed merges
-(``ops/sorted_patched.py``).  A universe past the kernels' capacity merges
-on the sorted route (``stats["capacity_routes"]``).
+(``ops/sorted_patched.py``).  Past C = 16384 each replica runs on a
+thread-block cluster of 2, 4 or 8 blocks; a universe past the kernels'
+capacity (C = 131072) merges on the sorted route
+(``stats["capacity_routes"]``).
 Every launch runs under the JAX universe's retry, breaker and degrade
 policy; ``runtime/`` holds the serving plane (``ServePlane``) and its
 sharded tier (``ShardedServePlane`` with doc groups over pub/sub, live

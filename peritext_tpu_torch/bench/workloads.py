@@ -6,7 +6,8 @@
 same generator to chained rounds, ``build_device_batch`` encodes a
 workload into the stacked device batch the merge kernels take, and
 ``doc_session`` drives live document replicas through random edits, each
-held against an oracle twin.  ``WireAuthor`` and ``wire_rounds`` write
+held against an oracle twin.  ``slice_edge_batch`` makes random states and
+op rows aimed at the slice edges of the kernels' cluster form.  ``WireAuthor`` and ``wire_rounds`` write
 changes out in wire format with named element ids, for documents too long
 for the oracle's O(n) index walks to author quickly (past 16k chars).
 """
@@ -32,7 +33,7 @@ from peritext_tpu_torch.ops.encode import (
     pad_rows,
     split_rows,
 )
-from peritext_tpu_torch.ops.state import make_empty_state, map_state
+from peritext_tpu_torch.ops.state import make_empty_state, map_state, state_from_numpy
 from peritext_tpu_torch.oracle import Doc, accumulate_patches
 
 def _writer_changes(
@@ -469,6 +470,101 @@ def insert_heavy_text_ops(rng: np.random.Generator, st, num_ops: int, buf_len: i
     )
     char_buf = rng.integers(32, 0x10FFFF, size=(r, buf_len)).astype(np.int32)
     return torch.from_numpy(ops), torch.from_numpy(char_buf)
+
+
+def _near_edges(rng: np.random.Generator, length: np.ndarray, blocks: int, edge: int, shape) -> np.ndarray:
+    """Positions [R, N]: 80% within MAX_RUN_LEN + 8 slots of a slice edge
+    (70%) or of the document's end, the rest anywhere in it; -1 where the
+    draw is not a live element."""
+    r, n = shape
+    near_edge = edge * rng.integers(1, max(blocks, 2), size=shape) if blocks > 1 else np.zeros(shape, np.int64)
+    centre = np.where((rng.random(shape) < 0.7) & (blocks > 1), near_edge, length[:, None])
+    near = centre + rng.integers(-(K.MAX_RUN_LEN + 8), 8, size=shape)
+    anywhere = (rng.random(shape) * length[:, None]).astype(np.int64)
+    pos = np.where(rng.random(shape) < 0.8, near, anywhere)
+    return np.where((pos >= 0) & (pos < length[:, None]), pos, -1)
+
+
+def slice_edge_batch(
+    rng: np.random.Generator,
+    replicas: int,
+    capacity: int,
+    max_mark_ops: int,
+    blocks: int,
+    text_rows: int = 64,
+    mark_rows: int = 16,
+    buf_len: int = 128,
+    device: str | torch.device = "cpu",
+) -> Dict[str, Any]:
+    """Random replica states and op rows aimed at the slice edges of the
+    kernels' cluster form (``blocks`` equal slices of ``capacity``).  Each
+    document ends near an edge or near C; references, delete targets and
+    mark anchors lie near an edge or the document's end (``_near_edges``),
+    5% of references are absent; a quarter of the inserts carry small
+    counters, so their skip runs cross edges; a third of the runs are
+    MAX_RUN_LEN long; a quarter of the replicas start with M - 3 marks, so
+    their tables overflow.  Returns what ``build_device_batch`` returns."""
+    r, c = replicas, capacity
+    edge = c // blocks
+    ends = np.array([edge * k + d for k in range(1, blocks) for d in (-40, 0, 30)] + [c - 200, c - 20])
+    length = ends[rng.integers(0, len(ends), size=r)].astype(np.int32)
+    live = np.arange(c)[None, :] < length[:, None]
+    ec = np.zeros((r, c), np.int32)
+    for i in range(r):
+        ec[i, : length[i]] = rng.permutation(4 * c)[: length[i]] + 1
+    ea = np.where(live, rng.integers(0, 5, size=(r, c)), 0).astype(np.int32)
+    words = max_mark_ops // 32
+    table = np.zeros((r, max_mark_ops), np.int32)
+    fields = {
+        "elem_ctr": ec,
+        "elem_act": ea,
+        "deleted": (rng.random((r, c)) < 0.3) & live,
+        "chars": np.where(live, rng.integers(32, 0x10FFFF, size=(r, c)), 0).astype(np.int32),
+        "bnd_def": rng.random((r, 2 * c)) < 0.2,
+        "bnd_mask": rng.integers(0, 2**32, size=(r, 2 * c, words), dtype=np.uint32),
+        "mark_ctr": table, "mark_act": table, "mark_action": table, "mark_type": table, "mark_attr": table,
+        "length": length,
+        "mark_count": np.where(rng.random(r) < 0.25, max_mark_ops - 3, 0).astype(np.int32),
+    }
+
+    def refs(shape):
+        pos = _near_edges(rng, length, blocks, edge, shape)
+        at = np.clip(pos, 0, c - 1)
+        ctr = np.where(pos >= 0, np.take_along_axis(ec, at, 1), 0)
+        act = np.where(pos >= 0, np.take_along_axis(ea, at, 1), 0)
+        absent = rng.random(shape) < 0.05
+        return np.where(absent, 999_999, ctr), np.where(absent, 3, act)
+
+    shape = (r, text_rows)
+    text = np.zeros((r, text_rows, K.OP_FIELDS), np.int32)
+    kind = rng.choice([K.KIND_PAD, K.KIND_INSERT, K.KIND_INSERT_RUN, K.KIND_DELETE, K.KIND_DELETE], size=shape)
+    run = kind == K.KIND_INSERT_RUN
+    text[..., K.K_KIND] = kind
+    text[..., K.K_CTR] = np.where(rng.random(shape) < 0.25, rng.integers(1, 64, size=shape),
+                                  rng.integers(4 * c, 8 * c, size=shape))
+    text[..., K.K_ACT] = rng.integers(0, 5, size=shape)
+    text[..., K.K_REF_CTR], text[..., K.K_REF_ACT] = refs(shape)
+    text[..., K.K_RUN_LEN] = np.where(
+        run, np.where(rng.random(shape) < 0.33, K.MAX_RUN_LEN, rng.integers(1, K.MAX_RUN_LEN, size=shape)), 0)
+    text[..., K.K_PAYLOAD] = np.where(run, rng.integers(0, buf_len - K.MAX_RUN_LEN, size=shape),
+                                      rng.integers(32, 127, size=shape))
+    shape = (r, mark_rows)
+    marks = np.zeros((r, mark_rows, K.OP_FIELDS), np.int32)
+    marks[..., K.K_KIND] = np.where(rng.random(shape) < 0.85, K.KIND_MARK, K.KIND_PAD)
+    marks[..., K.K_CTR] = rng.integers(1, 1000, size=shape)
+    marks[..., K.K_ACT] = rng.integers(0, 5, size=shape)
+    marks[..., K.K_SKIND] = rng.integers(0, 2, size=shape)
+    marks[..., K.K_EKIND] = rng.integers(0, 3, size=shape)
+    marks[..., K.K_SCTR], marks[..., K.K_SACT] = refs(shape)
+    marks[..., K.K_ECTR], marks[..., K.K_EACT] = refs(shape)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return {
+        "states": state_from_numpy(fields, device=device),
+        "text_ops": to(text),
+        "char_buf": to(rng.integers(32, 0x10FFFF, size=(r, buf_len)).astype(np.int32)),
+        "mark_ops": to(marks),
+        "ranks": to(rng.permutation(64).astype(np.int32)),
+    }
 
 
 def text_row_mix(text_ops: torch.Tensor, char_buf: Optional[torch.Tensor]) -> str:

@@ -1,8 +1,10 @@
 // Shared pieces of the merge kernels: the op-row layout (the same fields as
-// peritext_tpu_torch/ops/kernels.py) and block-wide integer reductions.
+// peritext_tpu_torch/ops/kernels.py), block-wide integer reductions and the
+// cluster-wide one of the kernels' cluster forms.
 #pragma once
 
 #include <climits>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -74,5 +76,56 @@ __device__ __forceinline__ void block_max2(int& a, int& b, int* scratch) {
   a = -a;
   b = -b;
 }
+
+// Blocks a replica may span in the kernels' cluster forms (the portable
+// cluster size).
+constexpr int MAX_CLUSTER = 8;
+
+// Cluster-wide min of two ints, each already uniform within its block:
+// thread s of every block writes the block's pair into slot [rank] of block
+// s's ``slots`` ([MAX_CLUSTER][2] ints, distributed shared memory), then one
+// cluster barrier; every thread gets both results.  The caller guarantees
+// another cluster barrier before the same ``slots`` are written again.
+__device__ __forceinline__ void cluster_min2(int& a, int& b, int* slots) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned n = cluster.num_blocks();
+  if (threadIdx.x < n) {
+    int* dst = cluster.map_shared_rank(slots, threadIdx.x);
+    const unsigned rank = cluster.block_rank();
+    dst[2 * rank] = a;
+    dst[2 * rank + 1] = b;
+  }
+  cluster.sync();
+  a = INT_MAX;
+  b = INT_MAX;
+  for (unsigned s = 0; s < n; ++s) {
+    a = min(a, slots[2 * s]);
+    b = min(b, slots[2 * s + 1]);
+  }
+}
+
+// The launch configuration of a kernel's cluster form: ``replicas``
+// clusters of ``blocks`` blocks (grid R * S, cluster S x 1 x 1).  The
+// configuration points at the attribute held beside it, so it is used in
+// place, never copied.
+struct ClusterLaunch {
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attr[1] = {};
+  ClusterLaunch(int replicas, int blocks, int threads, size_t smem, cudaStream_t stream) {
+    config.gridDim = dim3(static_cast<unsigned>(replicas) * blocks);
+    config.blockDim = dim3(threads);
+    config.dynamicSmemBytes = smem;
+    config.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+  ClusterLaunch& operator=(const ClusterLaunch&) = delete;
+};
 
 }  // namespace pt

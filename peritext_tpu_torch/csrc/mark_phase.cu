@@ -1,5 +1,7 @@
 // Mark phase of the exact merge: addMark/removeMark ops applied to the
-// boundary bitsets in op order, one thread block per replica.
+// boundary bitsets in op order, one thread block per replica -- or, past
+// what one block's shared memory holds, one thread-block cluster per
+// replica.
 //
 // Replaces: peritext_tpu/ops/pallas_kernels.py, _mark_kernel (entry
 // mark_phase_pallas).  Semantics follow kernels._apply_mark_fast
@@ -32,6 +34,25 @@
 // ids live in shared memory, so anchor resolution and the carry searches
 // read no device memory: 10 bytes per element (ids 8, definedness one byte
 // per slot), so C = 16384 with W = 32 takes 164,352 bytes.
+//
+// The cluster form (16384 < C <= 131072): a replica runs on a cluster of S
+// = 2, 4 or 8 blocks (the wrapper's choice, the fewest that fit); block
+// rank k holds elements [k * C / S, (k + 1) * C / S) and their boundary
+// slots, the same 10 bytes an element, and copies and updates only its own
+// rows of the mask plane.  Every block runs the op chain in lockstep with
+// `m` and the anchors replicated.  Per op, as the explicit sequence-parallel
+// merge of peritext_tpu/parallel/shard.py does across devices:
+//   - first_match of the start and end elements: a local search, then a
+//     cluster-wide min (its pmin);
+//   - each carry row's source, the nearest defined slot at or left of an
+//     anchor: a local scan, then a cluster-wide max over the blocks'
+//     candidates (its all_gather of per-shard summaries, reduced);
+//   - the block that holds an anchor slot reads its carry row from device
+//     memory (through L2: another block may have written it), then a
+//     cluster barrier, so every carry row is read before any block writes;
+//   - the column bits and the anchor rows: each block writes only its own
+//     slots.
+// So a mark op costs three cluster barriers.
 
 #include "common.cuh"
 
@@ -39,6 +60,12 @@ namespace {
 
 using namespace pt;
 
+// One replica per block (CLUSTER false), or per cluster (CLUSTER true:
+// block rank k of the cluster holds elements [k * cs, (k + 1) * cs) and
+// slots [2 * k * cs, 2 * (k + 1) * cs), cs = C / S).  Element and slot
+// positions are global in both forms; shared arrays are indexed from the
+// block's first.
+template <bool CLUSTER = false>
 __global__ void __launch_bounds__(THREADS) mark_phase_kernel(
     const uint8_t* __restrict__ def_in, const int* mask_in,
     const int* __restrict__ ec_in, const int* __restrict__ ea_in,
@@ -46,59 +73,81 @@ __global__ void __launch_bounds__(THREADS) mark_phase_kernel(
     const int* __restrict__ ops, int num_ops, uint8_t* __restrict__ def_out,
     int* mask_out, int cap, int words) {
   extern __shared__ int smem[];
+  int nblk = 1, rank = 0;
+  if constexpr (CLUSTER) {
+    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+    nblk = static_cast<int>(cluster.num_blocks());
+    rank = static_cast<int>(cluster.block_rank());
+  }
+  const int cs = cap / nblk;  // elements this block holds, from e0
+  const int e0 = rank * cs;
+  const int s0 = 2 * e0;      // its slots: [s0, s0 + 2 * cs)
   const int two_c = 2 * cap;
   int* ec = smem;
-  int* ea = ec + cap;
-  int* row_s = ea + cap;
+  int* ea = ec + cs;
+  int* row_s = ea + cs;
   int* row_e = row_s + words;
   int* scratch = row_e + words;
-  uint8_t* def = reinterpret_cast<uint8_t*>(scratch + SCRATCH_INTS);  // one byte per slot
+  // Cluster form only: two cluster_min2 areas.
+  int* cslots = scratch + SCRATCH_INTS;  // [2][2 * MAX_CLUSTER]
+  uint8_t* def = reinterpret_cast<uint8_t*>(scratch + SCRATCH_INTS + (CLUSTER ? 4 * MAX_CLUSTER : 0));
 
-  const int r = blockIdx.x;
+  const int r = blockIdx.x / nblk;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const size_t plane = static_cast<size_t>(two_c) * words;
+  const size_t slice = static_cast<size_t>(2 * cs) * words;  // this block's rows
   int* mask = mask_out + r * plane;
 
   if (mask_in != mask_out) {
-    const int* src = mask_in + r * plane;
-    const uintptr_t both = reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(mask);
-    if (plane % 4 == 0 && both % 16 == 0) {
+    const int* src = mask_in + r * plane + s0 * static_cast<size_t>(words);
+    int* dst = mask + s0 * static_cast<size_t>(words);
+    const uintptr_t both = reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst);
+    if (slice % 4 == 0 && both % 16 == 0) {
       const int4* s4 = reinterpret_cast<const int4*>(src);
-      int4* d4 = reinterpret_cast<int4*>(mask);
-      for (size_t i = tid; i < plane / 4; i += nt) d4[i] = s4[i];
+      int4* d4 = reinterpret_cast<int4*>(dst);
+      for (size_t i = tid; i < slice / 4; i += nt) d4[i] = s4[i];
     } else {
-      for (size_t i = tid; i < plane; i += nt) mask[i] = src[i];
+      for (size_t i = tid; i < slice; i += nt) dst[i] = src[i];
     }
   }
-  for (int p = tid; p < two_c; p += nt) {
-    def[p] = def_in[static_cast<size_t>(r) * two_c + p] != 0;
+  for (int p = tid; p < 2 * cs; p += nt) {
+    def[p] = def_in[static_cast<size_t>(r) * two_c + s0 + p] != 0;
   }
-  for (int p = tid; p < cap; p += nt) {
-    ec[p] = ec_in[static_cast<size_t>(r) * cap + p];
-    ea[p] = ea_in[static_cast<size_t>(r) * cap + p];
+  for (int p = tid; p < cs; p += nt) {
+    ec[p] = ec_in[static_cast<size_t>(r) * cap + e0 + p];
+    ea[p] = ea_in[static_cast<size_t>(r) * cap + e0 + p];
   }
   const int length = len_in[r];
   const int live_slots = 2 * length;
   const int big = two_c + 2;
   int m = mc_in[r];
-  __syncthreads();
+  // Elements [e0, e_end) are live; slots [s0, s_end) lie in the defined zone.
+  const int e_end = min(min(length, cap), e0 + cs);
+  const int s_end = min(min(two_c, live_slots), s0 + 2 * cs);
+  // Every block's rows are copied before any block reads a carry row.
+  if constexpr (CLUSTER) {
+    cooperative_groups::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
 
   const int* rops = ops + static_cast<size_t>(r) * num_ops * OP_FIELDS;
   for (int l = 0; l < num_ops; ++l) {
     const int* op = rops + l * OP_FIELDS;
-    if (op[K_KIND] != KIND_MARK) continue;  // uniform per block
+    if (op[K_KIND] != KIND_MARK) continue;  // uniform per replica
 
     // Anchors: first live match of each, 0 when absent.
     const int sctr = op[K_SCTR], sact = op[K_SACT];
     const int ectr = op[K_ECTR], eact = op[K_EACT];
     int fs = cap, fe = cap;
-    for (int p = tid; p < length && p < cap; p += nt) {
-      const int c = ec[p], a = ea[p];
+    for (int p = e0 + tid; p < e_end; p += nt) {
+      const int c = ec[p - e0], a = ea[p - e0];
       if (c == sctr && a == sact && p < fs) fs = p;
       if (c == ectr && a == eact && p < fe) fe = p;
     }
     block_min2(fs, fe, scratch);
+    if constexpr (CLUSTER) cluster_min2(fs, fe, cslots);
     const int s_slot = 2 * (fs == cap ? 0 : fs) + op[K_SKIND];
     const int ekind = op[K_EKIND];
     int e_slot = ekind == 2 ? big : 2 * (fe == cap ? 0 : fe) + (ekind < 1 ? ekind : 1);
@@ -107,34 +156,57 @@ __global__ void __launch_bounds__(THREADS) mark_phase_kernel(
 
     // Carry sources: nearest defined slot at or left of s and of e.
     int src_s = -1, src_e = -1;
-    for (int p = tid; p < two_c && p < live_slots; p += nt) {
-      if (def[p]) {
+    for (int p = s0 + tid; p < s_end; p += nt) {
+      if (def[p - s0]) {
         if (p <= s_slot) src_s = p;
         if (p <= e_clamped) src_e = p;
       }
     }
     block_max2(src_s, src_e, scratch);
-    for (int w = tid; w < words; w += nt) {
-      row_s[w] = src_s >= 0 ? mask[static_cast<size_t>(src_s) * words + w] : 0;
-      row_e[w] = src_e >= 0 ? mask[static_cast<size_t>(src_e) * words + w] : 0;
+    if constexpr (CLUSTER) {
+      src_s = -src_s;
+      src_e = -src_e;
+      cluster_min2(src_s, src_e, cslots + 2 * MAX_CLUSTER);
+      src_s = -src_s;
+      src_e = -src_e;
     }
-    __syncthreads();
-
-    // The three write classes touch disjoint words: (s, e), s, e.
+    // The three write classes touch disjoint words: (s, e), s, e; each
+    // block writes those of its own slots.
     const int word = m >> 5;
     const unsigned bit = 1u << (m & 31);
-    const bool write_s = s_slot < e_slot;
-    const bool write_e = e_slot < two_c;
-    if (write_s) {
+    const bool write_s = s_slot < e_slot && s_slot >= s0 && s_slot < s0 + 2 * cs;
+    const bool write_e = e_slot < two_c && e_slot >= s0 && e_slot < s0 + 2 * cs;
+    if constexpr (CLUSTER) {
+      // Only a block that writes an anchor row reads its carry row, through
+      // L2 (another block may have written it), and every block has read
+      // before any block writes.
+      for (int w = tid; write_s && w < words; w += nt) {
+        row_s[w] = src_s >= 0 ? __ldcg(mask + static_cast<size_t>(src_s) * words + w) : 0;
+      }
+      for (int w = tid; write_e && w < words; w += nt) {
+        row_e[w] = src_e >= 0 ? __ldcg(mask + static_cast<size_t>(src_e) * words + w) : 0;
+      }
+      cooperative_groups::this_cluster().sync();
+    } else {
+      for (int w = tid; w < words; w += nt) {
+        row_s[w] = src_s >= 0 ? mask[static_cast<size_t>(src_s) * words + w] : 0;
+        row_e[w] = src_e >= 0 ? mask[static_cast<size_t>(src_e) * words + w] : 0;
+      }
+      __syncthreads();
+    }
+
+    if (s_slot < e_slot) {
       if (word < words) {
-        const int hi = min(e_slot, min(live_slots, two_c));
-        for (int p = s_slot + 1 + tid; p < hi; p += nt) {
-          if (def[p]) {
+        const int hi = min(e_slot, s_end);
+        for (int p = max(s_slot + 1, s0) + tid; p < hi; p += nt) {
+          if (def[p - s0]) {
             int* cell = mask + static_cast<size_t>(p) * words + word;
             *cell = static_cast<int>(static_cast<unsigned>(*cell) | bit);
           }
         }
       }
+    }
+    if (write_s) {
       for (int w = tid; w < words; w += nt) {
         const unsigned v = static_cast<unsigned>(row_s[w]) | (w == word ? bit : 0u);
         mask[static_cast<size_t>(s_slot) * words + w] = static_cast<int>(v);
@@ -146,47 +218,90 @@ __global__ void __launch_bounds__(THREADS) mark_phase_kernel(
       }
     }
     if (tid == 0) {
-      if (write_s) def[s_slot] = 1;
-      if (write_e) def[e_slot] = 1;
+      if (write_s) def[s_slot - s0] = 1;
+      if (write_e) def[e_slot - s0] = 1;
     }
     ++m;
     __syncthreads();
   }
 
-  for (int p = tid; p < two_c; p += nt) {
-    def_out[static_cast<size_t>(r) * two_c + p] = static_cast<uint8_t>(def[p]);
+  for (int p = tid; p < 2 * cs; p += nt) {
+    def_out[static_cast<size_t>(r) * two_c + s0 + p] = static_cast<uint8_t>(def[p]);
   }
+  // No block leaves while another may still write into its cluster_min2
+  // areas.
+  if constexpr (CLUSTER) cooperative_groups::this_cluster().sync();
+}
+
+// Shared memory of one block holding ``cap / blocks`` elements; a
+// cluster's block adds two areas of cluster_min2 slots.
+size_t smem_bytes(int cap, int words, int blocks) {
+  const size_t cs = static_cast<size_t>(cap / blocks);
+  return (2 * cs + 2 * static_cast<size_t>(words) + SCRATCH_INTS +
+          (blocks > 1 ? 4 * MAX_CLUSTER : 0)) * sizeof(int) +
+         2 * cs;
+}
+
+// The cluster form takes 2, 4 or 8 blocks that split C evenly.
+bool cluster_shape_ok(int cap, int blocks) {
+  return (blocks == 2 || blocks == 4 || blocks == 8) && cap % blocks == 0;
 }
 
 }  // namespace
 
-extern "C" size_t pt_mark_phase_smem(int cap, int words) {
-  return (2 * static_cast<size_t>(cap) + 2 * static_cast<size_t>(words) + SCRATCH_INTS) *
-             sizeof(int) +
-         2 * static_cast<size_t>(cap);
+extern "C" size_t pt_mark_phase_smem(int cap, int words, int blocks) {
+  return smem_bytes(cap, words, blocks);
 }
 
-// Launches the mark phase on ``stream``; returns the CUDA error code of the
-// launch (0 on success).  Planes: def [R, 2C] uint8, mask [R, 2C, W] int32
-// (mask_out may equal mask_in for an in-place update), element ids [R, C],
-// length and mark count [R], ops [R, L, 15].
+// Clusters of ``blocks`` blocks at capacity ``cap`` and ``words`` mask words
+// the card can hold at once (cudaOccupancyMaxActiveClusters) into
+// ``count``; returns the CUDA error code (0 on success).
+extern "C" int pt_mark_phase_max_clusters(int cap, int words, int blocks, int* count) {
+  *count = 0;
+  if (!cluster_shape_ok(cap, blocks)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(cap, words, blocks);
+  cudaError_t err = cudaFuncSetAttribute(
+      mark_phase_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ClusterLaunch cl(1, blocks, THREADS, smem, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(count, mark_phase_kernel<true>, &cl.config));
+}
+
+// Launches the mark phase on ``stream``: one block per replica when
+// ``blocks`` is 1, else a cluster of ``blocks`` blocks per replica; returns
+// the CUDA error code of the launch (0 on success).  Planes: def [R, 2C]
+// uint8, mask [R, 2C, W] int32 (mask_out may equal mask_in for an in-place
+// update), element ids [R, C], length and mark count [R], ops [R, L, 15].
 extern "C" int pt_mark_phase(
     const void* def_in, const void* mask_in, const void* ec_in, const void* ea_in,
     const void* len_in, const void* mc_in, const void* ops, int num_ops,
-    void* def_out, void* mask_out, int replicas, int cap, int words,
+    void* def_out, void* mask_out, int replicas, int cap, int words, int blocks,
     void* stream) {
   if (replicas == 0) return 0;
-  const size_t smem = pt_mark_phase_smem(cap, words);
+  if (blocks != 1 && !cluster_shape_ok(cap, blocks)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(cap, words, blocks);
+  const auto kernel = blocks == 1 ? mark_phase_kernel<false> : mark_phase_kernel<true>;
   cudaError_t err = cudaFuncSetAttribute(
-      mark_phase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  mark_phase_kernel<<<replicas, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(def_in), static_cast<const int*>(mask_in),
-      static_cast<const int*>(ec_in), static_cast<const int*>(ea_in),
-      static_cast<const int*>(len_in), static_cast<const int*>(mc_in),
-      static_cast<const int*>(ops), num_ops, static_cast<uint8_t*>(def_out),
-      static_cast<int*>(mask_out), cap, words);
+  const auto* d_in = static_cast<const uint8_t*>(def_in);
+  const auto* m_in = static_cast<const int*>(mask_in);
+  const auto* c_in = static_cast<const int*>(ec_in);
+  const auto* a_in = static_cast<const int*>(ea_in);
+  const auto* l_in = static_cast<const int*>(len_in);
+  const auto* n_in = static_cast<const int*>(mc_in);
+  const auto* o_in = static_cast<const int*>(ops);
+  auto* d_out = static_cast<uint8_t*>(def_out);
+  auto* m_out = static_cast<int*>(mask_out);
+  if (blocks == 1) {
+    mark_phase_kernel<false><<<replicas, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        d_in, m_in, c_in, a_in, l_in, n_in, o_in, num_ops, d_out, m_out, cap, words);
+  } else {
+    ClusterLaunch cl(replicas, blocks, THREADS, smem, static_cast<cudaStream_t>(stream));
+    err = cudaLaunchKernelEx(&cl.config, mark_phase_kernel<true>, d_in, m_in, c_in, a_in, l_in,
+                             n_in, o_in, num_ops, d_out, m_out, cap, words);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

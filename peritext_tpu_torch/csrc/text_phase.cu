@@ -1,5 +1,6 @@
 // Text phase of the exact merge: RGA inserts, fused insert runs and deletes,
-// applied in op order, one thread block per replica.
+// applied in op order, one thread block per replica -- or, past what one
+// block's shared memory holds, one thread-block cluster per replica.
 //
 // Replaces: peritext_tpu/ops/pallas_kernels.py, _text_kernel (entry
 // text_phase_pallas).  Semantics follow kernels._apply_text_op /
@@ -52,7 +53,28 @@
 // Shared memory is 12 * C bytes plus the tiles and tables: C = 2048 takes
 // 27,904 bytes (eight blocks of 128 threads per SM, so 1024 replicas run in
 // one wave) and C = 16384 takes 209,152 bytes; C = 32768 does not fit one
-// block and the wrapper refuses it.
+// block.
+//
+// The cluster form (16384 < C <= 131072): a replica runs on a cluster of S
+// = 2, 4 or 8 blocks (the wrapper's choice, the fewest that fit), and block
+// rank k holds slots [k * C / S, (k + 1) * C / S) -- the same 12 bytes a
+// slot, so at most what C = 16384 takes in one block, plus a halo of
+// MAX_RUN_LEN slots.  Every block runs the whole op chain in lockstep,
+// stages the op tiles itself and keeps `length`, `phys` and `shift`
+// replicated; it reads and writes only its own slots.  What crosses blocks
+// goes through distributed shared memory, as the explicit sequence-parallel
+// merge of peritext_tpu/parallel/shard.py does across devices:
+//   - the reference find and the RGA stop are a local search, then a
+//     cluster-wide min (its pmin over the `seq` ring);
+//   - an insert of k <= MAX_RUN_LEN elements first writes every block's
+//     last k slots into the next block's halo, then one cluster barrier,
+//     then each block shifts its own slots and takes the halo in at its
+//     head (its ppermute halo exchange);
+//   - a delete run needs no exchange: every block builds the run's table
+//     from the same tile and probes its own slots.
+// So an insert costs three cluster barriers and a delete run none.  With S
+// = 1 (the template's one-block instantiation) the slice is the plane and
+// every cluster step compiles away.
 
 #include "common.cuh"
 
@@ -82,10 +104,17 @@ __host__ __device__ constexpr int threads_for(int cap) {
   return cap <= 2048 ? 128 : cap <= 4096 ? 256 : cap <= 8192 ? 512 : 1024;
 }
 
-__host__ __device__ constexpr size_t smem_bytes(int cap) {
-  return 12 * static_cast<size_t>(cap) +
-         static_cast<size_t>(tile_rows(cap)) * (2 * TILE_FIELDS * 4 + 4 * 12) +
-         2 * SCRATCH * 4;
+// The cluster form's block size: its slices are over 8192 slots.
+constexpr int CLUSTER_THREADS = 1024;
+
+// Shared memory of one block holding ``cap / blocks`` slots; a cluster's
+// block adds the halo (MAX_RUN_LEN ids and source words) and two areas of
+// cluster_min2 slots.
+__host__ __device__ constexpr size_t smem_bytes(int cap, int blocks = 1) {
+  return 12 * static_cast<size_t>(cap / blocks) +
+         static_cast<size_t>(tile_rows(cap / blocks)) * (2 * TILE_FIELDS * 4 + 4 * 12) +
+         2 * SCRATCH * 4 +
+         (blocks > 1 ? MAX_RUN_LEN * 12 + 2 * 2 * MAX_CLUSTER * 4 : 0);
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -125,6 +154,18 @@ __device__ __forceinline__ int block_min_once(int v, int* scratch) {
   return m;
 }
 
+// The min over a replica's blocks: block-wide, then in the cluster form
+// cluster-wide through ``cslots`` (a cluster_min2 area).
+template <int NT, bool CLUSTER>
+__device__ __forceinline__ int replica_min(int v, int* scratch, int* cslots) {
+  v = block_min_once<NT>(v, scratch);
+  if constexpr (CLUSTER) {
+    int unused = INT_MAX;
+    cluster_min2(v, unused, cslots);
+  }
+  return v;
+}
+
 // Multiplicative hash: the top `bits` bits of the mixed id.
 __device__ __forceinline__ unsigned slot_hash(int c, int a, int bits) {
   return (static_cast<unsigned>(c) * 0x9E3779B1u + static_cast<unsigned>(a) * 0x85EBCA77u) >>
@@ -159,7 +200,46 @@ __device__ __forceinline__ bool greater(int2 e, int ctr, int op_rank, const int*
   return e.x > ctr || (e.x == ctr && __ldg(ranks + clampi(e.y, 0, num_ranks - 1)) > op_rank);
 }
 
+// Slots [bottom, top) of a block take the slot k to their left, top down,
+// NT * SHIFT_ITEMS slots per barrier.  A chunk reads below its own
+// destination range, so it never reads what a higher chunk wrote; the next
+// lower chunk writes only after its own barrier, which no thread passes
+// before every thread has finished this chunk's reads.  Returns whether any
+// chunk ran (and so passed a barrier).
 template <int NT>
+__device__ __forceinline__ bool shift_right(int2* id, unsigned* src, int bottom, int top, int k) {
+  bool moved = false;
+  for (; k > 0 && top > bottom; top -= NT * SHIFT_ITEMS) {
+    int2 v[SHIFT_ITEMS];
+    unsigned s[SHIFT_ITEMS];
+#pragma unroll
+    for (int u = 0; u < SHIFT_ITEMS; ++u) {
+      const int p = top - 1 - threadIdx.x - u * NT;
+      if (p >= bottom) {
+        v[u] = id[p - k];
+        s[u] = src[p - k];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < SHIFT_ITEMS; ++u) {
+      const int p = top - 1 - threadIdx.x - u * NT;
+      if (p >= bottom) {
+        id[p] = v[u];
+        src[p] = s[u];
+      }
+    }
+    moved = true;
+  }
+  return moved;
+}
+
+// One replica per block (CLUSTER false), or per cluster of gridDim-aligned
+// blocks (CLUSTER true: block rank k of the cluster holds slots
+// [k * cs, (k + 1) * cs), cs = C / S).  Positions, `length`, `phys` and
+// `shift` are global slot indices in both forms; a block's shared arrays
+// are indexed by slot - lo.
+template <int NT, bool CLUSTER = false>
 __global__ void __launch_bounds__(NT, 1024 / NT) text_phase_kernel(
     const int* __restrict__ ec_in, const int* __restrict__ ea_in,
     const uint8_t* __restrict__ dl_in, const int* __restrict__ ch_in,
@@ -170,26 +250,41 @@ __global__ void __launch_bounds__(NT, 1024 / NT) text_phase_kernel(
     uint8_t* __restrict__ dl_out, int* __restrict__ ch_out,
     int* __restrict__ oi_out, int* __restrict__ len_out, int cap) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int tile = tile_rows(cap);
+  int nblk = 1, rank = 0;
+  if constexpr (CLUSTER) {
+    cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+    nblk = static_cast<int>(cluster.num_blocks());
+    rank = static_cast<int>(cluster.block_rank());
+  }
+  const int cs = cap / nblk;  // slots this block holds: [lo, hi)
+  const int lo = rank * cs;
+  const int hi = lo + cs;
+  const int tile = tile_rows(cs);
   const int tsize = 4 * tile;  // hash slots, a power of two
   const int tbits = __ffs(tsize) - 1;
-  int2* id = reinterpret_cast<int2*>(smem);               // [C] (ctr, act)
-  int2* tkey = id + cap;                                  // [tsize]
-  unsigned* src = reinterpret_cast<unsigned*>(tkey + tsize);  // [C]
-  int* tiles = reinterpret_cast<int*>(src + cap);         // [2][tile * TILE_FIELDS]
+  int2* id = reinterpret_cast<int2*>(smem);               // [cs] (ctr, act)
+  int2* tkey = id + cs;                                   // [tsize]
+  unsigned* src = reinterpret_cast<unsigned*>(tkey + tsize);  // [cs]
+  int* tiles = reinterpret_cast<int*>(src + cs);          // [2][tile * TILE_FIELDS]
   int* ttag = tiles + 2 * tile * TILE_FIELDS;             // [tsize]
   int* scratch = ttag + tsize;                            // [2][SCRATCH]
+  // Cluster form only: the halo the previous block writes (ids and source
+  // words of its last MAX_RUN_LEN slots) and two cluster_min2 areas.
+  int2* halo_id = reinterpret_cast<int2*>(scratch + 2 * SCRATCH);  // [MAX_RUN_LEN]
+  unsigned* halo_src = reinterpret_cast<unsigned*>(halo_id + MAX_RUN_LEN);  // [MAX_RUN_LEN]
+  int* cslots = reinterpret_cast<int*>(halo_src + MAX_RUN_LEN);    // [2][2 * MAX_CLUSTER]
 
-  const int r = blockIdx.x;
+  const int r = blockIdx.x / nblk;
   const int tid = threadIdx.x;
   const size_t base = static_cast<size_t>(r) * cap;
+  const size_t sbase = base + lo;  // this block's slice of the row
   const int* rops = ops + static_cast<size_t>(r) * num_ops * OP_FIELDS;
   const int ntiles = (num_ops + tile - 1) / tile;
   if (ntiles > 0) stage_tile<NT>(tiles, rops, 0, min(tile, num_ops));
 
   // Groups of four slots move as 16-byte words (their tombstones as one
-  // 4-byte word) when C and every plane's alignment allow it.
-  const bool vec = cap % 4 == 0 &&
+  // 4-byte word) when the slice and every plane's alignment allow it.
+  const bool vec = cs % 4 == 0 &&
                    (reinterpret_cast<uintptr_t>(ec_in) | reinterpret_cast<uintptr_t>(ea_in) |
                     reinterpret_cast<uintptr_t>(ch_in) | reinterpret_cast<uintptr_t>(ec_out) |
                     reinterpret_cast<uintptr_t>(ea_out) | reinterpret_cast<uintptr_t>(ch_out) |
@@ -198,21 +293,22 @@ __global__ void __launch_bounds__(NT, 1024 / NT) text_phase_kernel(
   int length = len_in[r];
   int phys = min(max(length, 0), cap);  // slots [0, phys) are held in shared memory
   int shift = 0;                        // slot q >= phys holds input slot q - shift
-  const int held4 = vec ? phys / 4 : 0;
+  const int held = clampi(phys - lo, 0, cs);
+  const int held4 = vec ? held / 4 : 0;
   for (int g = tid; g < held4; g += NT) {
-    const int4 c = reinterpret_cast<const int4*>(ec_in + base)[g];
-    const int4 a = reinterpret_cast<const int4*>(ea_in + base)[g];
-    const unsigned d = reinterpret_cast<const unsigned*>(dl_in + base)[g];
+    const int4 c = reinterpret_cast<const int4*>(ec_in + sbase)[g];
+    const int4 a = reinterpret_cast<const int4*>(ea_in + sbase)[g];
+    const unsigned d = reinterpret_cast<const unsigned*>(dl_in + sbase)[g];
     reinterpret_cast<int4*>(id)[2 * g] = make_int4(c.x, a.x, c.y, a.y);
     reinterpret_cast<int4*>(id)[2 * g + 1] = make_int4(c.z, a.z, c.w, a.w);
-    const unsigned p = 4 * g;
+    const unsigned p = lo + 4 * g;
     reinterpret_cast<uint4*>(src)[g] =
         make_uint4(p | (d & 0xffu ? DEAD : 0u), (p + 1) | (d & 0xff00u ? DEAD : 0u),
                    (p + 2) | (d & 0xff0000u ? DEAD : 0u), (p + 3) | (d & 0xff000000u ? DEAD : 0u));
   }
-  for (int p = 4 * held4 + tid; p < phys; p += NT) {
-    id[p] = make_int2(ec_in[base + p], ea_in[base + p]);
-    src[p] = static_cast<unsigned>(p) | (dl_in[base + p] ? DEAD : 0u);
+  for (int p = 4 * held4 + tid; p < held; p += NT) {
+    id[p] = make_int2(ec_in[sbase + p], ea_in[sbase + p]);
+    src[p] = static_cast<unsigned>(lo + p) | (dl_in[sbase + p] ? DEAD : 0u);
   }
   for (int i = tid; i < tsize; i += NT) ttag[i] = 0;
   // Delete passes so far; pass g tags the slots it fills with g.  Two
@@ -264,7 +360,7 @@ __global__ void __launch_bounds__(NT, 1024 / NT) text_phase_kernel(
             tkey[h] = make_int2(c, a);
           }
           __syncthreads();
-          const int lim = min(length, cap);
+          const int lim = clampi(min(length, cap) - lo, 0, cs);
           for (int p0 = tid; p0 < lim; p0 += UNROLL * NT) {
             int2 e[UNROLL];
 #pragma unroll
@@ -298,7 +394,7 @@ __global__ void __launch_bounds__(NT, 1024 / NT) text_phase_kernel(
       const int ref_ctr = op[K_REF_CTR];
       const int ref_act = op[K_REF_ACT];
       const int run_len = is_run ? op[T_RUN_LEN] : 1;
-      const int lim = min(length, cap);
+      const int lim = clampi(min(length, cap) - lo, 0, cs);
 
       // Reference element: first live match, 0 when absent, -1 for HEAD.
       int idx = -1;
@@ -313,11 +409,11 @@ __global__ void __launch_bounds__(NT, 1024 / NT) text_phase_kernel(
 #pragma unroll
           for (int u = 0; u < UNROLL; ++u) {
             if (first == cap && p0 + u * NT < lim && e[u].x == ref_ctr && e[u].y == ref_act) {
-              first = p0 + u * NT;
+              first = lo + p0 + u * NT;
             }
           }
         }
-        first = block_min_once<NT>(first, scratch);
+        first = replica_min<NT, CLUSTER>(first, scratch, cslots);
         idx = first == cap ? 0 : first;
         fenced = true;
       } else if (!fenced) {
@@ -325,82 +421,103 @@ __global__ void __launch_bounds__(NT, 1024 / NT) text_phase_kernel(
         fenced = true;
       }
 
-      // Stop of the skip run: first p > idx that is dead or has a smaller id.
+      // Stop of the skip run: first p > idx that is dead or has a smaller
+      // id; each block searches its own slots from `from` on.
       const int op_rank = __ldg(ranks + clampi(act, 0, num_ranks - 1));
       const int lane = tid & 31;
+      const int from = max(idx + 1, lo);
       int t = -1;
 #pragma unroll 1
       for (int w = 0; w < STOP_WINDOW; ++w) {
-        const int p = idx + 1 + 32 * w + lane;
-        const bool stop = p >= cap || p >= length || !greater(id[p], ctr, op_rank, ranks, num_ranks);
+        const int p = from + 32 * w + lane;
+        const bool stop = p < hi ? p >= length || !greater(id[p - lo], ctr, op_rank, ranks, num_ranks)
+                                 : p >= cap;
         const unsigned hits = __ballot_sync(0xffffffffu, stop);
         if (hits) {
-          t = min(cap, idx + 1 + 32 * w + __ffs(hits) - 1);
+          t = min(cap, from + 32 * w + __ffs(hits) - 1);
           break;
         }
       }
       if (t < 0) {  // a skip run longer than the window: uniform across warps
-        int first = cap;
-        for (int p = idx + 1 + 32 * STOP_WINDOW + tid; p < cap; p += NT) {
-          if (p >= length || !greater(id[p], ctr, op_rank, ranks, num_ranks)) {
-            first = p;
-            break;
+        if (from + 32 * STOP_WINDOW < hi) {
+          int first = cap;
+          for (int p = from + 32 * STOP_WINDOW + tid; p < hi; p += NT) {
+            if (p >= length || !greater(id[p - lo], ctr, op_rank, ranks, num_ranks)) {
+              first = p;
+              break;
+            }
           }
+          t = block_min_once<NT>(first, scratch + SCRATCH);
+        } else {
+          t = cap;  // no slot of this block past the reference
         }
-        t = block_min_once<NT>(first, scratch + SCRATCH);
+      }
+      if constexpr (CLUSTER) {
+        int unused = INT_MAX;
+        cluster_min2(t, unused, cslots + 2 * MAX_CLUSTER);
       }
 
       // t lies past the held prefix only when the reference is absent from
       // an empty document (t = 1): bring the slots in between into it.
       if (t > phys) {
-        for (int q = phys + tid; q < t; q += NT) {
+        for (int q = max(phys, lo) + tid; q < min(t, hi); q += NT) {
           const size_t o = base + (q - shift);
-          id[q] = make_int2(ec_in[o], ea_in[o]);
-          src[q] = static_cast<unsigned>(q - shift) | (dl_in[o] ? DEAD : 0u);
+          id[q - lo] = make_int2(ec_in[o], ea_in[o]);
+          src[q - lo] = static_cast<unsigned>(q - shift) | (dl_in[o] ? DEAD : 0u);
         }
         __syncthreads();
         phys = t;
       }
 
-      // Shift [t, phys) right by k, top down, NT * SHIFT_ITEMS slots per
-      // barrier.  A chunk reads below its own destination range, so it
-      // never reads what a higher chunk wrote; the next lower chunk writes
-      // only after its own barrier, which no thread passes before every
-      // thread has finished this chunk's reads.  (Run lengths are >= 0:
-      // the encoder emits 1..MAX_RUN_LEN.)
+      // Shift [t, phys) right by k.  (Run lengths are >= 0: the encoder
+      // emits 1..MAX_RUN_LEN.)
       const int k = min(max(run_len, 0), cap);
-      const int lo = t + k;
-      bool synced = false;
-      for (int hi = min(phys + k, cap); k > 0 && hi > lo; hi -= NT * SHIFT_ITEMS) {
-        int2 v[SHIFT_ITEMS];
-        unsigned s[SHIFT_ITEMS];
-#pragma unroll
-        for (int u = 0; u < SHIFT_ITEMS; ++u) {
-          const int p = hi - 1 - tid - u * NT;
-          if (p >= lo) {
-            v[u] = id[p - k];
-            s[u] = src[p - k];
+      bool synced;
+      if constexpr (CLUSTER) {
+        // In steps of at most the halo's MAX_RUN_LEN slots (one step unless
+        // a run is longer than the encoder makes them); step s moves [t +
+        // moved, phys + moved) right by `step`.  Every block's last `step`
+        // slots go to the next block's halo first (it uses those in that
+        // range), then a cluster barrier, which also keeps the stop
+        // search's cluster_min2 area from the next insert's writes; a
+        // second step waits for the halo to be taken in.
+        cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+        int moved = 0;
+        do {
+          const int step = min(k - moved, MAX_RUN_LEN);
+          if (moved > 0) cluster.sync();
+          if (rank + 1 < nblk) {
+            int2* next_id = cluster.map_shared_rank(halo_id, rank + 1);
+            unsigned* next_src = cluster.map_shared_rank(halo_src, rank + 1);
+            for (int j = tid; j < step; j += NT) {
+              next_id[j] = id[cs - step + j];
+              next_src[j] = src[cs - step + j];
+            }
           }
-        }
-        __syncthreads();
-#pragma unroll
-        for (int u = 0; u < SHIFT_ITEMS; ++u) {
-          const int p = hi - 1 - tid - u * NT;
-          if (p >= lo) {
-            id[p] = v[u];
-            src[p] = s[u];
+          cluster.sync();
+          const int at = t + moved + step;  // first slot this step writes
+          const int top = min(phys + moved + step, hi);
+          shift_right<NT>(id, src, max(at, lo + step) - lo, top - lo, step);
+          // The head [max(at, lo), lo + step) takes the previous block's
+          // slots from the halo.
+          for (int p = max(at, lo) + tid; p < min(lo + step, top); p += NT) {
+            id[p - lo] = halo_id[p - lo];
+            src[p - lo] = halo_src[p - lo];
           }
-        }
+          moved += step;
+        } while (moved < k);
         synced = true;
+      } else {
+        synced = shift_right<NT>(id, src, t + k, min(phys + k, cap), k);
       }
       if (!synced) __syncthreads();  // every warp is past its stop search
 
       // The inserted block [t, t + k).
-      const int end = min(cap, lo);
-      for (int p = t + tid; p < end; p += NT) {
+      const int end = min(min(cap, t + k), hi);
+      for (int p = max(t, lo) + tid; p < end; p += NT) {
         const int off = p - t;
-        id[p] = make_int2(static_cast<int>(static_cast<unsigned>(ctr) + off), act);
-        src[p] = static_cast<unsigned>(cap + MAX_RUN_LEN * l + min(off, MAX_RUN_LEN - 1));
+        id[p - lo] = make_int2(static_cast<int>(static_cast<unsigned>(ctr) + off), act);
+        src[p - lo] = static_cast<unsigned>(cap + MAX_RUN_LEN * l + min(off, MAX_RUN_LEN - 1));
       }
       length = static_cast<int>(static_cast<unsigned>(length) + static_cast<unsigned>(run_len));
       const int grown = min(phys + k, cap);
@@ -423,7 +540,8 @@ __global__ void __launch_bounds__(NT, 1024 / NT) text_phase_kernel(
                ? rbuf[clampi(payload, 0, buf_len - MAX_RUN_LEN) + code % MAX_RUN_LEN]
                : payload;
   };
-  const int out4 = vec ? phys / 4 : 0;
+  const int held_out = clampi(phys - lo, 0, cs);
+  const int out4 = vec ? held_out / 4 : 0;
   for (int g = tid; g < out4; g += NT) {
     const int4 e01 = reinterpret_cast<const int4*>(id)[2 * g];
     const int4 e23 = reinterpret_cast<const int4*>(id)[2 * g + 1];
@@ -436,29 +554,30 @@ __global__ void __launch_bounds__(NT, 1024 / NT) text_phase_kernel(
     } else {
       ch = make_int4(held_char(f0), held_char(f1), held_char(f2), held_char(f3));
     }
-    reinterpret_cast<int4*>(ec_out + base)[g] = make_int4(e01.x, e01.z, e23.x, e23.z);
-    reinterpret_cast<int4*>(ea_out + base)[g] = make_int4(e01.y, e01.w, e23.y, e23.w);
-    reinterpret_cast<int4*>(ch_out + base)[g] = ch;
-    reinterpret_cast<int4*>(oi_out + base)[g] =
+    reinterpret_cast<int4*>(ec_out + sbase)[g] = make_int4(e01.x, e01.z, e23.x, e23.z);
+    reinterpret_cast<int4*>(ea_out + sbase)[g] = make_int4(e01.y, e01.w, e23.y, e23.w);
+    reinterpret_cast<int4*>(ch_out + sbase)[g] = ch;
+    reinterpret_cast<int4*>(oi_out + sbase)[g] =
         make_int4(f0 < cap ? f0 : -1, f1 < cap ? f1 : -1, f2 < cap ? f2 : -1, f3 < cap ? f3 : -1);
-    reinterpret_cast<unsigned*>(dl_out + base)[g] =
+    reinterpret_cast<unsigned*>(dl_out + sbase)[g] =
         (s.x >> 31) | (s.y >> 31) << 8 | (s.z >> 31) << 16 | (s.w >> 31) << 24;
   }
-  for (int p = 4 * out4 + tid; p < phys; p += NT) {
+  for (int p = 4 * out4 + tid; p < held_out; p += NT) {
     const unsigned s = src[p];
     const int from = static_cast<int>(s & ~DEAD);
-    ec_out[base + p] = id[p].x;
-    ea_out[base + p] = id[p].y;
-    dl_out[base + p] = static_cast<uint8_t>(s >> 31);
-    ch_out[base + p] = held_char(from);
-    oi_out[base + p] = from < cap ? from : -1;
+    ec_out[sbase + p] = id[p].x;
+    ea_out[sbase + p] = id[p].y;
+    dl_out[sbase + p] = static_cast<uint8_t>(s >> 31);
+    ch_out[sbase + p] = held_char(from);
+    oi_out[sbase + p] = from < cap ? from : -1;
   }
   // ... and the tail straight from the input, `shift` slots to the left,
   // in 16-byte words from the first whole group on when `shift` keeps the
   // groups aligned.
   const bool vec_tail = vec && shift % 4 == 0;
-  const int tail_lo = vec_tail ? min(cap, (phys + 3) / 4 * 4) : cap;
-  for (int p = phys + tid; p < tail_lo; p += NT) {
+  const int tail_from = max(phys, lo);
+  const int tail_lo = vec_tail ? min(hi, (tail_from + 3) / 4 * 4) : hi;
+  for (int p = tail_from + tid; p < tail_lo; p += NT) {
     const size_t o = base + (p - shift);
     ec_out[base + p] = ec_in[o];
     ea_out[base + p] = ea_in[o];
@@ -466,7 +585,7 @@ __global__ void __launch_bounds__(NT, 1024 / NT) text_phase_kernel(
     ch_out[base + p] = ch_in[o];
     oi_out[base + p] = p - shift;
   }
-  for (int g = tail_lo / 4 + tid; vec_tail && g < cap / 4; g += NT) {
+  for (int g = tail_lo / 4 + tid; vec_tail && g < hi / 4; g += NT) {
     const int h = g - shift / 4;
     reinterpret_cast<int4*>(ec_out + base)[g] = reinterpret_cast<const int4*>(ec_in + base)[h];
     reinterpret_cast<int4*>(ea_out + base)[g] = reinterpret_cast<const int4*>(ea_in + base)[h];
@@ -474,15 +593,18 @@ __global__ void __launch_bounds__(NT, 1024 / NT) text_phase_kernel(
     reinterpret_cast<unsigned*>(dl_out + base)[g] = reinterpret_cast<const unsigned*>(dl_in + base)[h];
     reinterpret_cast<int4*>(oi_out + base)[g] = make_int4(4 * h, 4 * h + 1, 4 * h + 2, 4 * h + 3);
   }
-  if (tid == 0) len_out[r] = length;
+  if (tid == 0 && rank == 0) len_out[r] = length;
+  // No block leaves while another may still write into its halo or slots.
+  if constexpr (CLUSTER) cooperative_groups::this_cluster().sync();
 }
 
-template <int NT>
+template <int NT, bool CLUSTER = false>
 cudaError_t set_attributes(size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      text_phase_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(text_phase_kernel<NT, CLUSTER>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(text_phase_kernel<NT>,
+  return cudaFuncSetAttribute(text_phase_kernel<NT, CLUSTER>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
 }
@@ -526,26 +648,68 @@ cudaError_t launch_threads(int threads, const void* ec_in, const void* ea_in, co
                 static_cast<int*>(ch_out), static_cast<int*>(oi_out), static_cast<int*>(len_out));
 }
 
+// The cluster form takes 2, 4 or 8 blocks that split C into slices of a
+// multiple of four slots, each over 8192 slots (where threads_for gives
+// CLUSTER_THREADS).
+bool cluster_shape_ok(int cap, int blocks) {
+  return (blocks == 2 || blocks == 4 || blocks == 8) && cap % (4 * blocks) == 0 &&
+         threads_for(cap / blocks) == CLUSTER_THREADS;
+}
+
 }  // namespace
 
-extern "C" size_t pt_text_phase_smem(int cap) { return smem_bytes(cap); }
+extern "C" size_t pt_text_phase_smem(int cap, int blocks) { return smem_bytes(cap, blocks); }
 
-// Launches the text phase on ``stream`` with ``threads_for(cap)`` threads
-// per block; returns the CUDA error code of the launch (0 on success).
-// Pointers are device pointers of contiguous tensors: planes [R, C], ops
-// [R, L, 15], ranks [A], char_buf [R, buf_len] (buf_len 0: no run buffer,
-// KIND_INSERT_RUN rows are no-ops).  C + 64 * L must stay below 2^31.
+// Clusters of ``blocks`` blocks at capacity ``cap`` the card can hold at
+// once (cudaOccupancyMaxActiveClusters) into ``count``; returns the CUDA
+// error code (0 on success).
+extern "C" int pt_text_phase_max_clusters(int cap, int blocks, int* count) {
+  *count = 0;
+  if (!cluster_shape_ok(cap, blocks)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(cap, blocks);
+  cudaError_t err = set_attributes<CLUSTER_THREADS, true>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ClusterLaunch cl(1, blocks, CLUSTER_THREADS, smem, nullptr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(count, text_phase_kernel<CLUSTER_THREADS, true>, &cl.config));
+}
+
+// Launches the text phase on ``stream``: one block of ``threads_for(cap)``
+// threads per replica when ``blocks`` is 1, else a cluster of ``blocks``
+// blocks per replica; returns the CUDA error code of the launch (0 on
+// success).  Pointers are device pointers of contiguous tensors: planes [R,
+// C], ops [R, L, 15], ranks [A], char_buf [R, buf_len] (buf_len 0: no run
+// buffer, KIND_INSERT_RUN rows are no-ops).  C + 64 * L must stay below
+// 2^31.
 extern "C" int pt_text_phase(
     const void* ec_in, const void* ea_in, const void* dl_in, const void* ch_in,
     const void* len_in, const void* ops, int num_ops, const void* ranks,
     int num_ranks, const void* char_buf, int buf_len, void* ec_out,
     void* ea_out, void* dl_out, void* ch_out, void* oi_out, void* len_out,
-    int replicas, int cap, void* stream) {
+    int replicas, int cap, int blocks, void* stream) {
   if (replicas == 0) return 0;
-  return static_cast<int>(launch_threads(threads_for(cap), ec_in, ea_in, dl_in, ch_in, len_in,
-                                         ops, num_ops, ranks, num_ranks, char_buf, buf_len,
-                                         ec_out, ea_out, dl_out, ch_out, oi_out, len_out,
-                                         replicas, cap, stream));
+  if (blocks == 1) {
+    return static_cast<int>(launch_threads(threads_for(cap), ec_in, ea_in, dl_in, ch_in, len_in,
+                                           ops, num_ops, ranks, num_ranks, char_buf, buf_len,
+                                           ec_out, ea_out, dl_out, ch_out, oi_out, len_out,
+                                           replicas, cap, stream));
+  }
+  if (!cluster_shape_ok(cap, blocks)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(cap, blocks);
+  cudaError_t err = set_attributes<CLUSTER_THREADS, true>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ClusterLaunch cl(replicas, blocks, CLUSTER_THREADS, smem, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernelEx(&cl.config, text_phase_kernel<CLUSTER_THREADS, true>,
+                           static_cast<const int*>(ec_in), static_cast<const int*>(ea_in),
+                           static_cast<const uint8_t*>(dl_in), static_cast<const int*>(ch_in),
+                           static_cast<const int*>(len_in), static_cast<const int*>(ops), num_ops,
+                           static_cast<const int*>(ranks), num_ranks,
+                           static_cast<const int*>(char_buf), buf_len, static_cast<int*>(ec_out),
+                           static_cast<int*>(ea_out), static_cast<uint8_t*>(dl_out),
+                           static_cast<int*>(ch_out), static_cast<int*>(oi_out),
+                           static_cast<int*>(len_out), cap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* pt_error_string(int err) {

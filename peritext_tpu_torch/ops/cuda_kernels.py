@@ -15,9 +15,15 @@ tensors it runs the plain PyTorch version from ``kernels.py``, which the
 kernels are held byte-for-byte against.  Nothing falls back from the card
 to the plain version.  ``LAUNCHES`` counts the kernel launches of each
 wrapper (only launches on the card count).  Both kernels hold C <= 16384
-(a 10k-character document) in one block's shared memory; larger C raises.
-``kernel_capacity_limit`` gives that bound from the same footprints, so a
-caller can route a larger capacity elsewhere before it launches.
+(a 10k-character document) in one block's shared memory; past that a
+replica runs on a thread-block cluster of 2, 4 or 8 blocks, each holding
+an equal slice (``cluster_size``), up to C = 131072.  A cluster launch
+counts once in ``LAUNCHES`` and once in ``CLUSTER_LAUNCHES``; before the
+first at a given shape the wrapper asks the card how many such clusters
+it can hold at once (``ACTIVE_CLUSTERS``) and raises if none.  Larger C
+raises.  ``kernel_capacity_limit`` gives that bound from the same
+footprints, so a caller can route a larger capacity elsewhere before it
+launches.
 """
 from __future__ import annotations
 
@@ -34,9 +40,18 @@ from peritext_tpu_torch.ops.state import DocState
 
 # Shared memory one block may use on Hopper (sm_90).
 MAX_SHARED_BYTES = 232448
+# Blocks a replica may span as a thread-block cluster (the portable size).
+MAX_CLUSTER = 8
 _SCRATCH_INTS = 64
+# A cluster's block: two areas of cluster-min slots, [MAX_CLUSTER][2] ints.
+_CLUSTER_SLOT_INTS = 2 * 2 * MAX_CLUSTER
 
 LAUNCHES: Dict[str, int] = {"text_phase": 0, "mark_phase": 0}
+# The launches of LAUNCHES that ran a kernel's cluster form.
+CLUSTER_LAUNCHES: Dict[str, int] = {"text_phase": 0, "mark_phase": 0}
+# cudaOccupancyMaxActiveClusters of each cluster shape launched so far, by
+# (kernel, blocks, shared bytes a block, device index).
+ACTIVE_CLUSTERS: Dict[Tuple[str, int, int, int], int] = {}
 # Scheduler threads of a sharded serving plane may launch concurrently.
 _LAUNCHES_LOCK = threading.Lock()
 
@@ -44,39 +59,75 @@ _LAUNCHES_LOCK = threading.Lock()
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        CLUSTER_LAUNCHES[name] = 0
 
 
 def _text_tile_rows(capacity: int) -> int:
     return 32 if capacity <= 4096 else 128
 
 
-def text_phase_smem_bytes(capacity: int) -> int:
-    """Id (8 B) and source word (4 B) per slot, two staged op tiles of 6
-    int fields per row, a hash table of 4 * tile slots (12 B each) and two
-    32-int reduction areas (``csrc/text_phase.cu``)."""
-    return 12 * capacity + _text_tile_rows(capacity) * (2 * 6 * 4 + 4 * 12) + 2 * 32 * 4
+def text_phase_smem_bytes(capacity: int, blocks: int = 1) -> int:
+    """Shared memory of one block holding ``capacity / blocks`` slots: id
+    (8 B) and source word (4 B) per slot, two staged op tiles of 6 int
+    fields per row, a hash table of 4 * tile slots (12 B each) and two
+    32-int reduction areas; a cluster's block adds the halo (MAX_RUN_LEN
+    slots of 12 B) and the cluster-min slots (``csrc/text_phase.cu``)."""
+    cs = capacity // blocks
+    extra = K.MAX_RUN_LEN * 12 + 4 * _CLUSTER_SLOT_INTS if blocks > 1 else 0
+    return 12 * cs + _text_tile_rows(cs) * (2 * 6 * 4 + 4 * 12) + 2 * 32 * 4 + extra
 
 
-def mark_phase_smem_bytes(capacity: int, words: int) -> int:
-    """Element ids (8 B per element), definedness (one byte per slot, two
-    slots per element), two carry rows and the reduction scratch."""
-    return (2 * capacity + 2 * words + _SCRATCH_INTS) * 4 + 2 * capacity
+def mark_phase_smem_bytes(capacity: int, words: int, blocks: int = 1) -> int:
+    """Shared memory of one block holding ``capacity / blocks`` elements:
+    their ids (8 B each), definedness (one byte per slot, two slots per
+    element), two carry rows and the reduction scratch; a cluster's block
+    adds the cluster-min slots (``csrc/mark_phase.cu``)."""
+    cs = capacity // blocks
+    extra = _CLUSTER_SLOT_INTS if blocks > 1 else 0
+    return (2 * cs + 2 * words + _SCRATCH_INTS + extra) * 4 + 2 * cs
 
 
-def _largest_fitting(smem_bytes) -> int:
+def _fewest_blocks(capacity: int, smem_bytes, align: int) -> int:
+    """The fewest blocks (1, or a cluster of 2, 4 or 8) that split
+    ``capacity`` into equal slices of a multiple of ``align`` elements, each
+    within one block's shared memory; 0 when there is none."""
+    for blocks in (1, 2, 4, MAX_CLUSTER):
+        split = blocks == 1 or capacity % (align * blocks) == 0
+        if split and smem_bytes(capacity, blocks) <= MAX_SHARED_BYTES:
+            return blocks
+    return 0
+
+
+def _text_blocks(capacity: int) -> int:
+    # Slices of a multiple of four slots: the kernel's 16-byte moves.
+    return _fewest_blocks(capacity, text_phase_smem_bytes, 4)
+
+
+def _mark_blocks(capacity: int, words: int) -> int:
+    return _fewest_blocks(capacity, lambda c, b: mark_phase_smem_bytes(c, words, b), 1)
+
+
+def cluster_size(capacity: int, words: int) -> int:
+    """Blocks per replica at ``capacity`` and ``words`` mask words: 1 where
+    one block holds the replica, else the thread-block cluster of 2, 4 or 8
+    blocks -- the larger of the two kernels' -- whose equal slices each fit
+    one block's shared memory; 0 when either kernel cannot hold it."""
+    text, mark = _text_blocks(capacity), _mark_blocks(capacity, words)
+    return max(text, mark) if text and mark else 0
+
+
+def _largest_held(blocks) -> int:
     c = 1
-    while smem_bytes(2 * c) <= MAX_SHARED_BYTES:
+    while blocks(2 * c):
         c *= 2
     return c
 
 
 def kernel_capacity_limit(words: int) -> int:
-    """The largest capacity (a power of two) that both kernels hold in one
-    block's shared memory at ``words`` mask words."""
-    return min(
-        _largest_fitting(text_phase_smem_bytes),
-        _largest_fitting(lambda cap: mark_phase_smem_bytes(cap, words)),
-    )
+    """The largest capacity (a power of two) that both kernels hold, in one
+    block or a cluster of at most MAX_CLUSTER blocks, at ``words`` mask
+    words: 131072 at every width the universe uses."""
+    return _largest_held(lambda cap: cluster_size(cap, words))
 
 
 def _on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
@@ -102,8 +153,10 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Tuple[int, ...
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "pt_text_phase": [_P] * 6 + [_I, _P, _I, _P, _I] + [_P] * 6 + [_I, _I, _P],
-    "pt_mark_phase": [_P] * 7 + [_I, _P, _P, _I, _I, _I, _P],
+    "pt_text_phase": [_P] * 6 + [_I, _P, _I, _P, _I] + [_P] * 6 + [_I, _I, _I, _P],
+    "pt_mark_phase": [_P] * 7 + [_I, _P, _P, _I, _I, _I, _I, _P],
+    "pt_text_phase_max_clusters": [_I, _I, _P],
+    "pt_mark_phase_max_clusters": [_I, _I, _I, _P],
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -120,16 +173,46 @@ def _fn(kernel: str, symbol: str) -> ctypes._CFuncPtr:
     return fn
 
 
-def _launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
+def _launch(kernel: str, symbol: str, device: torch.device, blocks: int, *args) -> None:
     """Call a kernel library's C entry point on ``device``'s current stream
     with ``device`` made current, so a launch never depends on the calling
     thread's current device (a shard's universe may sit on another card),
-    and count it."""
+    and count it (``blocks`` > 1: a cluster launch)."""
     with torch.cuda.device(device):
-        err = _fn(kernel, symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
+        err = _fn(kernel, symbol)(*args, blocks, torch.cuda.current_stream(device).cuda_stream)
     _raise_on_error(kernel, err)
     with _LAUNCHES_LOCK:
         LAUNCHES[kernel] += 1
+        if blocks > 1:
+            CLUSTER_LAUNCHES[kernel] += 1
+
+
+def _check_clusters(kernel: str, device: torch.device, blocks: int, smem: int, *shape: int) -> None:
+    """Before the first cluster launch of a shape on a device: ask the card
+    how many clusters of ``blocks`` blocks of ``smem`` bytes it holds at
+    once (``cudaOccupancyMaxActiveClusters``), and raise when none fits."""
+    key = (kernel, blocks, smem, device.index if device.index is not None else torch.cuda.current_device())
+    active = ACTIVE_CLUSTERS.get(key)
+    if active is None:
+        count = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = _fn(kernel, f"pt_{kernel}_max_clusters")(*shape, blocks, ctypes.byref(count))
+        _raise_on_error(kernel, err)
+        active = ACTIVE_CLUSTERS[key] = count.value
+    if active <= 0:
+        raise ValueError(
+            f"{kernel}: the card holds no cluster of {blocks} blocks with {smem} bytes of "
+            f"shared memory each (cudaOccupancyMaxActiveClusters is {active})"
+        )
+
+
+def _refuse(kernel: str, capacity: int, smem_at_most: int, limit: int) -> ValueError:
+    return ValueError(
+        f"{kernel}: capacity {capacity} fits no thread-block cluster of at most "
+        f"{MAX_CLUSTER} blocks: {smem_at_most} bytes of shared memory a block, over the "
+        f"{MAX_SHARED_BYTES}-byte limit of one block, or slices that do not split it evenly "
+        f"(C <= {limit} fits)"
+    )
 
 
 def _raise_on_error(kernel: str, err: int) -> None:
@@ -172,13 +255,9 @@ def text_phase(
         _check("char_buf", char_buf, torch.int32, (r, buf_len))
         if buf_len < K.MAX_RUN_LEN:
             raise ValueError(f"char_buf: width {buf_len} < MAX_RUN_LEN={K.MAX_RUN_LEN}")
-    smem = text_phase_smem_bytes(c)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"text_phase: capacity {c} needs {smem} bytes of shared memory, over the "
-            f"{MAX_SHARED_BYTES}-byte limit of one block "
-            f"(C <= {_largest_fitting(text_phase_smem_bytes)} fits)"
-        )
+    blocks = _text_blocks(c)
+    if not blocks:
+        raise _refuse("text_phase", c, text_phase_smem_bytes(c, MAX_CLUSTER), _largest_held(_text_blocks))
     if c + K.MAX_RUN_LEN * num_ops >= 2**31:
         raise ValueError(f"text_phase: {num_ops} op rows at capacity {c} overflow a source word")
     ec = torch.empty_like(elem_ctr)
@@ -187,8 +266,10 @@ def text_phase(
     ch = torch.empty_like(chars)
     oi = torch.empty_like(elem_ctr)
     ln = torch.empty_like(length)
+    if blocks > 1:
+        _check_clusters("text_phase", elem_ctr.device, blocks, text_phase_smem_bytes(c, blocks), c)
     _launch(
-        "text_phase", "pt_text_phase", elem_ctr.device,
+        "text_phase", "pt_text_phase", elem_ctr.device, blocks,
         elem_ctr.data_ptr(), elem_act.data_ptr(), deleted.data_ptr(), chars.data_ptr(),
         length.data_ptr(), text_ops.data_ptr(), num_ops, ranks.data_ptr(), ranks.shape[0],
         char_buf.data_ptr() if char_buf is not None else None, buf_len,
@@ -223,17 +304,19 @@ def mark_phase(
     _check("length", length, torch.int32, (r,))
     _check("mark_count", mark_count, torch.int32, (r,))
     _check("mark_ops", mark_ops, torch.int32, (r, num_ops, K.OP_FIELDS))
-    smem = mark_phase_smem_bytes(c, words)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"mark_phase: capacity {c} with {words} mask words needs {smem} bytes of "
-            f"shared memory, over the {MAX_SHARED_BYTES}-byte limit of one block "
-            f"(C <= {_largest_fitting(lambda cap: mark_phase_smem_bytes(cap, words))} fits)"
+    blocks = _mark_blocks(c, words)
+    if not blocks:
+        raise _refuse(
+            f"mark_phase ({words} mask words)", c, mark_phase_smem_bytes(c, words, MAX_CLUSTER),
+            _largest_held(lambda cap: _mark_blocks(cap, words)),
         )
     new_def = torch.empty_like(bnd_def)
     new_mask = torch.empty_like(bnd_mask)  # the kernel copies the input in
+    if blocks > 1:
+        _check_clusters("mark_phase", bnd_def.device, blocks,
+                        mark_phase_smem_bytes(c, words, blocks), c, words)
     _launch(
-        "mark_phase", "pt_mark_phase", bnd_def.device,
+        "mark_phase", "pt_mark_phase", bnd_def.device, blocks,
         bnd_def.data_ptr(), bnd_mask.data_ptr(), elem_ctr.data_ptr(), elem_act.data_ptr(),
         length.data_ptr(), mark_count.data_ptr(), mark_ops.data_ptr(), num_ops,
         new_def.data_ptr(), new_mask.data_ptr(), r, c, words,

@@ -16,9 +16,10 @@ frontier-bounded window when the host census bounds the batch
 the kernels' merge for batches deeper than ``PERITEXT_SORTED_MAX_ROUNDS``
 (counted in ``stats["scan_fallbacks"]``).  On an H100 the sorted route is
 several times slower than the kernels' (``PERF.md``), so it is not the
-default.  A universe whose capacity is past what the kernels hold in one
-block's shared memory (``cuda_kernels.kernel_capacity_limit``) merges on
-the sorted route with no depth cap instead, on every device, counted in
+default.  The kernels hold C <= 16384 in one block and up to C = 131072
+as thread-block clusters; a universe whose capacity is past that
+(``cuda_kernels.kernel_capacity_limit``) merges on the sorted route with
+no depth cap instead, on every device, counted in
 ``stats["capacity_routes"]``.
 
 ``apply_changes_with_patches`` emits each replica's reference patch
@@ -1094,8 +1095,9 @@ class TorchUniverse:
         ``PERITEXT_SORTED_MAX_ROUNDS`` (default 8) takes the kernels'
         merge, counted in ``stats["scan_fallbacks"]``.
 
-        When the capacity is past what the kernels hold
-        (``kernel_capacity_limit``), every batch the kernels would have
+        When the capacity is past what the kernels hold, as one block or a
+        thread-block cluster (``kernel_capacity_limit``, C = 131072), every
+        batch the kernels would have
         taken (each one on the default route, a deep one on the sorted
         route) takes the sorted merge with no depth cap instead, counted in
         ``stats["capacity_routes"]``: the choice is made from the shapes

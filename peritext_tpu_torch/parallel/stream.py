@@ -8,9 +8,10 @@ plane it touches.  The population stays in host memory as numpy arrays
 (a broadcast view is fine) and fixed-size cohorts stream through the
 card.  Each cohort runs both hand kernels (``cuda_kernels.merge_step_full``:
 text kernel, boundary permute, mark kernel, table append), then the
-convergence digest.  A batch the kernels cannot take (a capacity past
-``kernel_capacity_limit``, or an insert run longer than the kernels'
-MAX_RUN_LEN window) takes the sorted merge instead
+convergence digest (past C = 16384 the kernels run as thread-block
+clusters).  A batch the kernels cannot take (a capacity past
+``kernel_capacity_limit``, C = 131072, or an insert run longer than the
+kernels' MAX_RUN_LEN window) takes the sorted merge instead
 (``sorted_merge.merge_step_sorted_batch``), counted in
 ``stats["capacity_routes"]``.  Either way the result is byte-identical to
 one resident merge of the whole population, for every cohort size and

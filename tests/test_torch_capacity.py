@@ -1,17 +1,23 @@
-"""The capacity route: a universe past what the CUDA kernels hold in one
-block's shared memory (``cuda_kernels.kernel_capacity_limit``, C = 16384)
+"""The capacity route and the kernels' limit.  The kernels hold C <= 16384
+in one block and, as thread-block clusters, up to C = 131072
+(``cuda_kernels.kernel_capacity_limit``).  A universe past the limit
 merges on the sorted route with no depth cap, counted in
 ``stats["capacity_routes"]``, and stays byte-equal to ``TpuUniverse``,
 which merges at any capacity.
 
 Two replicas grow from C = 256 to 32768 through a 16,400-character
 genesis, then take concurrent edits with marks and a batch eleven rounds
-deep (changes written out in wire format, element ids named).  The port
-runs on its default route and under ``PERITEXT_MERGE_PATH=scan`` and
-``=sorted``, each against ``TpuUniverse`` on the matching route: every state field, digests, texts and spans equal
-(tolerance 0), the route counted from the shapes on the CPU as on the
-card, and the kernels' merge never called above the limit.
+deep (changes written out in wire format, element ids named).  Under the
+real limit the port's default and scan routes merge every batch through
+the kernels (their plain twins on the CPU) with no capacity route.  Under
+a limit lowered to 16384 the port runs on its default route and under
+``PERITEXT_MERGE_PATH=scan`` and ``=sorted``, each against
+``TpuUniverse`` on the matching route: every state field, digests, texts
+and spans equal (tolerance 0), the route counted from the shapes on the
+CPU as on the card, and the kernels' merge never called above the limit.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -27,13 +33,16 @@ GENESIS_CHARS = 16_400
 
 def test_kernel_capacity_limit_matches_the_wrappers_bounds():
     """The limit is where both kernels' shared-memory footprints still fit
-    one block, at any mask width the universe uses."""
+    one block of a cluster of MAX_CLUSTER blocks, at any mask width the
+    universe uses."""
+    blocks = cuda_kernels.MAX_CLUSTER
     for words in (1, 2, 32, 512):
         limit = cuda_kernels.kernel_capacity_limit(words)
-        assert limit == 16384
+        assert limit == 131072
         for fits, cap in ((True, limit), (False, 2 * limit)):
-            ok = (cuda_kernels.text_phase_smem_bytes(cap) <= cuda_kernels.MAX_SHARED_BYTES
-                  and cuda_kernels.mark_phase_smem_bytes(cap, words) <= cuda_kernels.MAX_SHARED_BYTES)
+            ok = (cuda_kernels.text_phase_smem_bytes(cap, blocks) <= cuda_kernels.MAX_SHARED_BYTES
+                  and cuda_kernels.mark_phase_smem_bytes(cap, words, blocks)
+                  <= cuda_kernels.MAX_SHARED_BYTES)
             assert ok == fits
 
 
@@ -105,12 +114,20 @@ _REFS = {}
 
 
 def _reference(jax_route, genesis, rounds, names):
-    """TpuUniverse over the same history, once per JAX route: its default
-    route is the sorted one, so the default and sorted cases share it."""
+    """TpuUniverse over the same history, once per JAX route ("scan" or
+    "sorted", its default)."""
     if jax_route not in _REFS:
-        ref = TpuUniverse(names)
-        for batch in [[genesis]] + rounds:
-            ref.apply_changes({n: batch for n in names})
+        saved = os.environ.pop("PERITEXT_MERGE_PATH", None)
+        if jax_route == "scan":
+            os.environ["PERITEXT_MERGE_PATH"] = "scan"
+        try:
+            ref = TpuUniverse(names)
+            for batch in [[genesis]] + rounds:
+                ref.apply_changes({n: batch for n in names})
+        finally:
+            os.environ.pop("PERITEXT_MERGE_PATH", None)
+            if saved is not None:
+                os.environ["PERITEXT_MERGE_PATH"] = saved
         _REFS[jax_route] = ref
     return _REFS[jax_route]
 
@@ -121,8 +138,9 @@ def _fields(uni):
     return {f: np.asarray(getattr(uni.states, f)) for f in FIELDS}
 
 
-@pytest.mark.parametrize("route", ["default", "scan", "sorted"])
-def test_universe_grows_past_the_kernels_and_matches_tpu_universe(route, monkeypatch):
+def _port_run(route, monkeypatch):
+    """The port's universe over the history on the CPU, on ``route``, with
+    the capacities of the kernels' merges it ran."""
     for name in ("PERITEXT_MERGE_PATH", "PERITEXT_SORTED_MAX_ROUNDS", "PERITEXT_MERGE_WINDOW",
                  "PERITEXT_SORTED_CHUNK", "PERITEXT_FAULTS"):
         monkeypatch.delenv(name, raising=False)
@@ -141,6 +159,39 @@ def test_universe_grows_past_the_kernels_and_matches_tpu_universe(route, monkeyp
     port = TorchUniverse(names, device="cpu")
     for batch in [[genesis]] + rounds:
         port.apply_changes({n: batch for n in names})
+    return port, kernel_merges, genesis, rounds, names
+
+
+def _assert_equal(port, ref):
+    got, want = _fields(port), _fields(ref)
+    for f in FIELDS:
+        assert (got[f] == want[f]).all(), f"state field {f} diverged"
+    assert (port.digests() == np.asarray(ref.digests())).all()
+    assert port.texts() == ref.texts()
+    assert port.spans_batch() == ref.spans_batch()
+    assert port.stats["degraded_batches"] == 0
+
+
+@pytest.mark.parametrize("route", ["default", "scan"])
+def test_universe_past_16384_takes_the_kernels_and_matches_tpu_universe(route, monkeypatch):
+    """Under the real limit every merge at C = 32768 runs the kernels'
+    merge (their cluster form on the card), none the capacity route, and
+    the states equal ``TpuUniverse``'s exact per-op merge."""
+    port, kernel_merges, genesis, rounds, names = _port_run(route, monkeypatch)
+    ref = _reference("scan", genesis, rounds, names)
+    assert port.capacity == ref.capacity == 32768
+    assert kernel_merges == [32768] * (1 + len(rounds))
+    assert port.stats["capacity_routes"] == 0
+    assert port.stats["scan_fallbacks"] == 0
+    _assert_equal(port, ref)
+
+
+@pytest.mark.parametrize("route", ["default", "scan", "sorted"])
+def test_universe_grows_past_the_kernels_and_matches_tpu_universe(route, monkeypatch):
+    """Past a limit lowered to 16384 (the route is taken only past C =
+    131072 now) every merge takes the capacity route."""
+    monkeypatch.setattr(port_universe, "kernel_capacity_limit", lambda words: 16384)
+    port, kernel_merges, genesis, rounds, names = _port_run(route, monkeypatch)
     ref = _reference("scan" if route == "scan" else "sorted", genesis, rounds, names)
     assert port.capacity == ref.capacity == 32768
     # Every merge ran above the limit (the genesis grew the table first).
@@ -154,10 +205,4 @@ def test_universe_grows_past_the_kernels_and_matches_tpu_universe(route, monkeyp
     else:
         assert port.stats["capacity_routes"] == merges
     assert port.stats["launches"] == merges
-    got, want = _fields(port), _fields(ref)
-    for f in FIELDS:
-        assert (got[f] == want[f]).all(), f"state field {f} diverged"
-    assert (port.digests() == np.asarray(ref.digests())).all()
-    assert port.texts() == ref.texts()
-    assert port.spans_batch() == ref.spans_batch()
-    assert port.stats["degraded_batches"] == 0
+    _assert_equal(port, ref)

@@ -3,12 +3,16 @@ edge-case inputs the benchmark workload never reaches: unresolved
 references, runs that push elements off the end, capacities that are not a
 multiple of the block size, mark tables that overflow, end anchors left of
 start anchors, long delete runs across op tiles with duplicate ids and ids
-inserted later in the batch, and C = 16384.  Byte-equal or fail.  Then a
+inserted later in the batch, and C = 16384; past it, both kernels' cluster
+forms at C = 32768, 65536 and 131072 on inputs aimed at the slice edges.
+Byte-equal or fail.  Then a
 ``TorchUniverse`` on the card grows past 8192 elements against the oracle
 on the scan path, the default path (sorted, windowed or not) equals the
 scan path at C = 4096, the per-op patch path's records on the card equal
 those on the CPU, and a ``TorchDoc`` session on the card equals the oracle.
-A universe grows past the kernels' C = 16384 on the capacity route, and
+A universe grows past C = 16384 on the cluster kernels (and, under a
+lowered limit, on the capacity route), the stream at C = 32768 runs the
+cluster kernels, and
 the patched sorted route gives the per-op loop's streams.  A sharded
 serving plane on the card (a migration and an evict/hydrate round trip
 included) equals the same run on the CPU, and kernel launches from two
@@ -28,6 +32,7 @@ from peritext_tpu_torch.bench.workloads import doc_session, make_merge_workload,
 from peritext_tpu_torch.ids import ActorRegistry
 from peritext_tpu_torch.ops import cuda_kernels
 from peritext_tpu_torch.ops import kernels as K
+from peritext_tpu_torch.ops import universe as port_universe
 from peritext_tpu_torch.ops.encode import AttrRegistry, encode_changes, pad_rows
 from peritext_tpu_torch.ops.state import make_empty_state, map_state
 from peritext_tpu_torch.oracle import Doc
@@ -247,15 +252,151 @@ def test_wrappers_check_their_inputs(card):
     )
     torch.cuda.synchronize()
     assert mark[1].shape == (1, 2 * 16384, 32)
-    big = torch.zeros((1, 32768), dtype=torch.int32, device=card)
-    with pytest.raises(ValueError, match=r"shared memory.*C <= 16384 fits"):
+    big = torch.zeros((1, 262144), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match=r"shared memory.*C <= 131072 fits"):
         cuda_kernels.text_phase(big, big, big.bool(), big, ln[:1], ops[:1], ranks)
-    with pytest.raises(ValueError, match=r"shared memory.*C <= 16384 fits"):
+    with pytest.raises(ValueError, match=r"shared memory.*C <= 131072 fits"):
         cuda_kernels.mark_phase(
-            torch.zeros((1, 2 * 32768), dtype=torch.bool, device=card),
-            torch.zeros((1, 2 * 32768, 32), dtype=torch.int32, device=card),
+            torch.zeros((1, 2 * 262144), dtype=torch.bool, device=card),
+            torch.zeros((1, 2 * 262144, 32), dtype=torch.int32, device=card),
             big, big, ln[:1], ln[:1], ops[:1],
         )
+
+
+def _fill_first(rng, state, fill):
+    """Replica 0 of a ``_random_state`` holds exactly ``fill`` live
+    elements, so its held prefix ends where the test wants it."""
+    ec, ea, deleted, chars, length, _, _ = state
+    c = ec.shape[1]
+    length[0] = fill
+    ec[0] = 0
+    ea[0] = 0
+    ec[0, :fill] = rng.permutation(np.arange(1, 4 * c))[:fill]
+    ea[0, :fill] = rng.integers(0, 5, size=fill)
+    deleted[0] = (rng.random(c) < 0.3) & (np.arange(c) < fill)
+    chars[0] = np.where(np.arange(c) < fill, rng.integers(32, 0x10FFFF, c), 0)
+    return state
+
+
+def _near_edge(rng, slices, c, n):
+    """A live position within MAX_RUN_LEN + 8 slots of a slice edge of the
+    cluster form (or of the document's end), or -1 when none is live."""
+    edge = c // slices
+    centre = edge * int(rng.integers(1, slices)) if slices > 1 and rng.random() < 0.8 else n
+    j = centre + int(rng.integers(-(K.MAX_RUN_LEN + 8), 8))
+    return j if 0 <= j < n else -1
+
+
+def _edge_text_ops(rng, ec, ea, length, num_ops, buf_len, slices):
+    """``_text_ops`` aimed at the cluster form's slice edges: most
+    references and delete targets near an edge, runs as long as
+    MAX_RUN_LEN, and small counters whose skip runs cross one or more
+    edges."""
+    r, c = ec.shape
+    ops = _text_ops(rng, ec, ea, length, num_ops, buf_len)
+    for i in range(r):
+        for l in range(num_ops):
+            kind = ops[i, l, K.K_KIND]
+            if kind == K.KIND_PAD or rng.random() < 0.3:
+                continue
+            j = _near_edge(rng, slices, c, int(length[i]))
+            if j >= 0:
+                ops[i, l, K.K_REF_CTR], ops[i, l, K.K_REF_ACT] = ec[i, j], ea[i, j]
+            if kind == K.KIND_INSERT_RUN and rng.random() < 0.5:
+                ops[i, l, K.K_RUN_LEN] = K.MAX_RUN_LEN
+            if kind != K.KIND_DELETE and rng.random() < 0.25:
+                ops[i, l, K.K_CTR] = rng.integers(1, 64)  # most ids after it are greater
+    return ops
+
+
+@pytest.mark.parametrize("r,c,fill,num_ops,seed,delete_runs", [
+    (3, 32768, 20000, 200, 20, False),
+    (2, 32768, 32700, 300, 21, True),     # nearly full: the last slice's tail falls off
+    (2, 65536, 40000, 200, 22, True),
+    (2, 131072, 100000, 200, 23, False),
+    (2, 131072, 131000, 300, 24, True),   # nearly full at the largest capacity
+])
+def test_cluster_text_kernel_matches_plain(card, r, c, fill, num_ops, seed, delete_runs):
+    """Past C = 16384 the text kernel runs as a cluster of C / 16384
+    blocks: byte-equal to its plain version on inputs aimed at the slice
+    edges, with and without a run buffer."""
+    rng = np.random.default_rng(seed)
+    ec, ea, deleted, chars, length, _, _ = _fill_first(rng, _random_state(rng, r, c, 1, fill), fill)
+    blocks = cuda_kernels.cluster_size(c, 1)
+    assert blocks == c // 16384
+    buf_len = 128
+    ops = _edge_text_ops(rng, ec, ea, length, num_ops, buf_len, blocks)
+    if delete_runs:
+        _delete_runs(rng, ec, ea, ops)
+    ranks = torch.from_numpy(rng.permutation(8).astype(np.int32)).to(card)
+    char_buf = torch.from_numpy(rng.integers(32, 0x10FFFF, (r, buf_len)).astype(np.int32)).to(card)
+    args = [torch.from_numpy(x).to(card) for x in (ec, ea, deleted, chars, length, ops)]
+    for buf in (char_buf, None):
+        want = K.text_phase_plain(*args, ranks, buf)
+        cuda_kernels.reset_launch_counts()
+        got = cuda_kernels.text_phase(*args, ranks, buf)
+        assert cuda_kernels.LAUNCHES["text_phase"] == cuda_kernels.CLUSTER_LAUNCHES["text_phase"] == 1
+        torch.cuda.synchronize()
+        _same(got, want)
+    assert (want[4] == -1).any(dim=1).all()  # every replica took inserts
+    active = [n for (name, b, _, _), n in cuda_kernels.ACTIVE_CLUSTERS.items()
+              if name == "text_phase" and b == blocks]
+    assert active and all(n > 0 for n in active)
+
+
+def _edge_mark_ops(rng, ec, ea, length, num_ops, slices, last_slice):
+    """``_mark_ops`` with most anchors near a slice edge, or, with
+    ``last_slice``, every anchor in the cluster's last slice."""
+    r, c = ec.shape
+    ops = _mark_ops(rng, ec, ea, length, num_ops)
+    lo = (slices - 1) * (c // slices)
+    for i in range(r):
+        n = int(length[i])
+        for l in range(num_ops):
+            for ctr, act in ((K.K_SCTR, K.K_SACT), (K.K_ECTR, K.K_EACT)):
+                if last_slice and n > lo:
+                    j = int(rng.integers(lo, n))
+                elif rng.random() < 0.7:
+                    j = _near_edge(rng, slices, c, n)
+                else:
+                    continue
+                if j >= 0:
+                    ops[i, l, ctr], ops[i, l, act] = ec[i, j], ea[i, j]
+    return ops
+
+
+@pytest.mark.parametrize("r,c,words,fill,num_ops,seed,sparse", [
+    (2, 32768, 4, 30000, 48, 30, False),
+    (2, 65536, 32, 60000, 48, 31, True),
+    (2, 131072, 4, 120000, 64, 32, True),
+    (2, 131072, 32, 100000, 48, 33, False),
+])
+def test_cluster_mark_kernel_matches_plain(card, r, c, words, fill, num_ops, seed, sparse):
+    """The mark kernel's cluster form, byte-equal to its plain version:
+    anchors near the slice edges, a table that overflows (seed 33), and
+    with ``sparse`` no defined slot in the middle slices, so a mark whose
+    range starts in the last slice carries a boundary from the first."""
+    rng = np.random.default_rng(seed)
+    ec, ea, _, _, length, bnd_def, bnd_mask = _fill_first(rng, _random_state(rng, r, c, words, fill), fill)
+    blocks = cuda_kernels.cluster_size(c, words)
+    assert blocks == c // 16384
+    edge = c // blocks
+    if sparse:
+        bnd_def[:, 2 * edge:2 * (blocks - 1) * edge] = False
+        bnd_def[:, 2 * (blocks - 1) * edge:] &= rng.random((r, 2 * edge)) < 0.01
+    ops = _edge_mark_ops(rng, ec, ea, length, num_ops, blocks, last_slice=sparse)
+    counts = np.full(r, 32 * words - 3 if seed == 33 else 0, np.int32)
+    args = [torch.from_numpy(x).to(card) for x in (bnd_def, bnd_mask, ec, ea, length, counts, ops)]
+    cuda_kernels.reset_launch_counts()
+    got = cuda_kernels.mark_phase(*args)
+    assert cuda_kernels.LAUNCHES["mark_phase"] == cuda_kernels.CLUSTER_LAUNCHES["mark_phase"] == 1
+    want = K.mark_phase_plain(*args)
+    torch.cuda.synchronize()
+    _same(got, want)
+    assert not torch.equal(got[1], args[1])
+    active = [n for (name, b, _, _), n in cuda_kernels.ACTIVE_CLUSTERS.items()
+              if name == "mark_phase" and b == blocks]
+    assert active and all(n > 0 for n in active)
 
 
 def test_universe_on_the_card_grows_past_8192(card, monkeypatch):
@@ -504,29 +645,42 @@ def test_failing_kernel_on_the_card_raises_instead_of_degrading(card, monkeypatc
 def test_capacity_route_on_the_card_grows_past_16384(card, monkeypatch):
     """Four replicas at C = 16384 take a 16,300-char genesis through both
     kernels, then runs that push the document past 16384: every later
-    merge takes the capacity route (counted, no kernel launch, no
-    ValueError), and the states equal the same merges on the CPU."""
+    merge runs both kernels' cluster form (no capacity route), and the
+    states equal the same merges on the CPU.  Under a limit lowered to
+    16384 the same merges take the capacity route (counted, no kernel
+    launch, no ValueError) and give the same states."""
     for var in ("PERITEXT_MERGE_PATH", "PERITEXT_SORTED_MAX_ROUNDS", "PERITEXT_MERGE_WINDOW"):
         monkeypatch.delenv(var, raising=False)
     hist = wire_rounds(16_300, 2, 2, 128, seed=5)
     history = [[c for rnd in hist["rounds"] for c in rnd[w]] for w in range(2)]
     steps = [[[hist["genesis"]]] * 4] + [[rnd[i % 2] for i in range(4)] for rnd in hist["rounds"]]
     steps.append([history[1 - i % 2] for i in range(4)])
-    unis = [TorchUniverse([f"r{i}" for i in range(4)], capacity=16384, max_mark_ops=256, device=d)
-            for d in (card, "cpu")]
-    cuda_kernels.reset_launch_counts()
-    for k, batch in enumerate(steps):
-        for uni in unis:
+
+    def run(device):
+        uni = TorchUniverse([f"r{i}" for i in range(4)], capacity=16384, max_mark_ops=256, device=device)
+        for batch in steps:
             uni.apply_changes(batch)
-        if k == 0:
-            assert cuda_kernels.LAUNCHES == {"text_phase": 1, "mark_phase": 1}
-    on_card = unis[0]
+        return uni
+
+    on_cpu = state_to_numpy(run("cpu").states)
+    cuda_kernels.reset_launch_counts()
+    on_card = run(card)
     assert on_card.capacity == 32768
-    assert on_card.stats["capacity_routes"] == len(steps) - 1
-    assert cuda_kernels.LAUNCHES == {"text_phase": 1, "mark_phase": 1}
-    a, b = state_to_numpy(on_card.states), state_to_numpy(unis[1].states)
-    assert all((a[f] == b[f]).all() for f in a)
+    assert on_card.stats["capacity_routes"] == 0
+    assert cuda_kernels.LAUNCHES == {"text_phase": len(steps), "mark_phase": len(steps)}
+    assert cuda_kernels.CLUSTER_LAUNCHES == {"text_phase": len(steps) - 1, "mark_phase": len(steps) - 1}
+    a = state_to_numpy(on_card.states)
+    assert all((a[f] == on_cpu[f]).all() for f in a)
     assert len(set(on_card.digests().tolist())) == 1
+
+    monkeypatch.setattr(port_universe, "kernel_capacity_limit", lambda words: 16384)
+    cuda_kernels.reset_launch_counts()
+    routed = run(card)
+    assert routed.stats["capacity_routes"] == len(steps) - 1
+    assert cuda_kernels.LAUNCHES == {"text_phase": 1, "mark_phase": 1}
+    assert cuda_kernels.CLUSTER_LAUNCHES == {"text_phase": 0, "mark_phase": 0}
+    b = state_to_numpy(routed.states)
+    assert all((b[f] == on_cpu[f]).all() for f in b)
 
 
 @pytest.mark.parametrize("window", ["1", "0"])
@@ -682,6 +836,32 @@ def test_stream_at_depth_two_equals_the_resident_kernel_merge(card):
         assert out[f].dtype == want[f].dtype, f
         np.testing.assert_array_equal(out[f], want[f], err_msg=f)
     assert all(t["merge_ms"] > 0 and t["h2d_ms"] > 0 for t in stats["timings"])
+
+
+def test_stream_past_16384_runs_the_cluster_kernels(card):
+    """At C = 32768 the stream takes the kernels, whose cluster form runs
+    once a cohort, and equals one resident ``merge_step_full`` and
+    ``merge_step_plain`` byte for byte, digests included."""
+    from peritext_tpu_torch.ops.state import state_from_numpy
+    from peritext_tpu_torch.parallel import stream_merge_sorted
+
+    args = _stream_population(40, 32768, 64, seed=13)
+    st = state_from_numpy(args[0], device=card)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)  # noqa: E731
+    ranks = to(args[5])
+    resident = cuda_kernels.merge_step_full(st, to(args[1]), to(args[4]), ranks, to(args[6]))
+    want_dg = K.convergence_digest(resident, ranks, to(allow_multiple_array())).cpu().numpy()
+    want = state_to_numpy(resident)
+    plain = state_to_numpy(K.merge_step_plain(st, to(args[1]), to(args[4]), ranks, to(args[6])))
+    for f in want:
+        np.testing.assert_array_equal(plain[f], want[f], err_msg=f"{f}: kernels vs merge_step_plain")
+    cuda_kernels.reset_launch_counts()
+    out, dg, stats = stream_merge_sorted(*args, cohort=16, depth=2, device=card)
+    assert stats["route"] == "kernels" and stats["capacity_routes"] == 0 and stats["n_cohorts"] == 3
+    assert cuda_kernels.LAUNCHES == cuda_kernels.CLUSTER_LAUNCHES == {"text_phase": 3, "mark_phase": 3}
+    np.testing.assert_array_equal(dg, want_dg.astype(np.uint32))
+    for f in want:
+        np.testing.assert_array_equal(out[f], want[f], err_msg=f)
 
 
 def test_stream_whose_kernel_launch_fails_raises_and_leaves_no_lane_open(card, monkeypatch, tmp_path):

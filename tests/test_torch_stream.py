@@ -2,7 +2,8 @@
 the JAX package's stream and its resident sorted merge, on the same seeded
 numpy inputs (tests/test_stream.py's fixture): every cohort size, a padded
 tail, depth 1, no digest, no state readback, the budget arithmetic, the
-device_launch breaker, a failed launch's trace lanes, and the sorted leg a
+device_launch breaker, a failed launch's trace lanes, the kernels at C =
+32768 (past one block, within the clusters' limit), and the sorted leg a
 capacity past the kernels' limit takes.  Byte-equal throughout: all 13
 DocState fields and the digests as uint32."""
 import json
@@ -234,6 +235,36 @@ def test_capacity_leg_takes_the_sorted_merge(merge_inputs, monkeypatch):
     np.testing.assert_array_equal(dg, digests)
     assert_states_equal(out, resident)
 
+
+def test_stream_past_16384_takes_the_kernels(merge_inputs):
+    """Under the real limit the fixture's states grown to C = 32768 stream
+    through the kernels' merge (their cluster form on the card), with no
+    capacity route, byte-equal to JAX's resident merge at that capacity."""
+    inputs, _, _ = merge_inputs
+    cap, c0 = 32768, inputs["states"].elem_ctr.shape[-1]
+
+    def grow(f, a):
+        if f in ("elem_ctr", "elem_act", "deleted", "chars"):
+            return np.pad(a, ((0, 0), (0, cap - c0)))
+        if f in ("bnd_def", "bnd_mask"):
+            return np.pad(a, ((0, 0), (0, 2 * (cap - c0))) + ((0, 0),) * (a.ndim - 2))
+        return a
+
+    grown = dict(inputs, states=type(inputs["states"])(
+        **{f: grow(f, getattr(inputs["states"], f)) for f in FIELDS}))
+    out, dg, stats = _stream(grown, cohort=4)
+    assert stats["route"] == "kernels" and stats["capacity_routes"] == 0
+    jnp_ = jax.numpy
+    resident = JK.merge_step_sorted_batch(
+        jax.tree.map(jnp_.asarray, grown["states"]),
+        *(jnp_.asarray(grown[k]) for k in ("text", "rounds")), grown["num_rounds"],
+        *(jnp_.asarray(grown[k]) for k in ("marks", "ranks", "bufs")), grown["maxk"],
+    )
+    digests = np.asarray(JK.convergence_digest_batch(
+        resident, jnp_.asarray(grown["ranks"]), jnp_.asarray(allow_multiple_array())
+    ))
+    np.testing.assert_array_equal(dg, digests)
+    assert_states_equal(out, jax.tree.map(np.asarray, resident))
 
 @pytest.mark.parametrize("stream", [False, True])
 def test_fleet_demo(stream, capsys):
