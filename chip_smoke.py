@@ -180,11 +180,28 @@ Phases, in order; any failure exits non-zero:
    and interval-driven (equal to oracle twins of every change made); and
    ``python -m peritext_tpu_torch.fuzz --engine torch --device cuda`` with
    the variables set.  Prints each leg's iterations and seconds.
+20. The change-log codec, the three splices and the package surface.
+   (a) ``ChangeLog``s of phase 4's workload and of phase 17's document
+   through ``runtime.native_codec`` (which must have built with ``g++``):
+   ``to_bytes`` equal to the Python coder's, ``from_bytes`` returning every
+   change; then 1024 replicas (C = 2048, M = 1024) take phase 4's rounds
+   from the decoded log on the default route, equal on all 13 fields and
+   the digests to a twin fed the original changes (both kernels launch,
+   counted).  Prints encode and decode ms, native beside Python, and the
+   log's bytes beside its JSON's.  (b) Phase 8's rounds (which must equal
+   the twin) and phase 9's windowed rounds on the sorted route under each
+   ``sorted_merge._SPLICE_MODE`` ("sort", "scatter", "roll"), each equal
+   to "sort"'s on all 13 fields with the same route counters; phase 12's
+   full-table patched leg under each splice at 64 replicas (cut from
+   1024), streams equal to the per-op loop's.  Prints each splice's round
+   ms and the profiler's top device ops for round 8.  (c) Every name of
+   ``peritext_tpu_torch.__all__`` resolves, and ``visible_text`` of (a)'s
+   replica 0 equals its ``texts()``.
 19. Print the resilience counts of every phase (the script runs under
    ``PERITEXT_DEGRADE=0`` but for legs (b) and (c); launch retries,
    fast-fails and degraded batches must be 0 outside the legs that inject
    them, which assert their exact counts), the kernels' JSON summary
-   (launches summed over phases 4, 5 and 8-18, a cluster launch counted
+   (launches summed over phases 4, 5, 8-18 and 20, a cluster launch counted
    in its kernel's and in its ``_cluster`` entry; ``ms`` per wrapper call
    between CUDA events, ``device_ms`` the kernel alone with a cold L2,
    both at phase 2, and for the ``_cluster`` entries at phase 3b's
@@ -210,7 +227,7 @@ import numpy as np
 import torch
 
 from peritext_tpu_torch import TorchDoc, TorchUniverse, replay, state_to_numpy
-from peritext_tpu_torch.bench.bounds import bound, nbytes, text_phase_bytes
+from peritext_tpu_torch.bench.bounds import bound, merge_step_full_bytes, nbytes, text_phase_bytes
 from peritext_tpu_torch.bench.timing import call_ms, device_ms
 from peritext_tpu_torch.bench.workloads import (
     build_device_batch,
@@ -227,10 +244,11 @@ from peritext_tpu_torch.bridge import EditorNetwork
 from peritext_tpu_torch.fuzz import DEFAULT_CHAOS_SPEC, fuzz
 from peritext_tpu_torch.ops import _build, cuda_kernels
 from peritext_tpu_torch.ops import kernels as K
+from peritext_tpu_torch.ops import sorted_merge
 from peritext_tpu_torch.ops import sorted_patched as SP
 from peritext_tpu_torch.ops import universe as port_universe
 from peritext_tpu_torch.ops.encode import prepare_sorted_batch
-from peritext_tpu_torch.ops.state import FIELDS, map_state, state_from_numpy
+from peritext_tpu_torch.ops.state import FIELDS, index_state, map_state, state_from_numpy, visible_text
 from peritext_tpu_torch.oracle import Doc, accumulate_patches
 from peritext_tpu_torch.parallel.stream import (
     cohort_for_budget,
@@ -251,6 +269,7 @@ from peritext_tpu_torch.runtime import (
     telemetry,
 )
 from peritext_tpu_torch.runtime import checkpoint as ckpt
+from peritext_tpu_torch.runtime import native_codec
 from peritext_tpu_torch.runtime.serve_shard import ParkedSubmission
 from peritext_tpu_torch.runtime.sync import apply_changes, causal_order
 from peritext_tpu_torch.schema import allow_multiple_array
@@ -440,6 +459,9 @@ def phase_kernels(label: str, b: dict, capacity: int, runs: int) -> dict:
         raise AssertionError(f"[{label}] merge_step_full differs from merge_step_plain: max abs err {err}")
     full_ms = call_ms(lambda: cuda_kernels.merge_step_full(*merge_in), runs)
     plain_ms = call_ms(lambda: K.merge_step_plain(*merge_in), max(2, runs // 4))
+    live = int((text_ops[:, :, K.K_KIND] != K.KIND_PAD).sum().item())
+    live_marks = int((mark_ops[:, :, K.K_KIND] == K.KIND_MARK).sum().item())
+    full_bound, full_by = bound(merge_step_full_bytes(*merge_in), (4 * live + 8 * live_marks) * capacity)
     # The two plain-torch stages between and after the kernels, timed per
     # call as the whole merge is (the table append synchronizes).
     permute_ms = call_ms(lambda: K._permute_boundaries(st.bnd_def, st.bnd_mask, oi), runs)
@@ -450,7 +472,8 @@ def phase_kernels(label: str, b: dict, capacity: int, runs: int) -> dict:
     for name, r in results.items():
         report(label, name, r)
     log(f"  [{label}] merge_step_full: byte-equal to merge_step_plain on all {len(FIELDS)} fields; "
-        f"{full_ms:.4f} ms per call, plain {plain_ms:.4f} ms")
+        f"{full_ms:.4f} ms per call, plain {plain_ms:.4f} ms; bound {full_bound:.4f} ms ({full_by}: both "
+        f"kernels', the permute's and the append's bytes)")
     # merge_step_pallas's counterpart: the text kernel, then the per-op mark
     # scan in plain torch (it launches the text kernel once per call).
     before = cuda_kernels.LAUNCHES["text_phase"]
@@ -2105,7 +2128,7 @@ def stream_population() -> dict:
     ops = [sum(len(c["ops"]) for c in stream) for stream in wl["streams"]]
     return {"genesis": state_to_numpy(batch["states"]), "text": sp["text"], "rounds": sp["rounds"],
             "num_rounds": sp["num_rounds"], "marks": batch["mark_ops"].cpu().numpy(),
-            "ranks": batch["ranks"].cpu().numpy(), "bufs": sp["bufs"], "maxk": sp["maxk"], "ops": ops}
+            "ranks": batch["ranks"].cpu().numpy(), "bufs": sp["bufs"], "maxk": sp["maxk"], "ops": ops, "wl": wl}
 
 
 def stream_args(pop: dict, lo: int, hi: int) -> tuple:
@@ -2289,7 +2312,7 @@ def phase_stream() -> dict:
             f"{', the last a padded tail' if padded else ''}): states equal to the resident rows; {secs:.2f} s")
         del out
     log(f"  phase 17 kernel launches (the stream's sweeps): {launches}")
-    return {"launches": launches}
+    return {"launches": launches, "wl": pop["wl"]}
 
 
 def card_doc(actor: str) -> TorchDoc:
@@ -2448,6 +2471,237 @@ def phase_drivers() -> dict:
     return {"launches": launches}
 
 
+SPLICES = ("sort", "scatter", "roll")
+SPLICE_PATCHED_REPLICAS = 64  # phase 12's full-table leg, cut from 1024
+ROUTE_KEYS = ("launches", "scan_fallbacks", "windowed_launches", "window_fallbacks", "window_rebuilds",
+              "window_census_skips", "capacity_routes")
+
+
+@contextlib.contextmanager
+def splice(mode: str):
+    """The sorted placement's splice (``sorted_merge._SPLICE_MODE``, read
+    from PERITEXT_SPLICE at import, so the module global is set)."""
+    old = sorted_merge._SPLICE_MODE
+    sorted_merge._SPLICE_MODE = mode
+    try:
+        yield
+    finally:
+        sorted_merge._SPLICE_MODE = old
+
+
+def host_ms(fn, runs: int) -> float:
+    """Median host-clock ms of ``runs`` calls."""
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(times)
+
+
+def writer_log(genesis: dict, streams) -> ChangeLog:
+    lg = ChangeLog()
+    lg.record(genesis)
+    for stream in streams:
+        for change in stream:
+            lg.record(change)
+    return lg
+
+
+def log_matrix(data: bytes):
+    """The op-row matrix inside ``ChangeLog.to_bytes`` output."""
+    head = int.from_bytes(data[:8], "little")
+    n_rows = json.loads(data[8 : 8 + head])["n_rows"]
+    return native_codec.decode_columns(data[8 + head :], K.OP_FIELDS + 1, n_rows), data[8 + head :]
+
+
+def phase_codec(p4: dict, p17: dict) -> dict:
+    """Phase 20a: change logs of phase 4's and phase 17's workloads through
+    the native codec (equal to the Python coder's bytes), and phase 4's
+    rounds replayed from the decoded log on the default route."""
+    label = "phase 20a"
+    if not native_codec.native_available():
+        raise AssertionError(f"[{label}] the native codec did not build (g++): the Python coder may not stand in")
+    wl4, wl5 = p4["wl"], p17["wl"]
+    logs = {
+        "phase 4": writer_log(wl4["genesis"], [[c for rnd in wl4["rounds"] for c in rnd[w]] for w in range(WRITERS)]),
+        "config 5": writer_log(wl5["genesis"], wl5["streams"]),
+    }
+    log(f"{label}: the native codec, {native_codec.library_path()}; {card_line()}")
+    decoded = {}
+    for name, lg in logs.items():
+        data = lg.to_bytes()
+        if data != lg.to_bytes(force_python=True):
+            raise AssertionError(f"[{label} {name}] to_bytes differs between the native and the Python coder")
+        back = ChangeLog.from_bytes(data)
+        if back.actors != lg.actors or any(back.changes_for(a) != lg.changes_for(a) for a in lg.actors):
+            raise AssertionError(f"[{label} {name}] from_bytes did not return every change")
+        if ChangeLog.from_bytes(data, force_python=True).all_changes() != back.all_changes():
+            raise AssertionError(f"[{label} {name}] the Python decoder disagrees")
+        matrix, payload = log_matrix(data)
+        changes = lg.all_changes()
+        json_bytes = len(json.dumps(changes).encode())
+        log(f"  [{label} {name}] {len(changes)} changes, {sum(len(c['ops']) for c in changes)} ops, "
+            f"{matrix.shape[1]} op rows: log {len(data)} B ({len(payload)} B of varints) against "
+            f"{json_bytes} B of JSON; to_bytes == the Python coder's, from_bytes returns every change")
+        log(f"  [{label} {name}] ms (host clock, median), native / Python: to_bytes "
+            f"{host_ms(lg.to_bytes, 5):.4f} / {host_ms(lambda: lg.to_bytes(force_python=True), 3):.4f}, "
+            f"from_bytes {host_ms(lambda: ChangeLog.from_bytes(data), 5):.4f} / "
+            f"{host_ms(lambda: ChangeLog.from_bytes(data, force_python=True), 3):.4f}; the codec alone: "
+            f"encode {host_ms(lambda: native_codec.encode_columns(matrix), 5):.4f} / "
+            f"{host_ms(lambda: native_codec.encode_columns(matrix, force_python=True), 3):.4f}, decode "
+            f"{host_ms(lambda: native_codec.decode_columns(payload, *matrix.shape), 5):.4f} / "
+            f"{host_ms(lambda: native_codec.decode_columns(payload, *matrix.shape, force_python=True), 3):.4f}")
+        decoded[name] = {(c["actor"], c["seq"]): c for c in back.all_changes()}
+
+    # Phase 4's delivery order, once from the decoded log and once from the
+    # original changes, on the default route (both kernels each merge).
+    names = [f"replica{i}" for i in range(REPLICAS)]
+    batches = main_path_batches(wl4, REPLICAS, WRITERS)
+    table = decoded["phase 4"]
+    from_log = [[[table[(c["actor"], c["seq"])] for c in per] for per in batch] for batch in batches]
+    launches: dict = {}
+    unis = []
+    for leg in (from_log, batches):
+        reset_counts()
+        uni = TorchUniverse(names, capacity=2048, max_mark_ops=1024, device=DEVICE)
+        drive(uni, leg)
+        merges = uni.stats["launches"]
+        if merges <= 0 or any(n != merges for n in cuda_kernels.LAUNCHES.values()) or any(PLAIN_CALLS.values()):
+            raise AssertionError(f"[{label}] launch counts {cuda_kernels.LAUNCHES} (plain calls {PLAIN_CALLS}) "
+                                 f"!= merges {merges}")
+        add_launches(launches)
+        unis.append(uni)
+    same_fields(label, unis[0].states, unis[1].states)
+    if not (unis[0].digests() == unis[1].digests()).all() or len(set(unis[0].digests().tolist())) != 1:
+        raise AssertionError(f"[{label}] digests differ from the twin's, or the replicas disagree")
+    log(f"  [{label}] R={REPLICAS} C=2048 M=1024 on the default route: the universe fed the decoded log equals "
+        f"its twin fed the original changes on all {len(FIELDS)} fields and the digests; launches {launches}")
+    return {"launches": launches, "uni": unis[0], "twin": unis[1], "wl": wl4}
+
+
+def splice_leg(mode: str, names, batches, capacity: int, max_marks: int, route: dict):
+    """One sorted-route run under ``mode``; a kernel launches only for a
+    counted scan fallback."""
+    reset_counts()
+    with splice(mode), env(**route):
+        uni = TorchUniverse(names, capacity=capacity, max_mark_ops=max_marks, device=DEVICE)
+        times, _ = drive(uni, batches)
+    if any(n != uni.stats["scan_fallbacks"] for n in cuda_kernels.LAUNCHES.values()) or any(PLAIN_CALLS.values()):
+        raise AssertionError(f"[{mode}] launch counts {cuda_kernels.LAUNCHES} (plain calls {PLAIN_CALLS}) != "
+                             f"scan fallbacks {uni.stats['scan_fallbacks']}")
+    return uni, times
+
+
+def phase_splices(p20a: dict, p6: dict, p9: dict) -> dict:
+    """Phase 20b: phase 8's and phase 9's rounds on the sorted route under
+    each splice, byte-equal to ``"sort"``'s with the same route counters;
+    phase 12's full-table patched leg under each splice at R = 64."""
+    launches: dict = {}
+    shapes = (
+        ("phase 8", main_path_batches(p20a["wl"], REPLICAS, WRITERS), 2048, 1024, p20a["twin"]),
+        ("phase 9", [[[p9["wl"]["genesis"]]] * REPLICAS]
+         + [[rnd[r % WRITERS] for r in range(REPLICAS)] for rnd in p9["wl"]["rounds"]], LARGE_CAPACITY, 128, None),
+    )
+    names = [f"replica{i}" for i in range(REPLICAS)]
+    for shape, batches, capacity, max_marks, reference in shapes:
+        label = f"phase 20b, {shape}'s rounds"
+        runs = {}
+        for mode in SPLICES:
+            uni, times = splice_leg(mode, names, batches, capacity, max_marks, SORTED)
+            add_launches(launches)
+            routes = {k: uni.stats[k] for k in ROUTE_KEYS}
+            if mode == "sort":
+                want = uni
+                if reference is not None:
+                    same_fields(label, uni.states, reference.states)
+                if shape == "phase 9" and routes["windowed_launches"] < 1:
+                    raise AssertionError(f"[{label}] the window never engaged: {routes}")
+            else:
+                same_fields(f"{label} {mode}", uni.states, want.states)
+                if routes != runs["sort"]["routes"]:
+                    raise AssertionError(f"[{label} {mode}] route counters {routes} != sort's {runs['sort']['routes']}")
+            runs[mode] = {"times": times, "routes": routes}
+            if mode != "sort":
+                del uni
+            torch.cuda.empty_cache()
+        log(f"{label}: R={REPLICAS} C={capacity} M={max_marks}, PERITEXT_MERGE_PATH=sorted: the scatter and roll "
+            f"splices equal sort's on all {len(FIELDS)} fields"
+            f"{' and phase 4 twin (the kernels)' if reference is not None else ''}; routes {runs['sort']['routes']}")
+        log(f"  [{label}] round ms (genesis, rounds{', all-to-all' if shape == 'phase 8' else ''}), "
+            + " / ".join(SPLICES) + ": " + "; ".join(
+                " / ".join(f"{1e3 * runs[m]['times'][i]:.4f}" for m in SPLICES)
+                for i in range(len(batches))))
+        log(f"  [{label}] rounds 1-{ROUNDS} median ms: " + ", ".join(
+            f"{m} {1e3 * statistics.median(runs[m]['times'][1:ROUNDS + 1]):.4f}" for m in SPLICES))
+        del want
+        torch.cuda.empty_cache()
+        for mode in SPLICES:
+            with splice(mode), env(**SORTED):
+                uni = TorchUniverse(names, capacity=capacity, max_mark_ops=max_marks, device=DEVICE)
+                profile_round(f"{label} {mode}", uni, batches[: ROUNDS + 1], runs[mode]["times"][ROUNDS])
+            del uni
+            torch.cuda.empty_cache()
+        reset_counts()
+
+    # Phase 12's full-table patched leg, cut to R = 64, against the per-op
+    # loop's streams at the same R.
+    label = "phase 20b, phase 12's full-table leg"
+    wl, per_round = p6["wl"], p6["per_round"]
+    cut = ROUNDS // 2
+    names = names[:SPLICE_PATCHED_REPLICAS]
+    legs = {}
+    for leg, mode, route in [("per-op loop", "sort", {})] + [
+            (mode, mode, dict(SORTED, PERITEXT_MERGE_WINDOW="0")) for mode in SPLICES]:
+        uni = load_universe(names, wl, cut, WRITERS, 2048, 1024)
+        add_launches(launches)
+        outs, calls = [], []
+        with splice(mode), env(**route):
+            for k in range(cut, ROUNDS):
+                out, c = patched_call(uni, [wl["rounds"][k][r % WRITERS] for r in range(len(names))])
+                check_streams(label, uni, out, [per_round[w][k - cut] for w in range(WRITERS)], WRITERS)
+                outs.append(out)
+                calls.append(c)
+        no_kernel_or_plain_calls(f"{label} {leg}")
+        if leg == "per-op loop":
+            ref = {"outs": outs, "states": uni.states}
+        else:
+            if outs != ref["outs"]:
+                raise AssertionError(f"[{label} {mode}] streams differ from the per-op loop's")
+            same_fields(f"{label} {mode}", uni.states, ref["states"])
+            on_route(f"{label} {mode}", uni, len(calls))
+            if uni.stats["windowed_launches"] != 0:
+                raise AssertionError(f"[{label} {mode}] PERITEXT_MERGE_WINDOW=0 windowed: {route_stats(uni)}")
+        legs[leg] = {key: 1e3 * statistics.median(c[key] for c in calls) for key in PATCH_STATS + ("total",)}
+        del uni
+        torch.cuda.empty_cache()
+    log(f"{label}: R={SPLICE_PATCHED_REPLICAS} (cut from {REPLICAS}) C=2048 M=1024, rounds {cut + 1}-{ROUNDS}: "
+        f"each splice's streams equal the per-op loop's and the {WRITERS} observers', all {len(FIELDS)} fields "
+        f"equal; median ms a call (total, device merge): " + "; ".join(
+            f"{leg} {ms['total']:.4f}, {ms['patch_loop_seconds']:.4f}" for leg, ms in legs.items()))
+    return {"launches": launches}
+
+
+def phase_surface(p20a: dict) -> None:
+    """Phase 20c: every name of the package's ``__all__`` resolves, and
+    ``visible_text`` of phase 20a's replica 0 (equal to phase 4's) is its
+    text from ``texts()``."""
+    import peritext_tpu_torch
+
+    missing = [n for n in peritext_tpu_torch.__all__ if getattr(peritext_tpu_torch, n, None) is None]
+    if missing:
+        raise AssertionError(f"[phase 20c] names of __all__ that do not resolve: {missing}")
+    uni = p20a["uni"]
+    text = visible_text(index_state(uni.states, 0))
+    if text != uni.texts()[0] or not text:
+        raise AssertionError("[phase 20c] visible_text of replica 0 differs from texts()[0]")
+    log(f"phase 20c: all {len(peritext_tpu_torch.__all__)} names of peritext_tpu_torch.__all__ resolve "
+        f"(obs is {peritext_tpu_torch.obs.__name__}); visible_text of replica 0 on the card equals texts()[0] "
+        f"({len(text)} chars)")
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2544,13 +2798,22 @@ def main() -> int:
     with resilience("phase 18"):
         drivers = phase_drivers()
     log_peak("phase 18")
+    t = time.perf_counter()
+    with resilience("phase 20"):
+        codec = phase_codec(main, streamed)
+        splices = phase_splices(codec, patch_run, window)
+        phase_surface(codec)
+    del codec["uni"], codec["twin"]
+    torch.cuda.empty_cache()
+    log_peak("phase 20")
+    log(f"phase 20 took {time.perf_counter() - t:.1f} s")
     runs = (main, past, sorted_run, window, serving, resilient, patched_sorted, patched_window, served_sorted,
-            capacity, sharded, streamed, drivers)
+            capacity, sharded, streamed, drivers, codec, splices)
     results.update({f"{name}_cluster": r for name, r in cluster_results.items()})
     launches = {name: sum(run["launches"].get(name, 0) for run in runs) for name in results}
     log("phase 19: resilience counts (launch_retries, fastfails, degraded_batches) per phase and leg: " + "; ".join(
         f"{lbl} {got['launch_retries']}/{got['fastfails']}/{got['degraded_batches']}" for lbl, got in PHASE_TALLIES))
-    log(f"  kernel launches summed over phases 4, 5 and 8-18: {launches}; the script so far "
+    log(f"  kernel launches summed over phases 4, 5, 8-18 and 20: {launches}; the script so far "
         f"{time.perf_counter() - started:.1f} s")
 
     replaces = {

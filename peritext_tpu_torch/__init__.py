@@ -26,9 +26,14 @@ the fault, health, SLO and telemetry planes, change logs and checkpoints.
 than the card in cohorts through both kernels; ``testing``, ``replay``,
 ``bridge`` and ``fuzz`` are the JAX package's host-side drivers over the
 port's engines.
+``runtime.native_codec`` writes and reads change logs' op rows through
+a C++ coder built with ``g++`` at first use.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``devices=["cpu"]`` for the sharded plane); without a GPU they raise.
+The package surface is the JAX package's (``__all__``), with
+``TorchDoc`` and ``TorchUniverse`` for its engine classes.
 """
+from peritext_tpu_torch.oracle import Doc, accumulate_patches
 from peritext_tpu_torch.ops.doc import TorchDoc
 from peritext_tpu_torch.ops.state import (
     DocState,
@@ -38,11 +43,55 @@ from peritext_tpu_torch.ops.state import (
     wcache_to_numpy,
 )
 from peritext_tpu_torch.ops.universe import TorchUniverse
+from peritext_tpu_torch.schema import MARK_SPEC, MARK_TYPE_ID, register_mark_type
+
+_BRIDGE = (
+    "Editor",
+    "EditorNetwork",
+    "RemoteChangeHighlighter",
+    "editor_doc_from_spans",
+    "editor_doc_text",
+    "content_pos_from_editor_pos",
+    "initialize_docs",
+)
+
+
+def __getattr__(name):
+    # ALL_MARKS is rebound when mark types register; forward dynamically so
+    # `peritext_tpu_torch.ALL_MARKS` is never stale.
+    if name == "ALL_MARKS":
+        from peritext_tpu_torch import schema
+
+        return schema.ALL_MARKS
+    # Observability facade: `peritext_tpu_torch.obs` IS the telemetry
+    # module, loaded lazily (importing it arms the env-driven flusher).
+    if name == "obs":
+        from peritext_tpu_torch.runtime import telemetry
+
+        return telemetry
+    # Bridge surfaces load lazily (Editor pulls in the runtime package).
+    if name in _BRIDGE:
+        from peritext_tpu_torch import bridge
+
+        return getattr(bridge, name)
+    raise AttributeError(name)
+
+
+__version__ = "0.1.0"
 
 __all__ = [
-    "DocState",
+    "Doc",
+    "accumulate_patches",
+    "ALL_MARKS",
+    "register_mark_type",
+    "MARK_SPEC",
+    "MARK_TYPE_ID",
     "TorchDoc",
     "TorchUniverse",
+    *_BRIDGE,
+    "obs",
+    "__version__",
+    "DocState",
     "state_from_numpy",
     "state_to_numpy",
     "wcache_from_numpy",

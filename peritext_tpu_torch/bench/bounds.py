@@ -48,3 +48,20 @@ def text_phase_bytes(elem_ctr, elem_act, deleted, chars, length, text_ops, ranks
     # Out: ec, ea, chars and orig_idx as int32, deleted as bool, length.
     out = nbytes(elem_ctr, elem_act, chars, elem_ctr, deleted, length)
     return planes + nbytes(length, ranks) + int(field_bytes.sum().item()) + out
+
+
+def merge_step_full_bytes(st, text_ops, mark_ops, ranks, char_buf=None) -> int:
+    """Bytes ``merge_step_full`` must move, stage by stage as it runs them:
+    the text kernel's (:func:`text_phase_bytes`); the boundary permute's
+    (``bnd_def``, ``bnd_mask`` and the orig-index plane in, both planes
+    out); the mark kernel's (both planes, ``elem_ctr``, ``elem_act``,
+    ``length``, ``mark_count`` and the mark rows in, both planes out); and
+    the table append's (the five table columns, ``mark_count`` and the mark
+    rows in, the columns and ``mark_count`` out)."""
+    text = text_phase_bytes(st.elem_ctr, st.elem_act, st.deleted, st.chars, st.length, text_ops, ranks,
+                            char_buf)
+    planes = nbytes(st.bnd_def, st.bnd_mask)
+    permute = planes + nbytes(st.elem_ctr) + planes
+    mark = planes + nbytes(st.elem_ctr, st.elem_act, st.length, st.mark_count, mark_ops) + planes
+    table = nbytes(st.mark_ctr, st.mark_act, st.mark_action, st.mark_type, st.mark_attr, st.mark_count)
+    return text + permute + mark + 2 * table + nbytes(mark_ops)

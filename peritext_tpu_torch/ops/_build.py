@@ -6,6 +6,8 @@ no PyTorch headers, so a build takes seconds.  Libraries land in
 ``peritext_tpu_torch/build/`` (git-ignored), named by a hash of the sources
 and flags, so an edited kernel is rebuilt and a stale library is never
 loaded.  ``build_all`` starts one ``nvcc`` per source at once.
+``build_host_library`` builds a ``csrc/<name>.cpp`` host library (the
+change-log codec) with ``g++`` the same way.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -25,6 +28,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Host C++ libraries (``csrc/*.cpp``): the flags of ``native/Makefile``.
+CXX_FLAGS = ("-O3", "-Wall", "-Wextra", "-fPIC", "-std=c++17", "-shared")
 
 # What nvcc printed for each library built in this process (register and
 # shared-memory use, from -Xptxas -v).
@@ -56,13 +61,46 @@ def nvcc_path() -> str:
     )
 
 
-def _library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu*")):
-        if src.suffix == ".cuh" or src.stem == name:
-            h.update(src.name.encode())
-            h.update(src.read_bytes())
+def _hashed_path(name: str, flags: Iterable[str], sources: Iterable[Path]) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _library_path(name: str) -> Path:
+    sources = [
+        src for src in sorted(CSRC_DIR.glob("*.cu*"))
+        if src.suffix == ".cuh" or src.name == f"{name}.cu"
+    ]
+    return _hashed_path(name, NVCC_FLAGS, sources)
+
+
+def _tmp_path(out: Path) -> Path:
+    """A name no other process or thread builds ``out`` under, so that
+    concurrent first builds each finish with one ``os.replace``."""
+    return out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+
+
+def build_host_library(name: str) -> Path:
+    """Compile ``csrc/<name>.cpp`` (plain C++ with a C interface, no CUDA)
+    with ``$CXX`` (default ``g++``) and :data:`CXX_FLAGS` unless a current
+    library exists.  Raises ``OSError`` when there is no compiler and
+    ``subprocess.CalledProcessError`` when the build fails."""
+    src = CSRC_DIR / f"{name}.cpp"
+    out = _hashed_path(name, CXX_FLAGS, [src])
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = _tmp_path(out)
+    cmd = [os.environ.get("CXX") or "g++", *CXX_FLAGS, "-o", str(tmp), str(src)]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return out
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
@@ -83,7 +121,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     failed = []
     try:
         for name, out in todo.items():
-            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+            tmp = _tmp_path(out)
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
             procs[name] = (
                 subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),

@@ -2,7 +2,8 @@
 the batched mark phase and the frontier-bounded window.
 
 Counterparts of ``peritext_tpu/ops/kernels.py``'s ``_place_round`` (with
-the default ``"sort"`` splice), ``place_text_batch``,
+its three ``PERITEXT_SPLICE`` modes, the default ``"sort"`` among them),
+``place_text_batch``,
 ``_batched_anchor_slots``, ``_or_accumulate``, ``_apply_marks_batch``,
 ``_sorted_tail``, ``merge_step_sorted(_batch)``, ``_gather_window``,
 ``_scatter_window``, ``_window_ok`` and ``merge_step_sorted_windowed``.  No
@@ -24,6 +25,7 @@ and the uint32 mask words as int32 bitcasts (``state.py``).
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Tuple
 
 import torch
@@ -56,6 +58,20 @@ from peritext_tpu_torch.ops.state import FIELDS, MASK_WORD_BITS, DocState, map_s
 
 # Elements of one [slice, ...] transient the sorted merge holds at once.
 _CHUNK_ELEMS = 1 << 26
+
+# The splice that materializes each placement round's output, as in
+# ``kernels._place_round``: "sort" (the default) a stable argsort of the
+# destinations and a gather per plane, "scatter" a scatter to them, "roll"
+# binary rolls of the existing elements and a fill of the op blocks.  Read
+# from PERITEXT_SPLICE at import; tests set the module global.
+_SPLICE_MODE = os.environ.get("PERITEXT_SPLICE", "sort")
+if _SPLICE_MODE not in ("sort", "scatter", "roll"):
+    raise ValueError(
+        f"PERITEXT_SPLICE={_SPLICE_MODE!r}: must be 'sort', 'scatter' or 'roll'"
+    )
+# Each plane's value where no element or block lands (ctr, act, deleted,
+# chars, orig index).
+_SPLICE_FILLS = (0, 0, 0, 0, -1)
 _U32 = 0xFFFFFFFF
 
 
@@ -77,11 +93,11 @@ def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _place_round(carry, rnd: int, ops, round_of, ranks, char_buf, maxk: int):
-    """Apply every round-``rnd`` text op at once (``kernels._place_round``
-    with the ``"sort"`` splice): deletes tombstone every live match, each
-    insert's block lands at its skip-run stop t, blocks at one t go in
-    descending op-id order, and the output is a stable sort of all
-    destinations (dead slots and inactive lanes sort last)."""
+    """Apply every round-``rnd`` text op at once (``kernels._place_round``):
+    deletes tombstone every live match, each insert's block lands at its
+    skip-run stop t, and blocks at one t go in descending op-id order.  The
+    ``_SPLICE_MODE`` splice writes the output; under "sort" it is a stable
+    sort of all destinations (dead slots and inactive lanes sort last)."""
     ec, ea, dl, ch, oi, length = carry
     r, c = ec.shape
     n_ops = ops.shape[1]
@@ -150,6 +166,18 @@ def _place_round(carry, rnd: int, ops, round_of, ranks, char_buf, maxk: int):
     block_act = ops[..., K_ACT, None].expand(r, n_ops, maxk)
     new_length = (length + k.sum(dim=1)).to(torch.int32)
 
+    zeros = torch.zeros_like(block_ctr)
+    if _SPLICE_MODE == "scatter":
+        return _splice_scatter(
+            (ec, ea, deleted.to(torch.int32), ch, oi),
+            (block_ctr, block_act, zeros, block_chars, zeros - 1),
+            dest_exist, dest_ops, new_length,
+        )
+    if _SPLICE_MODE == "roll":
+        return _splice_roll(
+            (ec, ea, deleted.to(torch.int32), ch, oi), shifts, n_ops * maxk, is_ins, s, k,
+            ctr_i, ops[..., K_ACT], maxk, block_chars, new_length,
+        )
     keys = torch.cat([dest_exist, dest_ops.reshape(r, -1)], dim=1)
     take = torch.argsort(keys, dim=1, stable=True)[:, :c]
     live_out = ar[None, :] < new_length[:, None]
@@ -161,11 +189,82 @@ def _place_round(carry, rnd: int, ops, round_of, ranks, char_buf, maxk: int):
     return (
         plane(ec, block_ctr, 0),
         plane(ea, block_act, 0),
-        plane(deleted, torch.zeros_like(in_block), False),
+        plane(deleted, zeros.bool(), False),
         plane(ch, block_chars, 0),
-        plane(oi, torch.full_like(block_ctr, -1), -1),
+        plane(oi, zeros - 1, -1),
         new_length,
     )
+
+
+def _splice_scatter(old, block, dest_exist, dest_ops, new_length):
+    """The ``"scatter"`` splice: each element and block lane written to its
+    destination, positions no one writes keeping the fill.  JAX's
+    ``.at[dest].set(mode="drop")`` drops destinations >= C (dead slots,
+    inactive lanes, a batch that overfills C); here they all land on a sink
+    column C that is cut off.  Destinations below C are unique, so the
+    result does not depend on the write order."""
+    r, c = old[0].shape
+    de = dest_exist.clamp(max=c)
+    do = dest_ops.reshape(r, -1).clamp(max=c)
+    outs = []
+    for o, b, fill in zip(old, block, _SPLICE_FILLS):
+        out = torch.full((r, c + 1), fill, dtype=o.dtype, device=o.device)
+        out.scatter_(1, de, o)
+        out.scatter_(1, do, b.reshape(r, -1).to(o.dtype))
+        outs.append(out[:, :c].contiguous())
+    return (*outs[:2], outs[2].bool(), *outs[3:], new_length)
+
+
+def _splice_roll(planes, shifts, max_disp: int, is_ins, s, k, ctr_i, act_i, maxk: int,
+                 block_chars, new_length):
+    """The ``"roll"`` splice (``kernels._place_round``'s): existing
+    elements move right by their displacement in MSB-first binary rolls over
+    ``max_disp.bit_length()`` passes (stale copies marked -1 so they never
+    move again; ``ar >= step`` guards the wrap), then each block position
+    takes its owning op's id, actor and char.  JAX finds the owner through
+    [L, C] and [L * maxk, C] one-hots; here the [L, C] block predicate runs
+    in op chunks under ``_CHUNK_ELEMS`` and each position's char is
+    gathered at its offset from the owner's block start ``s``."""
+    r, c = planes[0].shape
+    n_ops = s.shape[1]
+    dev = s.device
+    ar = torch.arange(c, device=dev)
+    rem = shifts
+    for b in reversed(range(max_disp.bit_length())):
+        step = 1 << b
+        moved = torch.roll(rem, step, dims=1)
+        sel = (moved >= step) & (ar >= step)
+        planes = [torch.where(sel, torch.roll(p, step, dims=1), p) for p in planes]
+        rem = torch.where(sel, moved - step, torch.where(rem >= step, -1, rem))
+
+    # Blocks are disjoint: each position has at most one owning op.
+    owner = torch.full((r, c), -1, dtype=torch.long, device=dev)
+    lanes = torch.arange(n_ops, device=dev)
+    chunk = max(1, _CHUNK_ELEMS // max(r * c, 1))
+    for lo in range(0, n_ops, chunk):
+        sl = slice(lo, lo + chunk)
+        in_blk = is_ins[:, sl, None] & (ar >= s[:, sl, None]) & (ar < (s + k)[:, sl, None])
+        owner = torch.maximum(owner, torch.where(in_blk, lanes[sl, None], -1).amax(dim=1))
+    blk_any = owner >= 0
+    own = owner.clamp(min=0)
+    off = ar - torch.gather(s, 1, own)
+    lane = own * maxk + off.clamp(0, maxk - 1)
+    blk_char = torch.where(
+        off < maxk, torch.gather(block_chars.reshape(r, -1), 1, lane), -(2**31) + 1
+    )
+    blk = (
+        (torch.gather(ctr_i - s, 1, own) + ar).to(torch.int32),
+        torch.gather(act_i, 1, own),
+        torch.zeros_like(planes[2]),
+        blk_char,
+        torch.full_like(planes[4], -1),
+    )
+    live_out = ar[None, :] < new_length[:, None]
+    outs = [
+        torch.where(live_out, torch.where(blk_any, b.to(p.dtype), p), fill)
+        for p, b, fill in zip(planes, blk, _SPLICE_FILLS)
+    ]
+    return (*outs[:2], outs[2].bool(), *outs[3:], new_length)
 
 
 def place_text_batch(ec, ea, dl, ch, length, text_ops, round_of, num_rounds: int,

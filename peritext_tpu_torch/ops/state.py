@@ -193,3 +193,12 @@ def wcache_to_numpy(wcache: torch.Tensor) -> np.ndarray:
 def wcache_from_numpy(wcache: np.ndarray, device: Device = None) -> torch.Tensor:
     """A winner cache from its numpy form, on ``device`` (``None``: the GPU)."""
     return torch.from_numpy(np.array(wcache, dtype=np.int32, order="C")).to(resolve_device(device))
+
+
+def visible_text(state: DocState) -> str:
+    """Decode one replica's visible document text on the host
+    (``peritext_tpu/ops/state.py``'s); the state may lie on any device."""
+    n = int(state.length)
+    chars = state.chars[:n].cpu().tolist()
+    deleted = state.deleted[:n].cpu().tolist()
+    return "".join(chr(c) for c, d in zip(chars, deleted) if not d)

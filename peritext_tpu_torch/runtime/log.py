@@ -8,9 +8,9 @@ traces work — they serialize ``queues``).
 
 A copy of ``peritext_tpu/runtime/log.py`` for the PyTorch port.  Its binary
 form (``to_bytes``/``from_bytes``) is the JAX package's columnar varint
-format, written and read here by that format's plain-Python coder
-(``_encode_columns``/``_decode_columns``), so either package reads the
-other's logs.
+format, written and read by the port's native codec
+(``runtime/native_codec.py``, its plain-Python coder where no C++ compiler
+exists), so either package reads the other's logs.
 """
 from __future__ import annotations
 
@@ -106,12 +106,13 @@ class ChangeLog:
     def actors(self) -> List[str]:
         return list(self._queues)
 
-    # -- binary persistence (columnar varints) -------------------------------
+    # -- binary persistence (native codec) ----------------------------------
 
-    def to_bytes(self) -> bytes:
-        """Serialize the whole log: columnar-varint op rows
-        (:func:`_encode_columns`) + a JSON envelope for headers,
-        intern tables, and structural ops.
+    def to_bytes(self, force_python: bool = False) -> bytes:
+        """Serialize the whole log: columnar-varint op rows (the native
+        codec, runtime/native_codec.py; ``force_python`` takes its Python
+        coder) + a JSON envelope for headers, intern tables, and
+        structural ops.
 
         The binary analog of the reference's JSON change format
         (micromerge.ts:60-71, which cites Automerge's binary change format
@@ -124,6 +125,7 @@ class ChangeLog:
         from peritext_tpu_torch.ids import ActorRegistry
         from peritext_tpu_torch.ops import kernels as K
         from peritext_tpu_torch.ops.encode import AttrRegistry, encode_internal_op
+        from peritext_tpu_torch.runtime.native_codec import encode_columns
 
         actors = ActorRegistry()
         attrs = AttrRegistry()
@@ -163,7 +165,7 @@ class ChangeLog:
             if rows
             else np.zeros((K.OP_FIELDS + 1, 0), np.int32)
         )
-        payload = _encode_columns(matrix)
+        payload = encode_columns(matrix, force_python=force_python)
         envelope["obj_table"] = obj_table
         envelope["actors"] = actors.actors
         envelope["attrs"] = attrs.values
@@ -174,17 +176,19 @@ class ChangeLog:
         )
 
     @classmethod
-    def from_bytes(cls, data: bytes) -> "ChangeLog":
+    def from_bytes(cls, data: bytes, force_python: bool = False) -> "ChangeLog":
         import json
 
         from peritext_tpu_torch.ids import ActorRegistry
         from peritext_tpu_torch.ops import kernels as K
         from peritext_tpu_torch.ops.encode import AttrRegistry, decode_internal_op
+        from peritext_tpu_torch.runtime.native_codec import decode_columns
 
         head_len = int.from_bytes(data[:8], "little")
         envelope = json.loads(data[8 : 8 + head_len])
-        matrix = _decode_columns(
-            data[8 + head_len :], K.OP_FIELDS + 1, envelope["n_rows"]
+        matrix = decode_columns(
+            data[8 + head_len :], K.OP_FIELDS + 1, envelope["n_rows"],
+            force_python=force_python,
         )
         actors = ActorRegistry()
         for actor in envelope["actors"]:
@@ -208,52 +212,3 @@ class ChangeLog:
                     row_i += 1
             log.record({**entry["header"], "ops": ops})
         return log
-
-
-# -- the columnar varint format (the JAX package's plain-Python coder) -------
-
-
-def _encode_columns(matrix) -> bytes:
-    """An int32 [n_cols, n_rows] matrix as per-column zigzag deltas in
-    LEB128 varints."""
-    import numpy as np
-
-    matrix = np.ascontiguousarray(matrix, np.int32)
-    out = bytearray()
-    for col in matrix:
-        deltas = np.diff(col.astype(np.int64), prepend=np.int64(0)).astype(np.int32).astype(np.int64)
-        for z in (((deltas << 1) ^ (deltas >> 31)) & 0xFFFFFFFF).tolist():
-            while z >= 0x80:
-                out.append((z & 0x7F) | 0x80)
-                z >>= 7
-            out.append(z)
-    return bytes(out)
-
-
-def _decode_columns(data: bytes, n_cols: int, n_rows: int):
-    """Inverse of :func:`_encode_columns`."""
-    import numpy as np
-
-    out = np.empty((n_cols, n_rows), np.int32)
-    pos = 0
-    for c in range(n_cols):
-        prev = 0
-        for r in range(n_rows):
-            result = 0
-            shift = 0
-            while True:
-                if pos >= len(data) or shift >= 35:
-                    raise ValueError("malformed varint stream")
-                b = data[pos]
-                pos += 1
-                result = (result | ((b & 0x7F) << shift)) & 0xFFFFFFFF
-                if not b & 0x80:
-                    break
-                shift += 7
-            prev = (prev + ((result >> 1) ^ -(result & 1))) & 0xFFFFFFFF
-            if prev >= 0x80000000:
-                prev -= 0x100000000
-            out[c, r] = prev
-    if pos != len(data):
-        raise ValueError("trailing bytes in varint stream")
-    return out

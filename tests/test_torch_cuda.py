@@ -981,3 +981,71 @@ def test_sync_free_append_and_digest_equal_the_old_forms(card, monkeypatch):
     monkeypatch.setattr(K, "resolve_winners", _winners_with_unique)
     old = K.convergence_digest(want, ranks, multi)
     assert torch.equal(new, old) and torch.equal(bounded, old)
+
+
+@pytest.mark.parametrize("mode", ["sort", "scatter", "roll"])
+def test_splices_on_the_card_equal_the_cpu_and_sort(card, monkeypatch, mode):
+    """Each splice of the sorted placement, on insert-heavy random rows in
+    three rounds (some replicas overfill C = 256) and through the whole
+    sorted merge: the card's planes equal the CPU's under the same splice
+    and the card's under "sort"."""
+    from peritext_tpu_torch.bench.workloads import build_device_batch, insert_heavy_text_ops
+    from peritext_tpu_torch.ops import sorted_merge
+
+    wl = make_merge_workload(doc_len=100, ops_per_merge=24, num_streams=4, with_marks=True, seed=1)
+    b = build_device_batch(wl, 6, 256, 64, device="cpu")
+    st = b["states"]
+    ops, buf = insert_heavy_text_ops(np.random.default_rng(1), st, 24, 128)
+    rounds = torch.from_numpy(np.random.default_rng(8).integers(0, 3, size=ops.shape[:2]).astype(np.int32))
+    marks, ranks = b["mark_ops"], b["ranks"]
+
+    def run(device, splice):
+        monkeypatch.setattr(sorted_merge, "_SPLICE_MODE", splice)
+        s = map_state(lambda x: x.to(device), st)
+        args = [t.to(device) for t in (ops, rounds)]
+        placed = sorted_merge.place_text_batch(s.elem_ctr, s.elem_act, s.deleted, s.chars, s.length, *args, 3,
+                                               ranks.to(device), buf.to(device), 64)
+        merged = sorted_merge.merge_step_sorted_batch(s, *args, 3, marks.to(device), ranks.to(device),
+                                                      buf.to(device), 64)
+        return [p.cpu() for p in placed], state_to_numpy(merged)
+
+    got, got_st = run(card, mode)
+    for want, want_st in (run("cpu", mode), run(card, "sort")):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all((got_st[f] == want_st[f]).all() for f in got_st)
+    assert (got[-1] > 256).any()
+
+
+@pytest.mark.parametrize("mode", ["scatter", "roll"])
+def test_sorted_universe_on_the_card_under_each_splice(card, monkeypatch, mode):
+    """Eight replicas on the windowed sorted route at C = 4096 under a
+    splice give the "sort" splice's states field by field."""
+    from peritext_tpu_torch.ops import sorted_merge
+
+    monkeypatch.setenv("PERITEXT_MERGE_PATH", "sorted")
+    monkeypatch.setenv("PERITEXT_MERGE_WINDOW", "1")
+    monkeypatch.delenv("PERITEXT_MERGE_WINDOW_MIN", raising=False)
+    wl = make_writer_rounds(doc_len=3000, ops_per_round=32, num_writers=4, rounds=3, seed=5, locality=128)
+    names = [f"r{i}" for i in range(8)]
+    steps = [[[wl["genesis"]]] * 8] + [[rnd[i % 4] for i in range(8)] for rnd in wl["rounds"]]
+    states = {}
+    for splice in ("sort", mode):
+        monkeypatch.setattr(sorted_merge, "_SPLICE_MODE", splice)
+        uni = TorchUniverse(names, capacity=4096, max_mark_ops=256, device=card)
+        for batch in steps:
+            uni.apply_changes(batch)
+        assert uni.stats["windowed_launches"] >= 1
+        states[splice] = state_to_numpy(uni.states)
+    assert all((states["sort"][f] == states[mode][f]).all() for f in states["sort"])
+
+
+def test_visible_text_of_a_card_state(card):
+    from peritext_tpu_torch.ops.state import index_state, visible_text
+
+    uni = TorchUniverse(["a", "b"], device=card)
+    wl = make_writer_rounds(doc_len=200, ops_per_round=16, num_writers=2, rounds=2, seed=3)
+    uni.apply_changes([[wl["genesis"]]] * 2)
+    uni.apply_changes([wl["rounds"][0][0], wl["rounds"][0][1]])
+    assert uni.states.chars.device.type == "cuda"
+    for r in range(2):
+        assert visible_text(index_state(uni.states, r)) == uni.texts()[r]

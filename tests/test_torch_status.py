@@ -107,16 +107,24 @@ def test_flusher_writes_periodically_and_reset_stops_it(tmp_path):
 def test_status_env_arms_the_flusher_and_the_exit_dump(tmp_path):
     """A process started with PERITEXT_STATUS and PERITEXT_METRICS_INTERVAL
     writes the status file while it runs and once more at exit; ops_top
-    renders both."""
+    renders both.  The child reads the live file until a write shows its
+    counter (the flusher may write before the counter exists)."""
     live, metrics = tmp_path / "status.json", tmp_path / "metrics.json"
     code = textwrap.dedent(f"""
         import json, os, time
         from peritext_tpu_torch.runtime import telemetry
         telemetry.counter("ingest.launches", 3)
+        # The flusher starts at import, so it may write before the counter
+        # (a status with no "ingest" section yet): wait for a write made
+        # after it, and print what was read last.
         deadline = time.monotonic() + 10
-        while not os.path.exists({str(live)!r}) and time.monotonic() < deadline:
-            time.sleep(0.02)
-        print(json.load(open({str(live)!r}))["ingest"]["launches"])
+        launches = None
+        while launches != 3 and time.monotonic() < deadline:
+            if os.path.exists({str(live)!r}):
+                launches = json.load(open({str(live)!r})).get("ingest", {{}}).get("launches")
+            if launches != 3:
+                time.sleep(0.02)
+        print(launches)
         os.remove({str(live)!r})
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO), PERITEXT_STATUS=str(live),

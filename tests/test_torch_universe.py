@@ -125,8 +125,10 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax\b|jaxlib\b|peritext_tpu(\.|\s
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """In a process where ``jax``, ``jaxlib`` and ``peritext_tpu`` cannot be
     imported (blocked in ``sys.modules``), every module of the port, the
-    runtime copies included, and ``chip_smoke.py`` with its dependencies
-    import; and no source of them names one of those packages."""
+    runtime copies and the native codec included, and ``chip_smoke.py``
+    with its dependencies import, every name of the package's ``__all__``
+    resolves (the lazy ``obs`` and bridge names too) and the codec round
+    trips; and no source of them names one of those packages."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'peritext_tpu'):\n"
@@ -139,7 +141,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "assert {'peritext_tpu_torch.runtime.' + m for m in ('serve', 'checkpoint', 'pubsub', 'serve_shard', "
         "'elastic', 'lifecycle', 'sync')} <= set(mods)\n"
         "assert {'peritext_tpu_torch.' + m for m in ('parallel.stream', 'testing', 'replay', 'bridge', "
-        "'fuzz', 'examples.fleet_demo')} <= set(mods)\n"
+        "'fuzz', 'examples.fleet_demo', 'runtime.native_codec')} <= set(mods)\n"
+        "for name in peritext_tpu_torch.__all__:\n"
+        "    getattr(peritext_tpu_torch, name)\n"
+        "from peritext_tpu_torch.runtime import native_codec\n"
+        "assert native_codec.decode_columns(native_codec.encode_columns([[5, -7]]), 1, 2).tolist() == [[5, -7]]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'peritext_tpu') "
         "and sys.modules[m] is not None]\n"
         "print(len(mods), bad)\n"
