@@ -183,11 +183,12 @@ Phases, in order; any failure exits non-zero:
 20. The change-log codec, the three splices and the package surface.
    (a) ``ChangeLog``s of phase 4's workload and of phase 17's document
    through ``runtime.native_codec`` (which must have built with ``g++``):
-   ``to_bytes`` equal to the Python coder's, ``from_bytes`` returning every
-   change; then 1024 replicas (C = 2048, M = 1024) take phase 4's rounds
-   from the decoded log on the default route, equal on all 13 fields and
-   the digests to a twin fed the original changes (both kernels launch,
-   counted).  Prints encode and decode ms, native beside Python, and the
+   the log's op-row varints (``runtime.log.log_columns``) equal to the
+   Python coder's and decoding back to the same rows, ``from_bytes``
+   returning every change; then 1024 replicas (C = 2048, M = 1024) take
+   phase 4's rounds from the decoded log on the default route, equal on
+   all 13 fields and the digests to a twin fed the original changes (both
+   kernels launch, counted).  Prints encode and decode ms, native beside Python, and the
    log's bytes beside its JSON's.  (b) Phase 8's rounds (which must equal
    the twin) and phase 9's windowed rounds on the sorted route under each
    ``sorted_merge._SPLICE_MODE`` ("sort", "scatter", "roll"), each equal
@@ -227,7 +228,13 @@ import numpy as np
 import torch
 
 from peritext_tpu_torch import TorchDoc, TorchUniverse, replay, state_to_numpy
-from peritext_tpu_torch.bench.bounds import bound, merge_step_full_bytes, nbytes, text_phase_bytes
+from peritext_tpu_torch.bench.bounds import (
+    bound,
+    merge_step_full_bytes,
+    merge_step_stage_bytes,
+    nbytes,
+    text_phase_bytes,
+)
 from peritext_tpu_torch.bench.timing import call_ms, device_ms
 from peritext_tpu_torch.bench.workloads import (
     build_device_batch,
@@ -270,6 +277,7 @@ from peritext_tpu_torch.runtime import (
 )
 from peritext_tpu_torch.runtime import checkpoint as ckpt
 from peritext_tpu_torch.runtime import native_codec
+from peritext_tpu_torch.runtime.log import log_columns
 from peritext_tpu_torch.runtime.serve_shard import ParkedSubmission
 from peritext_tpu_torch.runtime.sync import apply_changes, causal_order
 from peritext_tpu_torch.schema import allow_multiple_array
@@ -461,7 +469,9 @@ def phase_kernels(label: str, b: dict, capacity: int, runs: int) -> dict:
     plain_ms = call_ms(lambda: K.merge_step_plain(*merge_in), max(2, runs // 4))
     live = int((text_ops[:, :, K.K_KIND] != K.KIND_PAD).sum().item())
     live_marks = int((mark_ops[:, :, K.K_KIND] == K.KIND_MARK).sum().item())
-    full_bound, full_by = bound(merge_step_full_bytes(*merge_in), (4 * live + 8 * live_marks) * capacity)
+    full_ops = (4 * live + 8 * live_marks) * capacity
+    full_bound, full_by = bound(merge_step_full_bytes(*merge_in), full_ops)
+    stage_bound, stage_by = bound(merge_step_stage_bytes(*merge_in), full_ops)
     # The two plain-torch stages between and after the kernels, timed per
     # call as the whole merge is (the table append synchronizes).
     permute_ms = call_ms(lambda: K._permute_boundaries(st.bnd_def, st.bnd_mask, oi), runs)
@@ -472,8 +482,8 @@ def phase_kernels(label: str, b: dict, capacity: int, runs: int) -> dict:
     for name, r in results.items():
         report(label, name, r)
     log(f"  [{label}] merge_step_full: byte-equal to merge_step_plain on all {len(FIELDS)} fields; "
-        f"{full_ms:.4f} ms per call, plain {plain_ms:.4f} ms; bound {full_bound:.4f} ms ({full_by}: both "
-        f"kernels', the permute's and the append's bytes)")
+        f"{full_ms:.4f} ms per call, plain {plain_ms:.4f} ms; bound {full_bound:.4f} ms ({full_by}: the "
+        f"state in and out once), the stages' bytes as run {stage_bound:.4f} ms ({stage_by})")
     # merge_step_pallas's counterpart: the text kernel, then the per-op mark
     # scan in plain torch (it launches the text kernel once per call).
     before = cuda_kernels.LAUNCHES["text_phase"]
@@ -2508,13 +2518,6 @@ def writer_log(genesis: dict, streams) -> ChangeLog:
     return lg
 
 
-def log_matrix(data: bytes):
-    """The op-row matrix inside ``ChangeLog.to_bytes`` output."""
-    head = int.from_bytes(data[:8], "little")
-    n_rows = json.loads(data[8 : 8 + head])["n_rows"]
-    return native_codec.decode_columns(data[8 + head :], K.OP_FIELDS + 1, n_rows), data[8 + head :]
-
-
 def phase_codec(p4: dict, p17: dict) -> dict:
     """Phase 20a: change logs of phase 4's and phase 17's workloads through
     the native codec (equal to the Python coder's bytes), and phase 4's
@@ -2531,23 +2534,23 @@ def phase_codec(p4: dict, p17: dict) -> dict:
     decoded = {}
     for name, lg in logs.items():
         data = lg.to_bytes()
-        if data != lg.to_bytes(force_python=True):
-            raise AssertionError(f"[{label} {name}] to_bytes differs between the native and the Python coder")
+        _, matrix = log_columns(lg)
+        payload = native_codec.encode_columns(matrix)
+        if payload != native_codec.encode_columns(matrix, force_python=True) or not data.endswith(payload):
+            raise AssertionError(f"[{label} {name}] the log's varints differ between the native and the Python coder")
+        for force_python in (False, True):
+            if not (native_codec.decode_columns(payload, *matrix.shape, force_python=force_python) == matrix).all():
+                raise AssertionError(f"[{label} {name}] decode_columns (force_python={force_python}) lost op rows")
         back = ChangeLog.from_bytes(data)
         if back.actors != lg.actors or any(back.changes_for(a) != lg.changes_for(a) for a in lg.actors):
             raise AssertionError(f"[{label} {name}] from_bytes did not return every change")
-        if ChangeLog.from_bytes(data, force_python=True).all_changes() != back.all_changes():
-            raise AssertionError(f"[{label} {name}] the Python decoder disagrees")
-        matrix, payload = log_matrix(data)
         changes = lg.all_changes()
         json_bytes = len(json.dumps(changes).encode())
         log(f"  [{label} {name}] {len(changes)} changes, {sum(len(c['ops']) for c in changes)} ops, "
             f"{matrix.shape[1]} op rows: log {len(data)} B ({len(payload)} B of varints) against "
-            f"{json_bytes} B of JSON; to_bytes == the Python coder's, from_bytes returns every change")
-        log(f"  [{label} {name}] ms (host clock, median), native / Python: to_bytes "
-            f"{host_ms(lg.to_bytes, 5):.4f} / {host_ms(lambda: lg.to_bytes(force_python=True), 3):.4f}, "
-            f"from_bytes {host_ms(lambda: ChangeLog.from_bytes(data), 5):.4f} / "
-            f"{host_ms(lambda: ChangeLog.from_bytes(data, force_python=True), 3):.4f}; the codec alone: "
+            f"{json_bytes} B of JSON; the varints equal the Python coder's, from_bytes returns every change")
+        log(f"  [{label} {name}] ms (host clock, median): to_bytes {host_ms(lg.to_bytes, 5):.4f}, "
+            f"from_bytes {host_ms(lambda: ChangeLog.from_bytes(data), 5):.4f}; the codec alone, native / Python: "
             f"encode {host_ms(lambda: native_codec.encode_columns(matrix), 5):.4f} / "
             f"{host_ms(lambda: native_codec.encode_columns(matrix, force_python=True), 3):.4f}, decode "
             f"{host_ms(lambda: native_codec.decode_columns(payload, *matrix.shape), 5):.4f} / "

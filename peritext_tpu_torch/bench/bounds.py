@@ -51,13 +51,29 @@ def text_phase_bytes(elem_ctr, elem_act, deleted, chars, length, text_ops, ranks
 
 
 def merge_step_full_bytes(st, text_ops, mark_ops, ranks, char_buf=None) -> int:
-    """Bytes ``merge_step_full`` must move, stage by stage as it runs them:
-    the text kernel's (:func:`text_phase_bytes`); the boundary permute's
-    (``bnd_def``, ``bnd_mask`` and the orig-index plane in, both planes
-    out); the mark kernel's (both planes, ``elem_ctr``, ``elem_act``,
-    ``length``, ``mark_count`` and the mark rows in, both planes out); and
-    the table append's (the five table columns, ``mark_count`` and the mark
-    rows in, the columns and ``mark_count`` out)."""
+    """Bytes ``merge_step_full`` must move as one function: the state in
+    once and out once, the op rows as :func:`text_phase_bytes` counts them
+    and the mark rows in once -- the text kernel's bytes less its
+    orig-index plane (it never leaves the function), ``bnd_def`` and
+    ``bnd_mask`` in and out, and the five table columns and
+    ``mark_count`` in and out."""
+    text = text_phase_bytes(st.elem_ctr, st.elem_act, st.deleted, st.chars, st.length, text_ops, ranks,
+                            char_buf) - nbytes(st.elem_ctr)
+    planes = nbytes(st.bnd_def, st.bnd_mask)
+    table = nbytes(st.mark_ctr, st.mark_act, st.mark_action, st.mark_type, st.mark_attr, st.mark_count)
+    return text + 2 * planes + 2 * table + nbytes(mark_ops)
+
+
+def merge_step_stage_bytes(st, text_ops, mark_ops, ranks, char_buf=None) -> int:
+    """The bytes ``merge_step_full``'s stages move as they run: the text
+    kernel's (:func:`text_phase_bytes`, its orig-index plane out); the
+    boundary permute's (``bnd_def``, ``bnd_mask`` and the orig-index plane
+    in, both planes out); the mark kernel's (both planes, ``elem_ctr``,
+    ``elem_act``, ``length``, ``mark_count`` and the mark rows in, both
+    planes out); and the table append's (the five table columns,
+    ``mark_count`` and the mark rows in, the columns and ``mark_count``
+    out).  Above :func:`merge_step_full_bytes` by what fusing the stages
+    could save."""
     text = text_phase_bytes(st.elem_ctr, st.elem_act, st.deleted, st.chars, st.length, text_ops, ranks,
                             char_buf)
     planes = nbytes(st.bnd_def, st.bnd_mask)

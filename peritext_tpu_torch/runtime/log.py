@@ -14,7 +14,7 @@ exists), so either package reads the other's logs.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 from peritext_tpu_torch.runtime import faults
 from peritext_tpu_torch.runtime import telemetry
@@ -108,11 +108,10 @@ class ChangeLog:
 
     # -- binary persistence (native codec) ----------------------------------
 
-    def to_bytes(self, force_python: bool = False) -> bytes:
+    def to_bytes(self) -> bytes:
         """Serialize the whole log: columnar-varint op rows (the native
-        codec, runtime/native_codec.py; ``force_python`` takes its Python
-        coder) + a JSON envelope for headers, intern tables, and
-        structural ops.
+        codec, runtime/native_codec.py) + a JSON envelope for headers,
+        intern tables, and structural ops.
 
         The binary analog of the reference's JSON change format
         (micromerge.ts:60-71, which cites Automerge's binary change format
@@ -120,63 +119,17 @@ class ChangeLog:
         """
         import json
 
-        import numpy as np
-
-        from peritext_tpu_torch.ids import ActorRegistry
-        from peritext_tpu_torch.ops import kernels as K
-        from peritext_tpu_torch.ops.encode import AttrRegistry, encode_internal_op
         from peritext_tpu_torch.runtime.native_codec import encode_columns
 
-        actors = ActorRegistry()
-        attrs = AttrRegistry()
-        rows: List[Any] = []
-        obj_table: List[Any] = []
-        obj_index: Dict[Any, int] = {}
-        obj_col: List[int] = []
-        envelope: Dict[str, Any] = {"changes": []}
-        for queue in self._queues.values():
-            for change in queue:
-                header = {k: change[k] for k in ("actor", "seq", "deps", "startOp")}
-                ops_meta: List[Any] = []
-                for op in change["ops"]:
-                    try:
-                        row = encode_internal_op(op, actors, attrs)
-                    except ValueError:
-                        # Host-list op with a value the char plane can't
-                        # carry (e.g. a multi-codepoint element in a nested
-                        # list — legal in the object model): envelope JSON,
-                        # like structural ops.
-                        row = None
-                    if row is None:
-                        ops_meta.append(op)  # structural / unencodable: raw JSON
-                    else:
-                        ops_meta.append(None)  # device op: row stream
-                        rows.append(row)
-                        obj = op.get("obj")
-                        if obj not in obj_index:
-                            obj_index[obj] = len(obj_table)
-                            obj_table.append(obj)
-                        obj_col.append(obj_index[obj])
-                envelope["changes"].append({"header": header, "ops": ops_meta})
-        matrix = (
-            np.concatenate(
-                [np.stack(rows).T, np.asarray(obj_col, np.int32)[None, :]]
-            )
-            if rows
-            else np.zeros((K.OP_FIELDS + 1, 0), np.int32)
-        )
-        payload = encode_columns(matrix, force_python=force_python)
-        envelope["obj_table"] = obj_table
-        envelope["actors"] = actors.actors
-        envelope["attrs"] = attrs.values
-        envelope["n_rows"] = matrix.shape[1]
+        envelope, matrix = log_columns(self)
+        payload = encode_columns(matrix)
         head = json.dumps(envelope).encode()
         return (
             len(head).to_bytes(8, "little") + head + payload
         )
 
     @classmethod
-    def from_bytes(cls, data: bytes, force_python: bool = False) -> "ChangeLog":
+    def from_bytes(cls, data: bytes) -> "ChangeLog":
         import json
 
         from peritext_tpu_torch.ids import ActorRegistry
@@ -187,8 +140,7 @@ class ChangeLog:
         head_len = int.from_bytes(data[:8], "little")
         envelope = json.loads(data[8 : 8 + head_len])
         matrix = decode_columns(
-            data[8 + head_len :], K.OP_FIELDS + 1, envelope["n_rows"],
-            force_python=force_python,
+            data[8 + head_len :], K.OP_FIELDS + 1, envelope["n_rows"]
         )
         actors = ActorRegistry()
         for actor in envelope["actors"]:
@@ -212,3 +164,58 @@ class ChangeLog:
                     row_i += 1
             log.record({**entry["header"], "ops": ops})
         return log
+
+
+def log_columns(log: ChangeLog) -> Tuple[Dict[str, Any], Any]:
+    """The JSON envelope and the int32 [OP_FIELDS + 1, n_rows] op-row
+    matrix that :meth:`ChangeLog.to_bytes` writes; the matrix's last row
+    is each op's index into the envelope's ``obj_table``."""
+    import numpy as np
+
+    from peritext_tpu_torch.ids import ActorRegistry
+    from peritext_tpu_torch.ops import kernels as K
+    from peritext_tpu_torch.ops.encode import AttrRegistry, encode_internal_op
+
+    actors = ActorRegistry()
+    attrs = AttrRegistry()
+    rows: List[Any] = []
+    obj_table: List[Any] = []
+    obj_index: Dict[Any, int] = {}
+    obj_col: List[int] = []
+    envelope: Dict[str, Any] = {"changes": []}
+    for queue in log._queues.values():
+        for change in queue:
+            header = {k: change[k] for k in ("actor", "seq", "deps", "startOp")}
+            ops_meta: List[Any] = []
+            for op in change["ops"]:
+                try:
+                    row = encode_internal_op(op, actors, attrs)
+                except ValueError:
+                    # Host-list op with a value the char plane can't
+                    # carry (e.g. a multi-codepoint element in a nested
+                    # list — legal in the object model): envelope JSON,
+                    # like structural ops.
+                    row = None
+                if row is None:
+                    ops_meta.append(op)  # structural / unencodable: raw JSON
+                else:
+                    ops_meta.append(None)  # device op: row stream
+                    rows.append(row)
+                    obj = op.get("obj")
+                    if obj not in obj_index:
+                        obj_index[obj] = len(obj_table)
+                        obj_table.append(obj)
+                    obj_col.append(obj_index[obj])
+            envelope["changes"].append({"header": header, "ops": ops_meta})
+    matrix = (
+        np.concatenate(
+            [np.stack(rows).T, np.asarray(obj_col, np.int32)[None, :]]
+        )
+        if rows
+        else np.zeros((K.OP_FIELDS + 1, 0), np.int32)
+    )
+    envelope["obj_table"] = obj_table
+    envelope["actors"] = actors.actors
+    envelope["attrs"] = attrs.values
+    envelope["n_rows"] = matrix.shape[1]
+    return envelope, matrix

@@ -355,6 +355,34 @@ def test_text_phase_bound_counts_what_each_row_kind_reads():
     assert bounds.bound(0, bounds.CORE_OPS_PER_S * 2e-3) == (2.0, "operations")
 
 
+def test_merge_step_bound_moves_the_state_once_and_the_stages_as_run():
+    """``merge_step_full``'s byte bound reads the state and writes it once,
+    with the op rows as the text bound counts them, the ranks and the mark
+    rows; the stages as run add the orig-index plane out and in, both
+    boundary planes twice more, the mark kernel's reads of ``elem_ctr``,
+    ``elem_act``, ``length`` and ``mark_count``, and the mark rows again."""
+    batch = _batch(3)
+    text, char_buf = _fused(batch)
+    st = _port_state(batch["states"])
+    text_ops, mark_ops, ranks, buf = (torch.from_numpy(a) for a in
+                                      (text, batch["mark_ops"], batch["ranks"], char_buf))
+    args = (st, text_ops, mark_ops, ranks, buf)
+    text_in = (st.elem_ctr, st.elem_act, st.deleted, st.chars, st.length, text_ops, ranks, buf)
+    rows = (bounds.text_phase_bytes(*text_in) - bounds.nbytes(*text_in[:5], ranks)
+            - bounds.nbytes(*K.text_phase_plain(*text_in)))
+    out = K.merge_step_plain(*args)
+
+    def state(s):
+        return bounds.nbytes(*(getattr(s, f) for f in FIELDS))
+
+    full = bounds.merge_step_full_bytes(*args)
+    assert full == state(st) + state(out) + rows + bounds.nbytes(ranks, mark_ops)
+    planes = bounds.nbytes(st.bnd_def, st.bnd_mask)
+    extra = 2 * bounds.nbytes(st.elem_ctr) + 2 * planes + bounds.nbytes(
+        st.elem_ctr, st.elem_act, st.length, st.mark_count, mark_ops)
+    assert bounds.merge_step_stage_bytes(*args) == full + extra
+
+
 def test_text_row_mix_counts_per_replica():
     ops = torch.zeros((2, 4, K.OP_FIELDS), dtype=torch.int32)
     ops[0, :, K.K_KIND] = torch.tensor([K.KIND_DELETE, K.KIND_DELETE, K.KIND_INSERT, K.KIND_PAD])

@@ -23,7 +23,7 @@ from hypothesis import strategies as st
 from peritext_tpu.runtime import native_codec as jcodec
 from peritext_tpu_torch.fuzz import fuzz
 from peritext_tpu_torch.ops import _build
-from peritext_tpu_torch.runtime.log import ChangeLog
+from peritext_tpu_torch.runtime.log import ChangeLog, log_columns
 from peritext_tpu_torch.runtime.native_codec import (
     decode_columns,
     encode_columns,
@@ -89,7 +89,11 @@ def test_change_log_binary_round_trip():
     result = fuzz(iterations=60, seed=9)
     log = result["log"]
     data = log.to_bytes()
-    assert data == log.to_bytes(force_python=True)
+    _, matrix = log_columns(log)
+    payload = encode_columns(matrix)
+    assert data.endswith(payload)
+    assert payload == encode_columns(matrix, force_python=True)
+    assert (decode_columns(payload, *matrix.shape, force_python=True) == matrix).all()
     restored = ChangeLog.from_bytes(data)
     for actor in log.actors:
         assert restored.changes_for(actor) == log.changes_for(actor), actor
