@@ -11,7 +11,14 @@ Phases, in order; any failure exits non-zero:
    benchmark's shape (1024 replicas, a 1000-char document, 4 concurrent
    writer streams of 64 ops with marks; C = 2048, M = 1024): outputs must
    be byte-equal, and so must ``merge_step_full``, ``merge_step`` (the
-   text kernel and the per-op mark scan) and ``merge_step_plain``.  Print each one's time beside the plain version's, and
+   text kernel and the per-op mark scan) and ``merge_step_plain``.  The
+   mark kernel is held as the merge runs it (``mark_tail``: the planes
+   gathered through the text phase's orig_idx, the marks, the table
+   append; every field it returns), and the stages it replaced (the plain
+   permute, the mark kernel alone on the permuted planes, the plain table
+   append) are timed beside it.  ``merge_step_full`` must launch each
+   kernel once, and torch.profiler must list those two device ops and no
+   other.  Print each one's time beside the plain version's, and
    each timed input's text-row mix.  The text kernel is also held and timed
    on an insert-heavy seeded input (a quarter each of pads, inserts,
    deletes and runs of up to 64 chars).
@@ -23,7 +30,8 @@ Phases, in order; any failure exits non-zero:
    document (2 writer streams) on 256 replicas, and 64 random states aimed
    at the slice edges (``slice_edge_batch``), each kernel byte-equal to its
    plain version, timed and bounded as in phase 2; each comparison must be
-   a cluster launch.  Prints the clusters the card holds at once
+   a cluster launch.  On the document ``merge_step_full`` must equal
+   ``merge_step_plain`` on every field, and is timed beside its bound.  Prints the clusters the card holds at once
    (``cudaOccupancyMaxActiveClusters``) and each shape's shared memory.
 4. The main path: ``TorchUniverse.apply_changes`` (its default route, the
    exact per-op merge with both kernels) on 1024 replicas ingests the
@@ -230,6 +238,7 @@ import torch
 from peritext_tpu_torch import TorchDoc, TorchUniverse, replay, state_to_numpy
 from peritext_tpu_torch.bench.bounds import (
     bound,
+    mark_tail_bytes,
     merge_step_full_bytes,
     merge_step_stage_bytes,
     nbytes,
@@ -416,35 +425,82 @@ def measure_text(label: str, text_in, capacity: int, runs: int) -> dict:
     }
 
 
+TAIL_FIELDS = ("bnd_def", "bnd_mask", "mark_ctr", "mark_act", "mark_action", "mark_type", "mark_attr",
+               "mark_count")
+
+
 def measure_mark(label: str, st, text_in, mark_ops, capacity: int, runs: int) -> dict:
-    """Hold the mark kernel byte-equal to its plain version on the plain
-    text phase's outputs over ``st``, time it and bound it."""
+    """Hold the mark kernel, as the merge runs it (``mark_tail``: the
+    boundary planes of ``st`` gathered through the plain text phase's
+    orig_idx, the marks, the table append), byte-equal to its plain version
+    on every field it returns; time it and bound it."""
     ec, ea, _, _, oi, ln = K.text_phase_plain(*text_in)
-    bnd_def, bnd_mask = K._permute_boundaries(st.bnd_def, st.bnd_mask, oi)
-    mark_in = (bnd_def, bnd_mask, ec, ea, ln, st.mark_count, mark_ops)
-    got_m = cuda_kernels.mark_phase(*mark_in)
-    want_m = K.mark_phase_plain(*mark_in)
+    tail_in = (st, ec, ea, oi, ln, mark_ops)
+    got = cuda_kernels.mark_tail(*tail_in)
+    want = K.mark_tail_plain(*tail_in)
     torch.cuda.synchronize()
-    err = max_abs_err(got_m, want_m)
+    err = max_abs_err([getattr(got, f) for f in TAIL_FIELDS], [getattr(want, f) for f in TAIL_FIELDS])
     if err != 0:
-        raise AssertionError(f"[{label}] mark_phase differs from its plain version: max abs err {err}")
-    if not (want_m[1] != bnd_mask).any():
+        raise AssertionError(f"[{label}] mark_tail differs from its plain version: max abs err {err}")
+    if not (want.bnd_mask != K._permute_boundaries(st.bnd_def, st.bnd_mask, oi)[1]).any():
         raise AssertionError(f"[{label}] the mark phase changed no mask word: the check proves nothing")
     live_marks = int((mark_ops[:, :, K.K_KIND] == K.KIND_MARK).sum().item())
-    m_bound, m_by = bound(nbytes(*mark_in) + nbytes(*got_m), 8 * live_marks * capacity)
+    m_bound, m_by = bound(mark_tail_bytes(*tail_in), 8 * live_marks * capacity)
     return {
         "err": err,
-        "ms": call_ms(lambda: cuda_kernels.mark_phase(*mark_in), runs),
-        "device_ms": device_ms(lambda: cuda_kernels.mark_phase(*mark_in), runs),
-        "plain_ms": call_ms(lambda: K.mark_phase_plain(*mark_in), max(2, runs // 4)),
+        "ms": call_ms(lambda: cuda_kernels.mark_tail(*tail_in), runs),
+        "device_ms": device_ms(lambda: cuda_kernels.mark_tail(*tail_in), runs),
+        "plain_ms": call_ms(lambda: K.mark_tail_plain(*tail_in), max(2, runs // 4)),
         "bound_ms": m_bound,
         "bound_by": m_by,
     }
 
 
-def phase_kernels(label: str, b: dict, capacity: int, runs: int) -> dict:
+def replaced_stages(label: str, st, text_in, mark_ops, runs: int) -> str:
+    """What the fused mark kernel replaced, timed on the same inputs: the
+    plain permute, the mark kernel alone on the permuted planes (per call
+    and device) and the plain table append."""
+    ec, ea, _, _, oi, ln = K.text_phase_plain(*text_in)
+    permuted = K._permute_boundaries(st.bnd_def, st.bnd_mask, oi)
+    mark_in = (*permuted, ec, ea, ln, st.mark_count, mark_ops)
+    permute_ms = call_ms(lambda: K._permute_boundaries(st.bnd_def, st.bnd_mask, oi), runs)
+    alone_ms = call_ms(lambda: cuda_kernels.mark_phase(*mark_in), runs)
+    alone_device = device_ms(lambda: cuda_kernels.mark_phase(*mark_in), runs)
+    table_ms = call_ms(lambda: K.append_mark_table(st, mark_ops), runs)
+    return (f"permute {permute_ms:.4f} ms + mark kernel alone {alone_ms:.4f} ms ({alone_device:.4f} ms device) "
+            f"+ table append {table_ms:.4f} ms = {permute_ms + alone_ms + table_ms:.4f} ms")
+
+
+def merge_device_ops(label: str, merge_in: tuple) -> None:
+    """The device ops of one ``merge_step_full`` under torch.profiler: the
+    text kernel and the mark kernel once each, and nothing else (no gather,
+    index or scatter kernel of a plain stage between or after them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda_kernels.merge_step_full(*merge_in)  # built and loaded outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cuda_kernels.merge_step_full(*merge_in)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    log(f"  [{label}] merge_step_full's device ops (torch.profiler): " + (
+        "; ".join(f"{e.key[:70]} x{e.count} {e.self_device_time_total / 1e3:.4f} ms" for e in device)
+        or "none recorded"))
+    if not device:
+        if DEVICE == "cpu":  # a rehearsal on the CPU: no device op to list
+            return
+        raise AssertionError(f"[{label}] torch.profiler recorded no device op of merge_step_full")
+    names = [e.key for e in device for _ in range(e.count)]
+    ours = [sum(kernel in n for n in names) for kernel in ("text_phase_kernel", "mark_phase_kernel")]
+    if len(names) != 2 or ours != [1, 1]:
+        raise AssertionError(f"[{label}] merge_step_full ran {names}, not the two kernels once each")
+
+
+def phase_kernels(label: str, b: dict, capacity: int, runs: int, profile: bool = False) -> dict:
     """Both kernels and ``merge_step_full`` against their plain versions on
-    one device batch (``build_device_batch``), timed and bounded."""
+    one device batch (``build_device_batch``), timed and bounded; with
+    ``profile``, ``merge_step_full``'s device ops from torch.profiler."""
     st, text_ops, char_buf, mark_ops, ranks = (
         b["states"], b["text_ops"], b["char_buf"], b["mark_ops"], b["ranks"]
     )
@@ -456,10 +512,12 @@ def phase_kernels(label: str, b: dict, capacity: int, runs: int) -> dict:
     results["text_phase"] = measure_text(label, text_in, capacity, runs)
 
     results["mark_phase"] = measure_mark(label, st, text_in, mark_ops, capacity, runs)
-    oi = K.text_phase_plain(*text_in)[4]
 
     merge_in = (st, text_ops, mark_ops, ranks, char_buf)
+    before = dict(cuda_kernels.LAUNCHES)
     full = cuda_kernels.merge_step_full(*merge_in)
+    if {k: n - before[k] for k, n in cuda_kernels.LAUNCHES.items()} != {"text_phase": 1, "mark_phase": 1}:
+        raise AssertionError(f"[{label}] merge_step_full did not launch each kernel once")
     plain = K.merge_step_plain(*merge_in)
     torch.cuda.synchronize()
     err = max_abs_err([getattr(full, f) for f in FIELDS], [getattr(plain, f) for f in FIELDS])
@@ -472,18 +530,18 @@ def phase_kernels(label: str, b: dict, capacity: int, runs: int) -> dict:
     full_ops = (4 * live + 8 * live_marks) * capacity
     full_bound, full_by = bound(merge_step_full_bytes(*merge_in), full_ops)
     stage_bound, stage_by = bound(merge_step_stage_bytes(*merge_in), full_ops)
-    # The two plain-torch stages between and after the kernels, timed per
-    # call as the whole merge is (the table append synchronizes).
-    permute_ms = call_ms(lambda: K._permute_boundaries(st.bnd_def, st.bnd_mask, oi), runs)
-    table_ms = call_ms(lambda: K.append_mark_table(st, mark_ops), runs)
     log(f"  [{label}] merge_step_full stages (per call): text {results['text_phase']['ms']:.4f} ms, "
-        f"permute {permute_ms:.4f} ms, mark {results['mark_phase']['ms']:.4f} ms, "
-        f"table {table_ms:.4f} ms")
+        f"fused mark (gather, marks, table) {results['mark_phase']['ms']:.4f} ms "
+        f"({results['mark_phase']['device_ms']:.4f} ms device); it replaced "
+        f"{replaced_stages(label, st, text_in, mark_ops, runs)}")
+    if profile:
+        merge_device_ops(label, merge_in)
     for name, r in results.items():
         report(label, name, r)
     log(f"  [{label}] merge_step_full: byte-equal to merge_step_plain on all {len(FIELDS)} fields; "
         f"{full_ms:.4f} ms per call, plain {plain_ms:.4f} ms; bound {full_bound:.4f} ms ({full_by}: the "
-        f"state in and out once), the stages' bytes as run {stage_bound:.4f} ms ({stage_by})")
+        f"state in and out once), {full_bound / full_ms:.0%} of it; its two launches' bytes as run "
+        f"{stage_bound:.4f} ms ({stage_by})")
     # merge_step_pallas's counterpart: the text kernel, then the per-op mark
     # scan in plain torch (it launches the text kernel once per call).
     before = cuda_kernels.LAUNCHES["text_phase"]
@@ -527,7 +585,7 @@ def phase_bench_shape(replicas: int, rounds: int, runs: int) -> dict:
         max_marks *= 2
     wl = make_merge_workload(DOC_LEN, OPS_PER_ROUND, WRITERS, True, seed=0)
     b = build_device_batch(wl, replicas, capacity, max_marks, device=DEVICE)
-    return phase_kernels("phase 2", b, capacity, runs)
+    return phase_kernels("phase 2", b, capacity, runs, profile=True)
 
 
 def phase_large_shape(replicas: int, runs: int) -> dict:
@@ -538,10 +596,31 @@ def phase_large_shape(replicas: int, runs: int) -> dict:
     return phase_kernels("phase 3", b, LARGE_CAPACITY, runs)
 
 
-def measure_cluster(label: str, b: dict, capacity: int, runs: int) -> dict:
+def measure_merge(label: str, b: dict, capacity: int, runs: int) -> None:
+    """``merge_step_full`` byte-equal to ``merge_step_plain`` on every
+    field, timed per call beside its bound."""
+    st, text_ops, mark_ops = b["states"], b["text_ops"], b["mark_ops"]
+    merge_in = (st, text_ops, mark_ops, b["ranks"], b["char_buf"])
+    full = cuda_kernels.merge_step_full(*merge_in)
+    plain = K.merge_step_plain(*merge_in)
+    torch.cuda.synchronize()
+    err = max_abs_err([getattr(full, f) for f in FIELDS], [getattr(plain, f) for f in FIELDS])
+    if err != 0:
+        raise AssertionError(f"[{label}] merge_step_full differs from merge_step_plain: max abs err {err}")
+    del full, plain
+    live = int((text_ops[:, :, K.K_KIND] != K.KIND_PAD).sum().item())
+    live_marks = int((mark_ops[:, :, K.K_KIND] == K.KIND_MARK).sum().item())
+    full_bound, full_by = bound(merge_step_full_bytes(*merge_in), (4 * live + 8 * live_marks) * capacity)
+    full_ms = call_ms(lambda: cuda_kernels.merge_step_full(*merge_in), runs)
+    log(f"  [{label}] merge_step_full: byte-equal to merge_step_plain on all {len(FIELDS)} fields; "
+        f"{full_ms:.4f} ms per call, bound {full_bound:.4f} ms ({full_by}), {full_bound / full_ms:.0%} of it")
+
+
+def measure_cluster(label: str, b: dict, capacity: int, runs: int, merge: bool = False) -> dict:
     """Both kernels' cluster form on one batch: byte-equal to the plain
     versions, timed and bounded; each kernel's comparison launch must be a
-    cluster launch, and the card must hold its clusters."""
+    cluster launch, and the card must hold its clusters.  With ``merge``,
+    ``merge_step_full`` as well (``measure_merge``)."""
     st = b["states"]
     words = st.bnd_mask.shape[-1]
     blocks = cuda_kernels.cluster_size(capacity, words)
@@ -566,6 +645,8 @@ def measure_cluster(label: str, b: dict, capacity: int, runs: int) -> dict:
         report(label, name, r)
         log(f"  [{label}] {name}: {cuda_kernels.CLUSTER_LAUNCHES[name] - before[name]} cluster launches; "
             f"active clusters (cudaOccupancyMaxActiveClusters, blocks and shared bytes): {active}")
+    if merge:
+        measure_merge(label, b, capacity, runs)
     return out
 
 
@@ -582,7 +663,7 @@ def phase_cluster(runs: int) -> dict:
     first = None
     for capacity in CLUSTER_CAPACITIES:
         b = build_device_batch(wl, CLUSTER_REPLICAS, capacity, CLUSTER_MARKS, device=DEVICE)
-        res = measure_cluster(f"phase 3b C={capacity} document", b, capacity, runs)
+        res = measure_cluster(f"phase 3b C={capacity} document", b, capacity, runs, merge=True)
         first = first or res
         del b
         blocks = cuda_kernels.cluster_size(capacity, CLUSTER_MARKS // 32)
@@ -2821,7 +2902,7 @@ def main() -> int:
 
     replaces = {
         "text_phase": "peritext_tpu/ops/pallas_kernels.py:152",
-        "mark_phase": "peritext_tpu/ops/pallas_kernels.py:331",
+        "mark_phase": "peritext_tpu/ops/pallas_kernels.py:331 (and merge_step_pallas_full's tail, :619-636)",
     }
     # Each kernel's two forms, one block and a cluster, from one source;
     # the cluster form's numbers are phase 3b's at C = 32768.

@@ -64,20 +64,24 @@ def merge_step_full_bytes(st, text_ops, mark_ops, ranks, char_buf=None) -> int:
     return text + 2 * planes + 2 * table + nbytes(mark_ops)
 
 
+def mark_tail_bytes(st, elem_ctr, elem_act, orig_idx, length, mark_ops) -> int:
+    """Bytes the merge's tail (``cuda_kernels.mark_tail``) must move: the
+    boundary planes as they were before the text phase, its ``elem_ctr``,
+    ``elem_act``, ``orig_idx`` and ``length``, the mark rows, the five table
+    columns and ``mark_count`` in; both planes, the columns and
+    ``mark_count`` out."""
+    planes = nbytes(st.bnd_def, st.bnd_mask)
+    table = nbytes(st.mark_ctr, st.mark_act, st.mark_action, st.mark_type, st.mark_attr, st.mark_count)
+    return planes + nbytes(elem_ctr, elem_act, orig_idx, length, mark_ops) + table + planes + table
+
+
 def merge_step_stage_bytes(st, text_ops, mark_ops, ranks, char_buf=None) -> int:
-    """The bytes ``merge_step_full``'s stages move as they run: the text
-    kernel's (:func:`text_phase_bytes`, its orig-index plane out); the
-    boundary permute's (``bnd_def``, ``bnd_mask`` and the orig-index plane
-    in, both planes out); the mark kernel's (both planes, ``elem_ctr``,
-    ``elem_act``, ``length``, ``mark_count`` and the mark rows in, both
-    planes out); and the table append's (the five table columns,
-    ``mark_count`` and the mark rows in, the columns and ``mark_count``
-    out).  Above :func:`merge_step_full_bytes` by what fusing the stages
-    could save."""
+    """The bytes ``merge_step_full``'s two launches move as they run: the
+    text kernel's (:func:`text_phase_bytes`, its orig-index plane out) and
+    the tail's (:func:`mark_tail_bytes` on the text kernel's outputs).
+    Above :func:`merge_step_full_bytes` by the orig-index plane out and in
+    and the tail's reads of the new ``elem_ctr``, ``elem_act`` and
+    ``length``."""
     text = text_phase_bytes(st.elem_ctr, st.elem_act, st.deleted, st.chars, st.length, text_ops, ranks,
                             char_buf)
-    planes = nbytes(st.bnd_def, st.bnd_mask)
-    permute = planes + nbytes(st.elem_ctr) + planes
-    mark = planes + nbytes(st.elem_ctr, st.elem_act, st.length, st.mark_count, mark_ops) + planes
-    table = nbytes(st.mark_ctr, st.mark_act, st.mark_action, st.mark_type, st.mark_attr, st.mark_count)
-    return text + permute + mark + 2 * table + nbytes(mark_ops)
+    return text + mark_tail_bytes(st, st.elem_ctr, st.elem_act, st.elem_ctr, st.length, mark_ops)

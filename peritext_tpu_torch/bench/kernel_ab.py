@@ -13,6 +13,8 @@ side's own, unchanged ``build_device_batch`` from the same seeds, plus an
 insert-heavy text batch written once by this checkout.  Per turn it prints
 one JSON line: each kernel's ``call_ms`` (events around one wrapper call,
 ``chip_smoke.py``'s ``ms``) and ``device_ms`` (the kernel alone, cold L2),
+the mark kernel alone on the permuted planes and, where the checkout has
+it, as the merge's tail (``mark_tail`` on the planes before the permute),
 ``merge_step_full``'s ``call_ms``, and ``convergence_digest``'s ``call_ms``
 with a hash of its digests (equal on both sides when the two digests
 agree) on the merged states and on 1024 random short documents (C = 256)
@@ -130,6 +132,12 @@ def worker(label: str) -> None:
         "call_ms": timing.call_ms(lambda: cuda_kernels.mark_phase(*mark_in), 20),
         "device_ms": timing.device_ms(lambda: cuda_kernels.mark_phase(*mark_in), 20),
     }
+    if hasattr(cuda_kernels, "mark_tail"):  # a checkout from before the tail was fused has none
+        tail_in = (st, ec, ea, oi, ln, b["mark_ops"])
+        out["mark_tail"] = {
+            "call_ms": timing.call_ms(lambda: cuda_kernels.mark_tail(*tail_in), 20),
+            "device_ms": timing.device_ms(lambda: cuda_kernels.mark_tail(*tail_in), 20),
+        }
     merge_in = (st, b["text_ops"], b["mark_ops"], b["ranks"], b["char_buf"])
     out["merge_step_full"] = {
         "call_ms": timing.call_ms(lambda: cuda_kernels.merge_step_full(*merge_in), 20),

@@ -16,7 +16,10 @@ constexpr int K_ACT = 2;
 constexpr int K_REF_CTR = 3;
 constexpr int K_REF_ACT = 4;
 constexpr int K_PAYLOAD = 5;
-constexpr int K_RUN_LEN = 6;
+constexpr int K_RUN_LEN = 6;  // insert runs; mark rows hold K_MACTION there
+constexpr int K_MACTION = 6;
+constexpr int K_MTYPE = 7;
+constexpr int K_MATTR = 8;
 constexpr int K_SKIND = 9;
 constexpr int K_SCTR = 10;
 constexpr int K_SACT = 11;

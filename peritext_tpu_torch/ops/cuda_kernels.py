@@ -4,8 +4,13 @@ Counterpart of ``peritext_tpu/ops/pallas_kernels.py``:
 
 - ``text_phase`` runs ``csrc/text_phase.cu`` (replaces ``_text_kernel``);
 - ``mark_phase`` runs ``csrc/mark_phase.cu`` (replaces ``_mark_kernel``);
-- ``merge_step_full`` is text kernel -> boundary permute -> mark kernel ->
-  mark-table append (``merge_step_pallas_full``);
+- ``mark_tail`` runs the same kernel as the merge's whole tail: it gathers
+  the boundary planes through the text phase's ``orig_idx`` as it loads
+  them, applies the marks and appends to the mark table (the boundary
+  permute, ``_mark_kernel`` and ``_update_mark_table`` of
+  ``merge_step_pallas_full``);
+- ``merge_step_full`` is text kernel -> ``mark_tail``: two launches, no
+  plain torch between or after them (``merge_step_pallas_full``);
 - ``merge_step`` is text kernel -> boundary permute -> the per-op mark
   scan in plain torch -> mark-table append (``merge_step_pallas``, the
   latency composite whose mark phase JAX runs in XLA).
@@ -14,7 +19,8 @@ A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain PyTorch version from ``kernels.py``, which the
 kernels are held byte-for-byte against.  Nothing falls back from the card
 to the plain version.  ``LAUNCHES`` counts the kernel launches of each
-wrapper (only launches on the card count).  Both kernels hold C <= 16384
+kernel (only launches on the card count; ``mark_tail``'s under
+``mark_phase``).  Both kernels hold C <= 16384
 (a 10k-character document) in one block's shared memory; past that a
 replica runs on a thread-block cluster of 2, 4 or 8 blocks, each holding
 an equal slice (``cluster_size``), up to C = 131072.  A cluster launch
@@ -155,6 +161,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "pt_text_phase": [_P] * 6 + [_I, _P, _I, _P, _I] + [_P] * 6 + [_I, _I, _I, _P],
     "pt_mark_phase": [_P] * 7 + [_I, _P, _P, _I, _I, _I, _I, _P],
+    "pt_mark_tail": [_P] * 7 + [_I] + [_P] * 14 + [_I] * 5 + [_P],
     "pt_text_phase_max_clusters": [_I, _I, _P],
     "pt_mark_phase_max_clusters": [_I, _I, _I, _P],
 }
@@ -324,6 +331,64 @@ def mark_phase(
     return new_def, new_mask
 
 
+def mark_tail(
+    states: DocState,
+    elem_ctr: torch.Tensor,  # [R, C] int32, the text phase's
+    elem_act: torch.Tensor,
+    orig_idx: torch.Tensor,  # [R, C] int32, the text phase's
+    length: torch.Tensor,  # [R] int32, the text phase's
+    mark_ops: torch.Tensor,  # [R, Lm, OP_FIELDS] int32
+) -> DocState:
+    """The merge's tail after its text phase in one launch of the mark
+    kernel: the boundary planes of ``states`` (as they were before the text
+    phase) gathered through ``orig_idx`` as they load, the mark rows
+    applied on the text phase's ids and length, and appended to the mark
+    table.  Returns ``states`` with ``bnd_def``, ``bnd_mask``, the five
+    table columns and ``mark_count`` replaced, each a new tensor; the
+    element fields are the caller's (see ``kernels.mark_tail_plain``).
+    No host wait."""
+    table = [getattr(states, name) for name, _ in K._TABLE_FIELDS]
+    if _on_cpu(states.bnd_def, states.bnd_mask, elem_ctr, elem_act, orig_idx, length,
+               states.mark_count, mark_ops, *table):
+        return K.mark_tail_plain(states, elem_ctr, elem_act, orig_idx, length, mark_ops)
+    r, c = elem_ctr.shape
+    words = states.bnd_mask.shape[-1]
+    m = states.max_mark_ops
+    num_ops = mark_ops.shape[1]
+    _check("bnd_def", states.bnd_def, torch.bool, (r, 2 * c))
+    _check("bnd_mask", states.bnd_mask, torch.int32, (r, 2 * c, words))
+    _check("elem_ctr", elem_ctr, torch.int32, (r, c))
+    _check("elem_act", elem_act, torch.int32, (r, c))
+    _check("orig_idx", orig_idx, torch.int32, (r, c))
+    _check("length", length, torch.int32, (r,))
+    _check("mark_count", states.mark_count, torch.int32, (r,))
+    _check("mark_ops", mark_ops, torch.int32, (r, num_ops, K.OP_FIELDS))
+    for (name, _), col in zip(K._TABLE_FIELDS, table):
+        _check(name, col, torch.int32, (r, m))
+    blocks = _mark_blocks(c, words)
+    if not blocks:
+        raise _refuse(
+            f"mark_tail ({words} mask words)", c, mark_phase_smem_bytes(c, words, MAX_CLUSTER),
+            _largest_held(lambda cap: _mark_blocks(cap, words)),
+        )
+    new_def, new_mask = torch.empty_like(states.bnd_def), torch.empty_like(states.bnd_mask)
+    new_table = [torch.empty_like(col) for col in table]
+    new_count = torch.empty_like(states.mark_count)
+    if blocks > 1:
+        _check_clusters("mark_phase", elem_ctr.device, blocks, mark_phase_smem_bytes(c, words, blocks), c, words)
+    _launch(
+        "mark_phase", "pt_mark_tail", elem_ctr.device, blocks,
+        states.bnd_def.data_ptr(), states.bnd_mask.data_ptr(), elem_ctr.data_ptr(), elem_act.data_ptr(),
+        length.data_ptr(), states.mark_count.data_ptr(), mark_ops.data_ptr(), num_ops, orig_idx.data_ptr(),
+        *(col.data_ptr() for col in table), new_def.data_ptr(), new_mask.data_ptr(),
+        *(col.data_ptr() for col in new_table), new_count.data_ptr(), r, c, words, m,
+    )
+    return dataclasses.replace(
+        states, bnd_def=new_def, bnd_mask=new_mask, mark_count=new_count,
+        **{name: col for (name, _), col in zip(K._TABLE_FIELDS, new_table)},
+    )
+
+
 def merge_step_full(
     states: DocState,
     text_ops: torch.Tensor,
@@ -331,22 +396,16 @@ def merge_step_full(
     ranks: torch.Tensor,
     char_buf: Optional[torch.Tensor] = None,
 ) -> DocState:
-    """The exact batched merge through both kernels: text kernel -> boundary
-    permute (plain torch gather) -> mark kernel -> mark-table append.
-    State-equivalent to ``kernels.merge_step_plain``."""
+    """The exact batched merge through both kernels: the text kernel, then
+    the mark kernel as the whole tail (``mark_tail``: the boundary permute,
+    the marks and the mark-table append).  State-equivalent to
+    ``kernels.merge_step_plain``."""
     ec, ea, dl, ch, oi, ln = text_phase(
         states.elem_ctr, states.elem_act, states.deleted, states.chars,
         states.length, text_ops, ranks, char_buf,
     )
-    bnd_def, bnd_mask = K._permute_boundaries(states.bnd_def, states.bnd_mask, oi)
-    bnd_def, bnd_mask = mark_phase(
-        bnd_def, bnd_mask, ec, ea, ln, states.mark_count, mark_ops
-    )
-    out = dataclasses.replace(
-        states, elem_ctr=ec, elem_act=ea, deleted=dl, chars=ch, length=ln,
-        bnd_def=bnd_def, bnd_mask=bnd_mask,
-    )
-    return K.append_mark_table(out, mark_ops)
+    out = mark_tail(states, ec, ea, oi, ln, mark_ops)
+    return dataclasses.replace(out, elem_ctr=ec, elem_act=ea, deleted=dl, chars=ch, length=ln)
 
 
 def merge_step(

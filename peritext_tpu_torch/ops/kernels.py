@@ -307,7 +307,7 @@ def append_mark_table(states: DocState, mark_ops: torch.Tensor) -> DocState:
     order = torch.cumsum(is_mark.to(torch.int32), dim=1) - 1
     idx = states.mark_count[:, None] + order
     cols = torch.where(is_mark & (idx < m), idx, m).long()
-    spare = torch.zeros_like(states.mark_ctr[:, :1])
+    spare = states.mark_ctr.new_zeros((states.mark_ctr.shape[0], 1))
     updates = {}
     for name, field in _TABLE_FIELDS:
         col = torch.cat([getattr(states, name), spare], dim=1)
@@ -315,6 +315,28 @@ def append_mark_table(states: DocState, mark_ops: torch.Tensor) -> DocState:
         updates[name] = col[:, :m].contiguous()
     updates["mark_count"] = (states.mark_count + is_mark.sum(dim=1)).to(torch.int32)
     return dataclasses.replace(states, **updates)
+
+
+def mark_tail_plain(
+    states: DocState,
+    elem_ctr: torch.Tensor,  # [R, C] int32, the text phase's
+    elem_act: torch.Tensor,
+    orig_idx: torch.Tensor,  # [R, C] int32, the text phase's
+    length: torch.Tensor,  # [R] int32, the text phase's
+    mark_ops: torch.Tensor,  # [R, Lm, OP_FIELDS] int32
+) -> DocState:
+    """The merge's tail after its text phase, as one function: the
+    boundary permute of ``states``' planes through ``orig_idx``, the mark
+    phase on the text phase's ids and length, and the mark-table append
+    (``merge_step_pallas_full`` from its permute on).  Returns ``states``
+    with ``bnd_def``, ``bnd_mask``, the five table columns and
+    ``mark_count`` replaced; the element fields are the caller's.  The
+    plain version of ``cuda_kernels.mark_tail``."""
+    bnd_def, bnd_mask = _permute_boundaries(states.bnd_def, states.bnd_mask, orig_idx)
+    bnd_def, bnd_mask = mark_phase_plain(
+        bnd_def, bnd_mask, elem_ctr, elem_act, length, states.mark_count, mark_ops
+    )
+    return append_mark_table(dataclasses.replace(states, bnd_def=bnd_def, bnd_mask=bnd_mask), mark_ops)
 
 
 def merge_step_plain(

@@ -6,8 +6,9 @@ torch tensors, shares actor/attr interning across the batch, and ingests
 causally-gated change batches with one merge per call.
 
 ``apply_changes`` runs, by default, the exact per-op merge with the two
-CUDA kernels (``cuda_kernels.merge_step_full``: text kernel, boundary
-permute, mark kernel, table append).  ``PERITEXT_MERGE_PATH=sorted``
+CUDA kernels (``cuda_kernels.merge_step_full``: the text kernel, then the
+mark kernel gathering the boundary planes through the text phase's
+permutation and appending to the mark table).  ``PERITEXT_MERGE_PATH=sorted``
 selects the JAX package's default route instead, as
 ``TpuUniverse.apply_changes`` takes it: sort-based placement and the
 batched mark phase (``sorted_merge.merge_step_sorted_batch``), inside the

@@ -7,7 +7,8 @@ can merge while resident, since a merge writes a fresh copy of every
 plane it touches.  The population stays in host memory as numpy arrays
 (a broadcast view is fine) and fixed-size cohorts stream through the
 card.  Each cohort runs both hand kernels (``cuda_kernels.merge_step_full``:
-text kernel, boundary permute, mark kernel, table append), then the
+the text kernel, then the mark kernel with the boundary permute and the
+table append folded in), then the
 convergence digest (past C = 16384 the kernels run as thread-block
 clusters).  A batch the kernels cannot take (a capacity past
 ``kernel_capacity_limit``, C = 131072, or an insert run longer than the

@@ -5,6 +5,9 @@ multiple of the block size, mark tables that overflow, end anchors left of
 start anchors, long delete runs across op tiles with duplicate ids and ids
 inserted later in the batch, and C = 16384; past it, both kernels' cluster
 forms at C = 32768, 65536 and 131072 on inputs aimed at the slice edges.
+The merge's tail (``mark_tail``: the boundary gather through orig_idx, the
+marks and the table append in one launch) at one-block and cluster widths,
+its refusal to gather in place, and ``merge_step_full`` as two launches.
 Byte-equal or fail.  Then a
 ``TorchUniverse`` on the card grows past 8192 elements against the oracle
 on the scan path, the default path (sorted, windowed or not) equals the
@@ -28,13 +31,15 @@ import pytest
 import torch
 
 from peritext_tpu_torch import TorchDoc, TorchUniverse, state_to_numpy
-from peritext_tpu_torch.bench.workloads import doc_session, make_merge_workload, make_writer_rounds, wire_rounds
+from peritext_tpu_torch.bench.workloads import (
+    build_device_batch, doc_session, make_merge_workload, make_writer_rounds, wire_rounds,
+)
 from peritext_tpu_torch.ids import ActorRegistry
 from peritext_tpu_torch.ops import cuda_kernels
 from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops import universe as port_universe
 from peritext_tpu_torch.ops.encode import AttrRegistry, encode_changes, pad_rows
-from peritext_tpu_torch.ops.state import make_empty_state, map_state
+from peritext_tpu_torch.ops.state import FIELDS, DocState, make_empty_state, map_state
 from peritext_tpu_torch.oracle import Doc
 from peritext_tpu_torch.schema import allow_multiple_array
 
@@ -397,6 +402,144 @@ def test_cluster_mark_kernel_matches_plain(card, r, c, words, fill, num_ops, see
     active = [n for (name, b, _, _), n in cuda_kernels.ACTIVE_CLUSTERS.items()
               if name == "mark_phase" and b == blocks]
     assert active and all(n > 0 for n in active)
+
+
+def _text_orig_idx(rng, r, c):
+    """A text phase's orig_idx: the old positions in order with a tenth of
+    the slots new (-1), the tail pushed past C falling off; the last
+    replica's sources at random, so a cluster block reads rows from every
+    slice."""
+    oi = np.empty((r, c), np.int32)
+    for i in range(r):
+        new = rng.random(c) < 0.1
+        oi[i] = np.where(new, -1, np.cumsum(~new) - 1)
+    oi[-1] = rng.integers(-1, c, c)
+    return oi
+
+
+def _tail_inputs(card, rng, r, c, words, fill, num_ops, mark_count, slices=1, unaligned=False):
+    """A pre-text-phase state on the card (random planes and a random mark
+    table), the text phase's ids, orig_idx and length, and mark rows
+    anchored on those ids (near the slice edges past one block)."""
+    ec, ea, deleted, chars, length, bnd_def, bnd_mask = _fill_first(rng, _random_state(rng, r, c, words, fill), fill)
+    m = 32 * words
+    table = {name: rng.integers(-1, 1 << 20, (r, m)).astype(np.int32)
+             for name in ("mark_ctr", "mark_act", "mark_action", "mark_type", "mark_attr")}
+    fields = dict(elem_ctr=ec, elem_act=ea, deleted=deleted, chars=chars, bnd_def=bnd_def, bnd_mask=bnd_mask,
+                  length=length, mark_count=np.full(r, mark_count, np.int32), **table)
+    st = {f: torch.from_numpy(np.ascontiguousarray(v)).to(card) for f, v in fields.items()}
+    if unaligned:  # the planes 4 bytes past a 16-byte boundary: the kernel's word-wise moves
+        buf = torch.empty(bnd_mask.size + 1, dtype=torch.int32, device=card)
+        st["bnd_mask"] = buf[1:].view(bnd_mask.shape).copy_(st["bnd_mask"])
+        assert st["bnd_mask"].data_ptr() % 16 != 0
+    ops = _edge_mark_ops(rng, ec, ea, length, num_ops, slices, last_slice=False) if slices > 1 \
+        else _mark_ops(rng, ec, ea, length, num_ops)
+    text_out = [torch.from_numpy(x).to(card) for x in (ec, ea, _text_orig_idx(rng, r, c), length)]
+    return DocState(**st), text_out, torch.from_numpy(ops).to(card)
+
+
+def _shares_memory(a, b):
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+
+def _held_tail(states, text_out, ops, blocks):
+    """``mark_tail`` on the card against its plain version, every field it
+    returns; one launch (a cluster launch past one block), and every
+    output a tensor of its own."""
+    want = K.mark_tail_plain(states, *text_out, ops)
+    cuda_kernels.reset_launch_counts()
+    got = cuda_kernels.mark_tail(states, *text_out, ops)
+    assert cuda_kernels.LAUNCHES == {"text_phase": 0, "mark_phase": 1}
+    assert cuda_kernels.CLUSTER_LAUNCHES["mark_phase"] == (blocks > 1)
+    torch.cuda.synchronize()
+    names = ("bnd_def", "bnd_mask", "mark_ctr", "mark_act", "mark_action", "mark_type", "mark_attr", "mark_count")
+    _same([getattr(got, f) for f in names], [getattr(want, f) for f in names])
+    for f in names:
+        assert not _shares_memory(getattr(got, f), getattr(states, f)), f
+    assert not torch.equal(want.bnd_mask, K._permute_boundaries(states.bnd_def, states.bnd_mask, text_out[2])[1])
+    return got, want
+
+
+@pytest.mark.parametrize("r,c,words,fill,num_ops,count,unaligned", [
+    (3, 37, 1, 30, 40, 29, False),      # odd plane, one-word rows; the table overflows
+    (4, 600, 4, 500, 64, 0, False),     # 16-byte rows
+    (4, 600, 4, 500, 64, 3, True),      # ... not on a 16-byte boundary
+    (2, 2048, 32, 1800, 48, 1021, False),  # 128-byte rows, the table overflows
+    (2, 16384, 32, 12000, 48, 5, False),
+])
+def test_mark_tail_matches_plain(card, r, c, words, fill, num_ops, count, unaligned):
+    """The merge's tail in one launch (gather through orig_idx, marks,
+    table append) byte-equal to ``mark_tail_plain`` in one block."""
+    rng = np.random.default_rng(c + words)
+    inputs = _tail_inputs(card, rng, r, c, words, fill, num_ops, count, unaligned=unaligned)
+    assert cuda_kernels.cluster_size(c, words) == 1
+    got, _ = _held_tail(*inputs, blocks=1)
+    if count + num_ops > 32 * words:
+        assert (got.mark_count > 32 * words).any()
+
+
+@pytest.mark.parametrize("r,c,words,fill,num_ops,count", [
+    (2, 32768, 4, 30000, 48, 0),
+    (2, 65536, 32, 60000, 48, 7),
+    (2, 131072, 4, 120000, 64, 0),
+    (2, 131072, 32, 100000, 48, 1021),  # the table overflows
+])
+def test_cluster_mark_tail_matches_plain(card, r, c, words, fill, num_ops, count):
+    """The tail's cluster form: each block gathers its slots from every
+    slice of the input plane, and only rank 0 writes the table."""
+    rng = np.random.default_rng(c + words + 1)
+    blocks = cuda_kernels.cluster_size(c, words)
+    assert blocks == c // 16384
+    _held_tail(*_tail_inputs(card, rng, r, c, words, fill, num_ops, count, slices=blocks), blocks=blocks)
+
+
+def test_mark_tail_refuses_to_gather_in_place(card):
+    """A gather cannot run in place: the C entry point refuses an output
+    plane on its input's memory.  The wrapper allocates every output
+    afresh, so it never passes one, and it raises for a mix of devices."""
+    states, text_out, ops = _tail_inputs(card, np.random.default_rng(5), 2, 256, 4, 200, 16, 0)
+    with pytest.raises(ValueError, match="several devices"):
+        cuda_kernels.mark_tail(states, *text_out, ops.cpu())
+    ec, ea, oi, ln = text_out
+    table = [getattr(states, name).data_ptr() for name, _ in K._TABLE_FIELDS]
+    fresh = [torch.empty_like(getattr(states, name)).data_ptr() for name, _ in K._TABLE_FIELDS]
+    fn = cuda_kernels._fn("mark_phase", "pt_mark_tail")
+    for def_out, mask_out in ((torch.empty_like(states.bnd_def), states.bnd_mask),
+                              (states.bnd_def, torch.empty_like(states.bnd_mask))):
+        err = fn(states.bnd_def.data_ptr(), states.bnd_mask.data_ptr(), ec.data_ptr(), ea.data_ptr(),
+                 ln.data_ptr(), states.mark_count.data_ptr(), ops.data_ptr(), ops.shape[1], oi.data_ptr(),
+                 *table, def_out.data_ptr(), mask_out.data_ptr(), *fresh,
+                 torch.empty_like(states.mark_count).data_ptr(), 2, 256, 4, 128, 1,
+                 torch.cuda.current_stream().cuda_stream)
+        assert err != 0
+    torch.cuda.synchronize()
+
+
+def test_mark_tail_with_an_empty_table(card):
+    """M = 0: no mask words and no table columns; the gather still moves
+    the definedness bytes and mark_count comes back as it went in."""
+    rng = np.random.default_rng(9)
+    states, text_out, ops = _tail_inputs(card, rng, 3, 256, 0, 200, 16, 4)
+    ops[..., K.K_KIND] = K.KIND_PAD
+    want = K.mark_tail_plain(states, *text_out, ops)
+    got = cuda_kernels.mark_tail(states, *text_out, ops)
+    torch.cuda.synchronize()
+    _same([got.bnd_def, got.bnd_mask, got.mark_count], [want.bnd_def, want.bnd_mask, want.mark_count])
+    assert torch.equal(got.mark_count, states.mark_count)
+    assert not torch.equal(got.bnd_def, states.bnd_def)
+
+
+def test_merge_step_full_is_two_launches_on_the_card(card):
+    """``merge_step_full`` launches the text kernel and the tail once each
+    and equals ``merge_step_plain`` on every field."""
+    b = build_device_batch(make_merge_workload(300, 24, 4, True, seed=3), 8, 512, 64, device=card)
+    args = (b["states"], b["text_ops"], b["mark_ops"], b["ranks"], b["char_buf"])
+    want = K.merge_step_plain(*args)
+    cuda_kernels.reset_launch_counts()
+    got = cuda_kernels.merge_step_full(*args)
+    assert cuda_kernels.LAUNCHES == {"text_phase": 1, "mark_phase": 1}
+    torch.cuda.synchronize()
+    _same([getattr(got, f) for f in FIELDS], [getattr(want, f) for f in FIELDS])
 
 
 def test_universe_on_the_card_grows_past_8192(card, monkeypatch):

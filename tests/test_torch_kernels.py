@@ -358,9 +358,9 @@ def test_text_phase_bound_counts_what_each_row_kind_reads():
 def test_merge_step_bound_moves_the_state_once_and_the_stages_as_run():
     """``merge_step_full``'s byte bound reads the state and writes it once,
     with the op rows as the text bound counts them, the ranks and the mark
-    rows; the stages as run add the orig-index plane out and in, both
-    boundary planes twice more, the mark kernel's reads of ``elem_ctr``,
-    ``elem_act``, ``length`` and ``mark_count``, and the mark rows again."""
+    rows; its two launches as run add the orig-index plane out and in and
+    the tail's reads of the text kernel's ``elem_ctr``, ``elem_act`` and
+    ``length``."""
     batch = _batch(3)
     text, char_buf = _fused(batch)
     st = _port_state(batch["states"])
@@ -377,9 +377,7 @@ def test_merge_step_bound_moves_the_state_once_and_the_stages_as_run():
 
     full = bounds.merge_step_full_bytes(*args)
     assert full == state(st) + state(out) + rows + bounds.nbytes(ranks, mark_ops)
-    planes = bounds.nbytes(st.bnd_def, st.bnd_mask)
-    extra = 2 * bounds.nbytes(st.elem_ctr) + 2 * planes + bounds.nbytes(
-        st.elem_ctr, st.elem_act, st.length, st.mark_count, mark_ops)
+    extra = 2 * bounds.nbytes(st.elem_ctr) + bounds.nbytes(st.elem_ctr, st.elem_act, st.length)
     assert bounds.merge_step_stage_bytes(*args) == full + extra
 
 
