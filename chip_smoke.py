@@ -206,11 +206,29 @@ Phases, in order; any failure exits non-zero:
    ms and the profiler's top device ops for round 8.  (c) Every name of
    ``peritext_tpu_torch.__all__`` resolves, and ``visible_text`` of (a)'s
    replica 0 equals its ``texts()``.
+21. The mesh layer on logical shards of the one card: every entry of a
+   mesh names the card, so each exchange is a copy inside it and no
+   interconnect is measured.  (a) ``sharded_apply`` on meshes 4x1, 2x2 and
+   1x4 at phase 2's and phase 3's shapes: states, digests and the global
+   digest byte-equal to one unsharded ``merge_step_full`` and its digests,
+   one launch of each kernel per replica group a step and no plain
+   version; prints each mesh's merge (group gathers and splits included)
+   in device ms and its whole step per call beside the unsharded merge.
+   (b) ``flatten_sources_sp``, ``place_text_sp`` and
+   ``merge_step_sorted_sp`` at seq 2 and 4 on phase 3's 10,000-char
+   document at R = 256 (cut from 1024 for time), equal to the unsharded
+   ``flatten_sources``, ``place_text_batch`` and ``merge_step_sorted_batch``,
+   no kernel launched.  (c) ``TorchUniverse.shard`` over 2x2 on phase 4's
+   workload at R = 1024: each merge launches each kernel once per replica
+   group and leaves all 13 fields equal to an unsharded twin's; texts,
+   sampled spans and digests equal, before and after ``add_replicas`` of 4
+   (the layout dropped, one unsharded catch-up merge), and after sharding
+   again over 4x1.  Every line names the card and its power limit.
 19. Print the resilience counts of every phase (the script runs under
    ``PERITEXT_DEGRADE=0`` but for legs (b) and (c); launch retries,
    fast-fails and degraded batches must be 0 outside the legs that inject
    them, which assert their exact counts), the kernels' JSON summary
-   (launches summed over phases 4, 5, 8-18 and 20, a cluster launch counted
+   (launches summed over phases 4, 5, 8-18, 20 and 21, a cluster launch counted
    in its kernel's and in its ``_cluster`` entry; ``ms`` per wrapper call
    between CUDA events, ``device_ms`` the kernel alone with a cold L2,
    both at phase 2, and for the ``_cluster`` entries at phase 3b's
@@ -266,6 +284,16 @@ from peritext_tpu_torch.ops import universe as port_universe
 from peritext_tpu_torch.ops.encode import prepare_sorted_batch
 from peritext_tpu_torch.ops.state import FIELDS, index_state, map_state, state_from_numpy, visible_text
 from peritext_tpu_torch.oracle import Doc, accumulate_patches
+from peritext_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_states,
+    is_sharded,
+    make_mesh,
+    shard_states,
+    sharded_apply,
+    sharded_merge_step,
+)
+from peritext_tpu_torch.parallel.shard import flatten_sources_sp, merge_step_sorted_sp, place_text_sp
 from peritext_tpu_torch.parallel.stream import (
     cohort_for_budget,
     state_bytes_per_replica,
@@ -585,7 +613,8 @@ def phase_bench_shape(replicas: int, rounds: int, runs: int) -> dict:
         max_marks *= 2
     wl = make_merge_workload(DOC_LEN, OPS_PER_ROUND, WRITERS, True, seed=0)
     b = build_device_batch(wl, replicas, capacity, max_marks, device=DEVICE)
-    return phase_kernels("phase 2", b, capacity, runs, profile=True)
+    results = phase_kernels("phase 2", b, capacity, runs, profile=True)
+    return results, {"wl": wl, "capacity": capacity, "max_marks": max_marks}
 
 
 def phase_large_shape(replicas: int, runs: int) -> dict:
@@ -593,7 +622,8 @@ def phase_large_shape(replicas: int, runs: int) -> dict:
     wl = make_merge_workload(LARGE_DOC_LEN, OPS_PER_ROUND, 2, True, seed=0)
     b = build_device_batch(wl, replicas, LARGE_CAPACITY, 128, device=DEVICE)
     log(f"phase 3: workload + batch built in {time.perf_counter() - t0:.2f} s (host)")
-    return phase_kernels("phase 3", b, LARGE_CAPACITY, runs)
+    results = phase_kernels("phase 3", b, LARGE_CAPACITY, runs)
+    return results, {"wl": wl, "capacity": LARGE_CAPACITY, "max_marks": 128}
 
 
 def measure_merge(label: str, b: dict, capacity: int, runs: int) -> None:
@@ -782,7 +812,8 @@ def phase_main_path(label: str, replicas: int, doc_len: int, writers: int, round
         f"max_mark_ops={uni.max_mark_ops} max length={max(uni.lengths)} "
         f"state bytes on device={state_bytes} text chars={len(expect_text)} "
         f"spans={len(expect_spans)} digest={int(digests[0])}")
-    return {"launches": launches, "capacity": uni.capacity, "max_length": max(uni.lengths),
+    return {"launches": launches, "capacity": uni.capacity, "max_marks": uni.max_mark_ops,
+            "max_length": max(uni.lengths),
             "growths": uni.stats["capacity_growths"], "round_seconds": times, "uni": uni,
             "wl": wl, "ops": ops}
 
@@ -2786,6 +2817,234 @@ def phase_surface(p20a: dict) -> None:
 
 
 
+# Phase 21: the mesh layer on logical shards of the one card.
+MESH_DEVICES = 4  # mesh entries, every one naming the card
+MESH_SHAPES = ((4, 1), (2, 2), (1, 4))
+MESH_SP_REPLICAS = 256  # the sequence-parallel legs, cut from 1024 for time
+MESH_UNI_SHAPE = (2, 2)
+MESH_LATE = 4  # replicas phase 21c adds to the sharded universe
+
+
+def logical_mesh(shape) -> Mesh:
+    """A (replica, seq) mesh whose entries all name one device: each entry
+    is a logical shard, and every exchange is a copy inside the card."""
+    return make_mesh([DEVICE] * (shape[0] * shape[1]), *shape)
+
+
+def same_on_card(label: str, got, want) -> None:
+    """All 13 state fields equal, compared where they lie."""
+    bad = [f for f in FIELDS if getattr(got, f).dtype != getattr(want, f).dtype
+           or not torch.equal(getattr(got, f), getattr(want, f))]
+    if bad:
+        raise AssertionError(f"[{label}] state fields differ: {bad}")
+
+
+def counted(label: str, acc: dict, want: dict, fn):
+    """``fn()`` with the kernels' counts set to 0 before it and read after:
+    they must equal ``want``, no plain version may run, and the launches
+    join ``acc``."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(cuda_kernels.LAUNCHES)
+    if got != want or any(PLAIN_CALLS.values()):
+        raise AssertionError(f"[{label}] launches {got} (plain calls {PLAIN_CALLS}), expected {want}")
+    add_launches(acc)
+    return out
+
+
+def mesh_apply_leg(label: str, b: dict, runs: int, card: str, acc: dict) -> None:
+    """(a) ``sharded_apply`` on each logical mesh, byte-equal to one
+    unsharded ``merge_step_full`` and its digests; one launch of each
+    kernel per replica group."""
+    st, text, marks, ranks, bufs = b["states"], b["text_ops"], b["mark_ops"], b["ranks"], b["char_buf"]
+    multi = torch.from_numpy(allow_multiple_array()).to(DEVICE)
+    ref = cuda_kernels.merge_step_full(st, text, marks, ranks, bufs)
+    ref_digests = K.convergence_digest(ref, ranks, multi)
+    want_total = int(ref_digests.sum().item()) & 0xFFFFFFFF
+    ref_ms = device_ms(lambda: cuda_kernels.merge_step_full(st, text, marks, ranks, bufs), runs)
+    reset_counts()
+    log(f"  [{label}] R={st.elem_ctr.shape[0]} C={st.capacity} M={st.max_mark_ops}: one unsharded "
+        f"merge_step_full {ref_ms:.4f} ms device; {card}, logical shards on one card")
+    for shape in MESH_SHAPES:
+        mesh = logical_mesh(shape)
+        sharded = shard_states(st, mesh)
+        step = sharded_apply(mesh)
+        out, digests, total = counted(f"{label} {shape}", acc, {"text_phase": shape[0], "mark_phase": shape[0]},
+                                      lambda: step(sharded, text, marks, ranks, multi, bufs))
+        got = gather_states(out)
+        err = max_abs_err([getattr(got, f) for f in FIELDS], [getattr(ref, f) for f in FIELDS])
+        if err or not torch.equal(digests.full(), ref_digests) or int(total) != want_total:
+            raise AssertionError(f"[{label} {shape}] sharded_apply differs from merge_step_full: max abs err "
+                                 f"{err}, global digest {int(total)} against {want_total}")
+        del out, got, digests
+        merge_ms = device_ms(lambda: sharded_merge_step(sharded, text, marks, ranks, bufs), runs)
+        step_ms = call_ms(lambda: step(sharded, text, marks, ranks, multi, bufs), runs)
+        reset_counts()
+        log(f"  [{label}] mesh {shape[0]}x{shape[1]}: byte-equal on all {len(FIELDS)} fields, the digests and "
+            f"the global digest {want_total}; {shape[0]} launch(es) of each kernel a step; merge (gather, "
+            f"kernels, split) {merge_ms:.4f} ms device, whole step with digests {step_ms:.4f} ms per call; "
+            f"{card}, logical shards on one card")
+        del sharded
+        torch.cuda.empty_cache()
+
+
+def sp_halo(text: np.ndarray) -> int:
+    """A replica's inserted characters at most (a bound on any round's
+    insert budget), bucketed to a power of two, at least 8."""
+    kind = text[..., K.K_KIND]
+    runs = text[..., K.K_RUN_LEN] * (kind == K.KIND_INSERT_RUN)
+    total = int(((kind == K.KIND_INSERT).sum(axis=1) + runs.sum(axis=1)).max())
+    halo = 8
+    while halo < total:
+        halo *= 2
+    return halo
+
+
+def mesh_sp_leg(label: str, wl: dict, runs: int, card: str) -> None:
+    """(b) The three sequence-parallel functions at seq 2 and 4 on the
+    10,000-char document (R = 256, C = 16384, M = 128), equal to the
+    port's unsharded ``flatten_sources``, ``place_text_batch`` and
+    ``merge_step_sorted_batch``; no kernel runs."""
+    r = MESH_SP_REPLICAS
+    b = build_device_batch(wl, r, LARGE_CAPACITY, 128, device=DEVICE)
+    st, ranks, marks = b["states"], b["ranks"], b["mark_ops"]
+    rows = b["stream_rows"]
+    sp = prepare_sorted_batch([rows[i % len(rows)] for i in range(r)])
+    halo = sp_halo(sp["text"])
+    text, rounds, bufs = (torch.from_numpy(sp[k]).to(DEVICE) for k in ("text", "rounds", "bufs"))
+    place_args = (text, rounds, sp["num_rounds"], ranks, bufs)
+    merge_args = (text, rounds, sp["num_rounds"], marks, ranks, bufs)
+    merged = cuda_kernels.merge_step_full(st, b["text_ops"], marks, ranks, b["char_buf"])
+    reset_counts()
+    ref_flat = K.flatten_sources(merged)
+    ref_place = sorted_merge.place_text_batch(st.elem_ctr, st.elem_act, st.deleted, st.chars, st.length,
+                                              *place_args, sp["maxk"])
+    ref_merge = sorted_merge.merge_step_sorted_batch(st, *merge_args, sp["maxk"])
+    flat_ms = call_ms(lambda: K.flatten_sources(merged), runs)
+    place_ms = call_ms(lambda: sorted_merge.place_text_batch(
+        st.elem_ctr, st.elem_act, st.deleted, st.chars, st.length, *place_args, sp["maxk"]), runs)
+    merge_ms = call_ms(lambda: sorted_merge.merge_step_sorted_batch(st, *merge_args, sp["maxk"]), runs)
+    log(f"  [{label}] R={r} C={LARGE_CAPACITY} M=128, {sp['num_rounds']} placement rounds, halo {halo}, "
+        f"maxk {sp['maxk']}; unsharded per call: flatten {flat_ms:.4f} ms, placement {place_ms:.4f} ms, "
+        f"sorted merge {merge_ms:.4f} ms")
+    for seq in (2, 4):
+        mesh = logical_mesh((MESH_DEVICES // seq, seq))
+        sh_merged, sh = shard_states(merged, mesh), shard_states(st, mesh)
+        flatten = flatten_sources_sp(mesh)
+        place = place_text_sp(mesh, halo, sp["maxk"])
+        merge = merge_step_sorted_sp(mesh, halo, sp["maxk"])
+
+        def run_flatten():
+            return flatten(sh_merged.deleted, sh_merged.bnd_def, sh_merged.bnd_mask, sh_merged.length)
+
+        def run_place():
+            return place(sh.elem_ctr, sh.elem_act, sh.deleted, sh.chars, sh.length, *place_args)
+
+        def run_merge():
+            return merge(sh, *merge_args)
+
+        zero = {"text_phase": 0, "mark_phase": 0}
+        got_flat = counted(f"{label} seq {seq}", {}, zero, run_flatten)
+        got_place = counted(f"{label} seq {seq}", {}, zero, run_place)
+        got_merge = counted(f"{label} seq {seq}", {}, zero, run_merge)
+        # Past an element's length JAX's sequence-parallel flatten (and so
+        # the port's) may carry the last live element's after slot where
+        # the unsharded one carries an earlier row: compare live elements.
+        live = (torch.arange(LARGE_CAPACITY, device=DEVICE)[None, :] < merged.length[:, None])
+        mask, has = (x.full() for x in got_flat)
+        err = max_abs_err([mask * live[..., None], has & live] + [x.full() for x in got_place],
+                          [ref_flat[0] * live[..., None], ref_flat[1] & live] + list(ref_place))
+        if err:
+            raise AssertionError(f"[{label} seq {seq}] flatten or placement differs: max abs err {err}")
+        same_on_card(f"{label} seq {seq} merge", gather_states(got_merge), ref_merge)
+        del got_flat, got_place, got_merge
+        sp_ms = [call_ms(fn, runs) for fn in (run_flatten, run_place, run_merge)]
+        log(f"  [{label}] seq {seq} (mesh {MESH_DEVICES // seq}x{seq}): flatten_sources_sp, place_text_sp, "
+            f"merge_step_sorted_sp equal to the unsharded functions (masks and has on live elements, 6 "
+            f"placement planes, "
+            f"{len(FIELDS)} fields); per call {sp_ms[0]:.4f} / {sp_ms[1]:.4f} / {sp_ms[2]:.4f} ms; {card}, "
+            f"logical shards on one card")
+        del sh, sh_merged
+        torch.cuda.empty_cache()
+
+
+def mesh_universe_leg(label: str, p4: dict, card: str, acc: dict) -> None:
+    """(c) ``TorchUniverse.shard`` on phase 4's workload: each merge runs
+    once per replica group on the kernels, and after each one the 13
+    fields equal an unsharded twin's; texts, sampled spans and digests
+    equal before and after ``add_replicas``, and after sharding again."""
+    wl, names = p4["wl"], [f"replica{i}" for i in range(REPLICAS)]
+    batches = main_path_batches(wl, REPLICAS, WRITERS)
+    groups = MESH_UNI_SHAPE[0]
+    shape = {"capacity": p4["capacity"], "max_mark_ops": p4["max_marks"]}
+    uni = TorchUniverse(names, **shape, device=DEVICE)
+    uni.shard(logical_mesh(MESH_UNI_SHAPE))
+    twin = TorchUniverse(names, **shape, device=DEVICE)
+    sharded_s, twin_s = [], []
+    for k, batch in enumerate(batches):
+        t = time.perf_counter()
+        counted(f"{label} round {k}", acc, {"text_phase": groups, "mark_phase": groups},
+                lambda: uni.apply_changes(batch))
+        sharded_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        twin.apply_changes(batch)
+        torch.cuda.synchronize()
+        twin_s.append(time.perf_counter() - t)
+        reset_counts()
+        if not is_sharded(uni._states):
+            raise AssertionError(f"[{label}] the state is not sharded after merge {k}")
+        same_on_card(f"{label} round {k}", uni.states, twin.states)
+
+    def same_views(when: str, rows: list) -> None:
+        if uni.texts() != twin.texts() or not np.array_equal(uni.digests(), twin.digests()):
+            raise AssertionError(f"[{label}] texts or digests differ from the unsharded twin's {when}")
+        if any(uni.spans(i) != twin.spans(i) for i in rows):
+            raise AssertionError(f"[{label}] spans differ from the unsharded twin's {when}")
+
+    step = REPLICAS // 8
+    same_views("after the rounds", list(range(0, REPLICAS, step)))
+    late = [f"late{i}" for i in range(MESH_LATE)]
+    history = [wl["genesis"]] + [c for w in range(WRITERS) for rnd in wl["rounds"] for c in rnd[w]]
+    for u in (uni, twin):
+        u.add_replicas(late)
+    if uni._layout is not None or is_sharded(uni._states):
+        raise AssertionError(f"[{label}] add_replicas left the state sharded")
+    catch_up = [[]] * REPLICAS + [history] * MESH_LATE
+    counted(f"{label} catch-up", acc, {"text_phase": 1, "mark_phase": 1}, lambda: uni.apply_changes(catch_up))
+    twin.apply_changes(catch_up)
+    torch.cuda.synchronize()
+    reset_counts()
+    same_views("after add_replicas", [0, REPLICAS - 1] + list(range(REPLICAS, REPLICAS + MESH_LATE)))
+    if len(set(uni.digests().tolist())) != 1:
+        raise AssertionError(f"[{label}] the late replicas did not converge")
+    uni.shard(logical_mesh((MESH_DEVICES, 1)))
+    same_on_card(f"{label} sharded again", uni.states, twin.states)
+    same_views("sharded again over 4x1", [0, REPLICAS + MESH_LATE - 1])
+    log(f"  [{label}] R={REPLICAS} on mesh {MESH_UNI_SHAPE[0]}x{MESH_UNI_SHAPE[1]}: {len(batches)} merges, "
+        f"{groups} launches of each kernel a merge, all {len(FIELDS)} fields equal to the unsharded twin after "
+        f"each; {MESH_LATE} replicas added (layout dropped, one unsharded catch-up merge), texts, spans and "
+        f"digests equal before and after, and after sharding again over 4x1; round seconds sharded "
+        + " ".join(f"{s:.4f}" for s in sharded_s) + " against unsharded " + " ".join(f"{s:.4f}" for s in twin_s)
+        + f" (host clock); {card}, logical shards on one card")
+
+
+def phase_mesh(p2: dict, p3: dict, p4: dict, card: str, runs: int) -> dict:
+    """Phase 21: the mesh layer on logical shards of the one card."""
+    acc: dict = {}
+    for name, p in (("phase 2", p2), ("phase 3", p3)):
+        b = build_device_batch(p["wl"], REPLICAS, p["capacity"], p["max_marks"], device=DEVICE)
+        mesh_apply_leg(f"phase 21a, {name}'s shape", b, runs, card, acc)
+        del b
+        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    mesh_sp_leg("phase 21b", p3["wl"], runs, card)
+    torch.cuda.empty_cache()
+    mesh_universe_leg("phase 21c", p4, card, acc)
+    log(f"phase 21: launches on the main path {acc}")
+    return {"launches": acc}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2813,10 +3072,10 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     with resilience("phase 2"):
-        results = phase_bench_shape(REPLICAS, ROUNDS, runs=10)
+        results, bench_shape = phase_bench_shape(REPLICAS, ROUNDS, runs=10)
     log_peak("phase 2")
     with resilience("phase 3"):
-        phase_large_shape(REPLICAS, runs=10)
+        _, large_shape = phase_large_shape(REPLICAS, runs=10)
     log_peak("phase 3")
     t = time.perf_counter()
     with resilience("phase 3b"):
@@ -2891,13 +3150,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     log_peak("phase 20")
     log(f"phase 20 took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    with resilience("phase 21"):
+        meshed = phase_mesh(bench_shape, large_shape, main, card, runs=5)
+    log_peak("phase 21")
+    log(f"phase 21 took {time.perf_counter() - t:.1f} s")
     runs = (main, past, sorted_run, window, serving, resilient, patched_sorted, patched_window, served_sorted,
-            capacity, sharded, streamed, drivers, codec, splices)
+            capacity, sharded, streamed, drivers, codec, splices, meshed)
     results.update({f"{name}_cluster": r for name, r in cluster_results.items()})
     launches = {name: sum(run["launches"].get(name, 0) for run in runs) for name in results}
     log("phase 19: resilience counts (launch_retries, fastfails, degraded_batches) per phase and leg: " + "; ".join(
         f"{lbl} {got['launch_retries']}/{got['fastfails']}/{got['degraded_batches']}" for lbl, got in PHASE_TALLIES))
-    log(f"  kernel launches summed over phases 4, 5, 8-18 and 20: {launches}; the script so far "
+    log(f"  kernel launches summed over phases 4, 5, 8-18, 20 and 21: {launches}; the script so far "
         f"{time.perf_counter() - started:.1f} s")
 
     replaces = {

@@ -393,15 +393,18 @@ def build_device_batch(
     buffers, as the universe's exact path feeds the kernels.
 
     Returns ``states`` [R, ...], ``text_ops`` [R, L, F], ``char_buf``
-    [R, B], ``mark_ops`` [R, Lm, F] and ``ranks`` [A] on ``device``."""
+    [R, B], ``mark_ops`` [R, Lm, F] and ``ranks`` [A] on ``device``, and
+    ``stream_rows``, each stream's unfused text rows (numpy), as the sorted
+    merge's ``prepare_sorted_batch`` takes them."""
     actors = ActorRegistry()
     attrs = AttrRegistry()
     genesis_rows, _, _ = encode_changes([workload["genesis"]], actors, attrs)
     text_obj = workload["genesis"]["ops"][0]["opId"]  # the makeList op
-    text_streams, mark_streams = [], []
+    stream_rows, text_streams, mark_streams = [], [], []
     for stream in workload["streams"]:
         rows, _, _ = encode_changes(stream, actors, attrs, text_obj=text_obj)
         t, m = split_rows(rows)
+        stream_rows.append(t)
         text_streams.append(fuse_insert_runs(t)[:2])
         mark_streams.append(m)
     ranks_np = np.zeros(64, np.int32)
@@ -436,6 +439,7 @@ def build_device_batch(
         "char_buf": torch.from_numpy(char_buf).to(device),
         "mark_ops": torch.from_numpy(mark_ops).to(device),
         "ranks": ranks,
+        "stream_rows": stream_rows,
     }
 
 

@@ -51,7 +51,9 @@ the CPU and off for one on the card (``PERITEXT_DEGRADE`` overrides both).
 A kernel that cannot build is not retried.
 Fault sites, breakers and telemetry are the port's own runtime modules.
 Fleet membership changes with ``add_replicas``, ``rename_replica`` and
-``drop_replicas``.
+``drop_replicas``.  ``shard`` lays the fleet over a device mesh
+(``parallel/mesh.py``): the default route then merges once per replica
+group on its device, through both kernels, and every other path gathers.
 """
 from __future__ import annotations
 
@@ -119,6 +121,7 @@ from peritext_tpu_torch.oracle.doc import (
     op_from_wire,
     ops_to_marks,
 )
+from peritext_tpu_torch.parallel.mesh import Mesh, gather_states, shard_states, sharded_merge_step
 from peritext_tpu_torch.runtime import faults, health, telemetry
 from peritext_tpu_torch.runtime.sync import causal_order
 from peritext_tpu_torch.schema import allow_multiple_array
@@ -237,6 +240,10 @@ def apply_host_op(store: ObjectStore, op: Dict[str, Any]) -> List[Dict[str, Any]
     return store.apply_op(op_from_wire(op))
 
 
+def _versions(states: DocState) -> Tuple[int, ...]:
+    return tuple(getattr(states, f)._version for f in FIELDS)
+
+
 def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
@@ -271,6 +278,10 @@ class TorchUniverse:
         n = len(self.replica_ids)
         empty = make_empty_state(capacity, max_mark_ops, self.device)
         self._states_version = 0
+        # ``shard``'s (mesh, shard_seq), and the gathered view of the sharded
+        # state with its tensors' versions when it was gathered.
+        self._layout: Optional[Tuple[Mesh, bool]] = None
+        self._gathered: Optional[Tuple[DocState, Tuple[int, ...]]] = None
         self.states = map_state(lambda x: x.unsqueeze(0).expand(n, *x.shape).contiguous(), empty)
         # Causal mirror of the window census: per-replica numpy copies of the
         # committed element ids, tombstones and boundary definedness, keyed
@@ -365,24 +376,74 @@ class TorchUniverse:
 
     @property
     def states(self) -> DocState:
-        return self._states
+        """The plain [R, ...] state.  A sharded universe (``shard``) gathers
+        its shards onto the home device once per assignment."""
+        if self._layout is None:
+            return self._states
+        if self._gathered is None:
+            gathered = gather_states(self._states, self.device)
+            self._gathered = (gathered, _versions(gathered))
+        return self._gathered[0]
 
     @states.setter
     def states(self, value: DocState) -> None:
+        """Assign the state; a sharded universe lays it over its mesh."""
+        if self._layout is not None:
+            value = shard_states(value, *self._layout)
         self._states = value
+        self._gathered = None
         self._states_version += 1
 
+    def _shards(self) -> DocState:
+        """The sharded state, laid out again from the gathered view if that
+        was written in place since it was gathered."""
+        if self._gathered is not None and _versions(self._gathered[0]) != self._gathered[1]:
+            self._states = shard_states(self._gathered[0], *self._layout)
+            self._gathered = (self._gathered[0], _versions(self._gathered[0]))
+        return self._states
+
     def _states_token(self) -> Any:
-        """Changes whenever ``states`` is assigned or one of its tensors is
-        written in place (torch's per-tensor version counter).  Tensors
-        that keep no counter (inference mode) give a token equal to
-        nothing, so the mirror is always rebuilt."""
+        """Changes whenever ``states`` is assigned or one of its tensors (a
+        shard, or the gathered view, of a sharded state) is written in
+        place (torch's per-tensor version counter).  Tensors that keep no
+        counter (inference mode) give a token equal to nothing, so the
+        mirror is always rebuilt."""
         try:
-            return (self._states_version,) + tuple(
-                getattr(self._states, f)._version for f in FIELDS
-            )
+            tensors = [getattr(self._states, f) for f in FIELDS]
+            if self._layout is not None:
+                tensors = [t for x in tensors for t in x.tensors()]
+                if self._gathered is not None:
+                    tensors += [getattr(self._gathered[0], f) for f in FIELDS]
+            return (self._states_version,) + tuple(t._version for t in tensors)
         except RuntimeError:
             return object()
+
+    def shard(self, mesh: Mesh, shard_seq: bool = True) -> None:
+        """Lay the fleet's device state out over a (replica, seq) mesh
+        (``TpuUniverse.shard``).  The default route's merge then runs once
+        per replica group on the group's device, through the hand kernels
+        (``parallel.mesh.sharded_merge_step``), and the state stays sharded
+        between merges; every other route and every readback (spans,
+        texts, digests, cursors, checkpoints, ``TorchDoc``) gathers it and
+        gives the bytes of an unsharded universe, and what such a route
+        assigns is laid out again.  Call after construction or any
+        elasticity change: ``add_replicas``, ``drop_replicas``,
+        ``rename_replica`` and a capacity growth leave the state unsharded
+        on the home device.  The replica count must divide the mesh's
+        replica axis (and the capacity its seq axis, with ``shard_seq``),
+        or this raises ``ValueError`` and the layout is unchanged."""
+        states = self.states
+        sharded = shard_states(states, mesh, shard_seq)
+        self._layout = (mesh, shard_seq)
+        self.states = sharded
+        self._wcaches = None  # placement changed; rebuilt on next patched merge
+
+    def _drop_layout(self) -> None:
+        """Gather a sharded state onto the home device and forget the mesh."""
+        if self._layout is not None:
+            states = self.states
+            self._layout = None
+            self.states = states
 
     def _replica_axis_changed(self) -> None:
         """Drop what is keyed to the replica axis: the census mirror and its
@@ -406,6 +467,7 @@ class TorchUniverse:
                 raise ValueError(f"replica {n!r} already exists")
         if not fresh:
             return
+        self._drop_layout()
         empty = make_empty_state(self.capacity, self.max_mark_ops, self.device)
         k = len(fresh)
         self.states = DocState(**{
@@ -438,6 +500,7 @@ class TorchUniverse:
                 f"cannot rename non-empty replica {old!r} (clock {self.clocks[i]}); "
                 "only untouched rows rebind"
             )
+        self._drop_layout()
         del self.index_of[old]
         self.replica_ids[i] = new
         self.index_of[new] = i
@@ -456,6 +519,7 @@ class TorchUniverse:
         keep = [i for i, n in enumerate(self.replica_ids) if n not in drop]
         if not keep:
             raise ValueError("cannot drop every replica")
+        self._drop_layout()
         idx = torch.as_tensor(keep, dtype=torch.long, device=self.device)
         self.states = map_state(lambda x: x.index_select(0, idx), self.states)
         self._replica_axis_changed()
@@ -478,6 +542,7 @@ class TorchUniverse:
             new_m *= 2
         if (new_c, new_m) != (self.capacity, self.max_mark_ops):
             self.stats["capacity_growths"] += 1
+            self._drop_layout()
             self.states = grow_state(self.states, new_c, new_m)
             self.capacity, self.max_mark_ops = new_c, new_m
             self._wcaches = None  # slot coordinates changed shape
@@ -1208,6 +1273,9 @@ class TorchUniverse:
 
         def attempt():
             faults.fire("device_launch")
+            if use_scan and self._layout is not None:
+                st = sharded_merge_step(self._shards(), text, marks, ranks, bufs)
+                return st, st.length.full()
             if use_scan:
                 st = merge_step_full(self.states, text, marks, ranks, bufs)
             else:

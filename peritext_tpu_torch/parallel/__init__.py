@@ -1,6 +1,21 @@
-"""Replica populations past one device's memory: cohort streaming
-(``stream``).  The JAX package's mesh, sharding and multi-host modules
-have no counterpart here yet."""
+"""Replica populations and long documents past one device: device meshes
+and sharded replica state (``mesh``), the explicit sequence-parallel
+kernels (``shard``) and cohort streaming (``stream``).
+
+A mesh lives in one process, as JAX's single-controller mesh does: a
+``(replica, seq)`` grid of devices, entries repeating where one device
+holds several logical shards.  The JAX package's multi-host module has no
+counterpart here yet.
+"""
+from peritext_tpu_torch.parallel.mesh import (
+    make_mesh,
+    mesh_slices,
+    shard_states,
+    sharded_apply,
+    sharded_digest_reduce,
+    state_sharding,
+)
+from peritext_tpu_torch.parallel.shard import flatten_sources_sp, merge_step_sorted_sp, place_text_sp
 from peritext_tpu_torch.parallel.stream import (
     cohort_for_budget,
     state_bytes_per_replica,
@@ -9,6 +24,15 @@ from peritext_tpu_torch.parallel.stream import (
 )
 
 __all__ = [
+    "make_mesh",
+    "mesh_slices",
+    "shard_states",
+    "sharded_apply",
+    "sharded_digest_reduce",
+    "state_sharding",
+    "flatten_sources_sp",
+    "place_text_sp",
+    "merge_step_sorted_sp",
     "cohort_for_budget",
     "state_bytes_per_replica",
     "stream_merge_sorted",

@@ -1,0 +1,329 @@
+"""Device meshes and sharded replica state, in one process.
+
+Counterpart of ``peritext_tpu/parallel/mesh.py``.  JAX's mesh layer is a
+single controller: one process lays a ``(replica, seq)`` grid over its
+devices, and GSPMD partitions each jitted step over it.  Here the same
+grid is a ``Mesh`` of ``torch.device`` entries, and a sharded field is a
+``ShardedTensor``: a grid of local tensors, block ``[i, j]`` on mesh
+device ``[i, j]``, with the global shape and the placement spec.  Entries
+may repeat (``8 x "cpu"`` in the tests, ``n x cuda:0`` on one card): each
+entry is one logical shard.  Processes, and ``torch.distributed``, belong
+to the multi-host layer; a mesh here never spans them.
+
+Axes:
+
+- ``replica``: the replica batch splits into groups.  Merges are
+  replica-local, so a group merges on its own device with no exchange.
+- ``seq``: the document capacity (C and 2C) optionally splits inside a
+  group.  The mark table, ``length`` and ``mark_count`` are replicated
+  within a group.
+
+``sharded_apply`` runs the exact merge through the hand kernels once per
+replica group (``cuda_kernels.merge_step_full``; their plain versions on
+the CPU), then ``convergence_digest``.  There is no GSPMD to partition the
+per-op merge over ``seq``: a group's seq shards are gathered onto the
+group's first device, merged whole and split back, which is the explicit
+form of the collectives GSPMD inserts.  The global digest is the uint32
+sum of the replicas' digests, wrapping as JAX's ``jnp.sum`` of uint32
+does.  ``parallel/shard.py`` has the explicit sequence-parallel kernels.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from peritext_tpu_torch.ops import cuda_kernels
+from peritext_tpu_torch.ops import kernels as K
+from peritext_tpu_torch.ops.state import FIELDS, DocState, resolve_device
+
+_U32 = 0xFFFFFFFF
+AXES = ("replica", "seq")
+Spec = Tuple[Optional[str], ...]
+
+
+class Mesh:
+    """A ``(replica, seq)`` grid of devices (JAX's ``Mesh``): ``devices``
+    is an object array of ``torch.device``, ``shape`` maps each axis name
+    to its size."""
+
+    def __init__(self, devices: np.ndarray):
+        if devices.ndim != 2:
+            raise ValueError(f"a mesh is a 2-D device grid, got shape {devices.shape}")
+        self.devices = devices
+        self.axis_names = AXES
+        self.shape: Dict[str, int] = dict(zip(AXES, devices.shape))
+
+    def group_device(self, i: int) -> torch.device:
+        """Where replica group ``i`` merges: its first seq shard's device."""
+        return self.devices[i, 0]
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, {self.devices.tolist()})"
+
+
+def _cuda_devices() -> list:
+    """Every visible CUDA device; without one, ``resolve_device``'s error
+    (never a move to the CPU)."""
+    resolve_device(None)
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def mesh_slices(n_shards: int, devices: Optional[Sequence[Any]] = None) -> list:
+    """Partition the devices into ``n_shards`` serving slices (JAX's
+    ``mesh_slices``).  With shards <= devices each slice is a contiguous
+    device group, the remainder devices on the leading slices; with more
+    shards than devices, slices are singletons round-robin over the
+    devices.  ``None`` means every visible CUDA device."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    devices = list(devices) if devices is not None else _cuda_devices()
+    n_dev = len(devices)
+    if n_shards >= n_dev:
+        return [[devices[i % n_dev]] for i in range(n_shards)]
+    base, extra = divmod(n_dev, n_shards)
+    slices = []
+    lo = 0
+    for i in range(n_shards):
+        hi = lo + base + (1 if i < extra else 0)
+        slices.append(devices[lo:hi])
+        lo = hi
+    return slices
+
+
+def make_mesh(
+    devices: Optional[Sequence[Any]] = None,
+    replica_axis: Optional[int] = None,
+    seq_axis: int = 1,
+) -> Mesh:
+    """Build a (replica, seq) mesh over ``devices`` (``None``: every
+    visible CUDA device, raising without one)."""
+    devices = [torch.device(d) for d in devices] if devices is not None else _cuda_devices()
+    n = len(devices)
+    if replica_axis is None:
+        replica_axis = n // seq_axis
+    if replica_axis * seq_axis != n:
+        raise ValueError(f"mesh {replica_axis}x{seq_axis} != {n} devices")
+    grid = np.empty(n, dtype=object)
+    grid[:] = devices
+    return Mesh(grid.reshape(replica_axis, seq_axis))
+
+
+def _dim_of(spec: Spec, axis: str) -> Optional[int]:
+    """The dimension ``spec`` splits over mesh axis ``axis``, if any."""
+    return spec.index(axis) if axis in spec else None
+
+
+def _check_even(shape, mesh: Mesh, spec: Spec) -> None:
+    for d, axis in enumerate(spec):
+        if axis is not None and shape[d] % mesh.shape[axis]:
+            raise ValueError(
+                f"sharding {spec} over mesh {mesh.shape} implies that the global size of "
+                f"dimension {d} should be divisible by {mesh.shape[axis]}, but it is equal "
+                f"to {shape[d]} (full shape: {tuple(shape)})"
+            )
+
+
+class ShardedTensor:
+    """A global tensor laid over a mesh.  ``spec[d]`` names the mesh axis
+    dimension d splits over (``None``, or past the spec's end: whole), as
+    JAX's ``PartitionSpec``; ``shards[i, j]`` is the block of mesh device
+    ``[i, j]``, a copy of its group's block along an axis the spec does
+    not name.  ``full()`` rebuilds the plain tensor byte for byte."""
+
+    def __init__(self, mesh: Mesh, spec: Spec, shards: np.ndarray, shape: Tuple[int, ...]):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+        self.shards = shards
+        self.shape = torch.Size(shape)
+
+    @classmethod
+    def split(cls, x: torch.Tensor, mesh: Mesh, spec: Spec) -> "ShardedTensor":
+        """Lay a plain tensor over ``mesh``; an uneven split raises, as
+        JAX's ``device_put`` under a ``NamedSharding`` does."""
+        _check_even(x.shape, mesh, spec)
+        r_dim = _dim_of(spec, "replica")
+        if r_dim is None:
+            return cls.from_groups([x] * mesh.shape["replica"], mesh, spec)
+        n = x.shape[r_dim] // mesh.shape["replica"]
+        return cls.from_groups([x.narrow(r_dim, i * n, n) for i in range(mesh.shape["replica"])], mesh, spec)
+
+    @classmethod
+    def from_groups(cls, groups: Sequence[torch.Tensor], mesh: Mesh, spec: Spec) -> "ShardedTensor":
+        """Lay each replica group's block (``groups[i]``, all of its seq
+        extent) over the group's devices: split along the spec's ``seq``
+        dimension, else copied to each."""
+        s_dim = _dim_of(spec, "seq")
+        n_seq = mesh.shape["seq"]
+        shards = np.empty((mesh.shape["replica"], n_seq), dtype=object)
+        for i, g in enumerate(groups):
+            for j in range(n_seq):
+                piece = g
+                if s_dim is not None:
+                    n = g.shape[s_dim] // n_seq
+                    piece = g.narrow(s_dim, j * n, n)
+                shards[i, j] = piece.to(mesh.devices[i, j]).contiguous()
+        shape = list(groups[0].shape)
+        r_dim = _dim_of(spec, "replica")
+        if r_dim is not None:
+            shape[r_dim] *= mesh.shape["replica"]
+        return cls(mesh, spec, shards, tuple(shape))
+
+    def group(self, i: int, device: Optional[torch.device] = None) -> torch.Tensor:
+        """Replica group ``i``'s block, its seq shards joined on ``device``
+        (default: the group's device)."""
+        device = self.mesh.group_device(i) if device is None else device
+        s_dim = _dim_of(self.spec, "seq")
+        if s_dim is None:
+            return self.shards[i, 0].to(device)
+        return torch.cat([s.to(device) for s in self.shards[i]], dim=s_dim)
+
+    def full(self, device: Optional[torch.device] = None) -> torch.Tensor:
+        """The plain global tensor on ``device`` (default: the mesh's first)."""
+        device = self.mesh.devices[0, 0] if device is None else device
+        r_dim = _dim_of(self.spec, "replica")
+        if r_dim is None:
+            return self.group(0, device)
+        return torch.cat([self.group(i, device) for i in range(self.mesh.shape["replica"])], dim=r_dim)
+
+    def tensors(self):
+        """Every local block (for version tokens)."""
+        return list(self.shards.flat)
+
+
+def state_sharding(mesh: Mesh, shard_seq: bool = True) -> DocState:
+    """A DocState of placement specs for batched [R, ...] state (JAX's
+    ``state_sharding``): the replica axis splits over ``replica``, C and
+    2C over ``seq`` when ``shard_seq``, and the mark table, ``length`` and
+    ``mark_count`` are replicated within a replica group."""
+    seq = "seq" if shard_seq else None
+    table = ("replica", None)
+    return DocState(
+        elem_ctr=("replica", seq),
+        elem_act=("replica", seq),
+        deleted=("replica", seq),
+        chars=("replica", seq),
+        bnd_def=("replica", seq),
+        bnd_mask=("replica", seq, None),
+        mark_ctr=table,
+        mark_act=table,
+        mark_action=table,
+        mark_type=table,
+        mark_attr=table,
+        length=("replica",),
+        mark_count=("replica",),
+    )
+
+
+def is_sharded(states: DocState) -> bool:
+    return isinstance(states.elem_ctr, ShardedTensor)
+
+
+def gather_states(states: DocState, device: Optional[torch.device] = None) -> DocState:
+    """The plain DocState of a sharded one (unchanged if plain)."""
+    if not is_sharded(states):
+        return states
+    return DocState(**{f: getattr(states, f).full(device) for f in FIELDS})
+
+
+def shard_states(states: DocState, mesh: Mesh, shard_seq: bool = True) -> DocState:
+    """Lay a DocState over ``mesh`` (JAX's ``shard_states``).  A state
+    already laid out so is returned as it is; one laid out otherwise is
+    gathered and split again.  An uneven split (R % replica, or C %
+    seq with ``shard_seq``) raises ``ValueError``."""
+    specs = state_sharding(mesh, shard_seq)
+    if is_sharded(states):
+        if all(getattr(states, f).mesh is mesh and getattr(states, f).spec == getattr(specs, f) for f in FIELDS):
+            return states
+        states = gather_states(states)
+    return DocState(**{f: ShardedTensor.split(getattr(states, f), mesh, getattr(specs, f)) for f in FIELDS})
+
+
+def group_state(states: DocState, i: int) -> DocState:
+    """Replica group ``i``'s rows of a sharded state, whole, on its device."""
+    return DocState(**{f: getattr(states, f).group(i) for f in FIELDS})
+
+
+def from_group_states(groups: Sequence[DocState], mesh: Mesh, shard_seq: bool) -> DocState:
+    """Split per-group states back over their groups' devices."""
+    specs = state_sharding(mesh, shard_seq)
+    return DocState(**{
+        f: ShardedTensor.from_groups([getattr(g, f) for g in groups], mesh, getattr(specs, f)) for f in FIELDS
+    })
+
+
+def group_rows(x: Any, mesh: Mesh, i: int) -> torch.Tensor:
+    """Replica group ``i``'s rows of a per-replica [R, ...] input on its
+    device: a ``ShardedTensor``'s group, or a plain tensor's rows."""
+    if isinstance(x, ShardedTensor):
+        return x.group(i)
+    _check_even(x.shape, mesh, ("replica",))
+    n = x.shape[0] // mesh.shape["replica"]
+    return x[i * n : (i + 1) * n].to(mesh.group_device(i))
+
+
+def sharded_merge_step(
+    states: DocState,
+    text_ops: Any,
+    mark_ops: Any,
+    ranks: torch.Tensor,
+    char_buf: Any = None,
+) -> DocState:
+    """The exact merge of a sharded state: ``cuda_kernels.merge_step_full``
+    (the text kernel, then the mark kernel as the tail) once per replica
+    group on the group's device, each group's seq shards gathered before
+    and split after.  The op rows are [R, ...] tensors, plain or sharded
+    over ``replica``."""
+    mesh = states.elem_ctr.mesh
+    shard_seq = states.elem_ctr.spec[1] == "seq"
+    outs = []
+    for i in range(mesh.shape["replica"]):
+        dev = mesh.group_device(i)
+        outs.append(cuda_kernels.merge_step_full(
+            group_state(states, i), group_rows(text_ops, mesh, i), group_rows(mark_ops, mesh, i),
+            ranks.to(dev), None if char_buf is None else group_rows(char_buf, mesh, i),
+        ))
+    return from_group_states(outs, mesh, shard_seq)
+
+
+def _digests(states: DocState, ranks: torch.Tensor, multi: torch.Tensor):
+    """Per-replica digests (sharded over ``replica``) and their uint32 sum
+    (wrapping) on the mesh's first device."""
+    mesh = states.elem_ctr.mesh
+    groups = []
+    for i in range(mesh.shape["replica"]):
+        dev = mesh.group_device(i)
+        groups.append(K.convergence_digest(group_state(states, i), ranks.to(dev), multi.to(dev)))
+    first = mesh.devices[0, 0]
+    total = sum(g.sum().to(first) for g in groups) & _U32
+    return ShardedTensor.from_groups(groups, mesh, ("replica",)), total
+
+
+def sharded_apply(mesh: Mesh, shard_seq: bool = True) -> Callable:
+    """The full sharded step (JAX's ``sharded_apply``): ``(states,
+    text_ops, mark_ops, ranks, multi, char_buf=None) -> (states, digests,
+    global_digest)``.  ``states`` is laid over ``mesh`` (a plain state is
+    laid out first), ``digests`` [R] is sharded over ``replica``
+    (``full()`` for the plain tensor) and ``global_digest`` is a 0-d int64
+    tensor holding the wrapped uint32 sum.  ``char_buf`` carries fused
+    insert runs' characters, as ``kernels.merge_step``'s does."""
+
+    def step(states, text_ops, mark_ops, ranks, multi, char_buf=None):
+        states = shard_states(states, mesh, shard_seq)
+        new_states = sharded_merge_step(states, text_ops, mark_ops, ranks, char_buf)
+        digests, total = _digests(new_states, ranks, multi)
+        return new_states, digests, total
+
+    return step
+
+
+def sharded_digest_reduce(mesh: Mesh, shard_seq: bool = True) -> Callable:
+    """Batched digests and their global reduce over ``mesh`` (JAX's
+    ``sharded_digest_reduce``): ``(states, ranks, multi) -> (digests,
+    global_digest)``."""
+
+    def reduce(states, ranks, multi):
+        return _digests(shard_states(states, mesh, shard_seq), ranks, multi)
+
+    return reduce

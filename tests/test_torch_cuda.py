@@ -19,7 +19,10 @@ cluster kernels, and
 the patched sorted route gives the per-op loop's streams.  A sharded
 serving plane on the card (a migration and an evict/hydrate round trip
 included) equals the same run on the CPU, and kernel launches from two
-threads count and land on the card.
+threads count and land on the card.  A universe sharded over a logical
+2x2 mesh of the card merges once per replica group and equals an
+unsharded one on the CPU, as do the sequence-parallel placement and
+flatten.
 
 Needs a CUDA device; without one every test skips.  This file imports no
 JAX, so it runs where JAX is absent:
@@ -1192,3 +1195,53 @@ def test_visible_text_of_a_card_state(card):
     assert uni.states.chars.device.type == "cuda"
     for r in range(2):
         assert visible_text(index_state(uni.states, r)) == uni.texts()[r]
+
+
+def test_sharded_universe_on_a_logical_mesh_equals_the_cpus(card):
+    """``TorchUniverse.shard`` over a 2x2 mesh of the one card: each merge
+    launches each kernel once per replica group, and the states equal an
+    unsharded universe's on the CPU; the sequence-parallel flatten and
+    placement equal the unsharded ones there too."""
+    from peritext_tpu_torch.ops import sorted_merge
+    from peritext_tpu_torch.ops.encode import prepare_sorted_batch
+    from peritext_tpu_torch.parallel import mesh as M
+    from peritext_tpu_torch.parallel import shard as S
+
+    wl = make_writer_rounds(300, 32, 4, 3, True, seed=4)
+    names = [f"r{i}" for i in range(8)]
+    unis = [TorchUniverse(names, capacity=512, max_mark_ops=128, device=d) for d in (card, "cpu")]
+    unis[0].shard(M.make_mesh([card] * 4, 2, 2))
+    for batch in [{n: [wl["genesis"]] for n in names}] + [
+        {n: rnd[i % 4] for i, n in enumerate(names)} for rnd in wl["rounds"]
+    ]:
+        cuda_kernels.reset_launch_counts()
+        for uni in unis:
+            uni.apply_changes(batch)
+        assert cuda_kernels.LAUNCHES == {"text_phase": 2, "mark_phase": 2}
+        assert M.is_sharded(unis[0]._states)
+    got, want = (state_to_numpy(u.states) for u in unis)
+    for f in FIELDS:
+        assert (got[f] == want[f]).all(), f
+    assert unis[0].texts() == unis[1].texts()
+
+    b = build_device_batch(make_merge_workload(200, 32, 4, True, seed=6), 8, 512, 128, device=card)
+    sp = prepare_sorted_batch([b["stream_rows"][r % 4] for r in range(8)])
+    st = b["states"]
+    mesh = M.make_mesh([card] * 4, 1, 4)
+    args = [torch.from_numpy(sp[k]).to(card) for k in ("text", "rounds")]
+    bufs = torch.from_numpy(sp["bufs"]).to(card)
+    placed = S.place_text_sp(mesh, 64, sp["maxk"])(
+        st.elem_ctr, st.elem_act, st.deleted, st.chars, st.length, *args, sp["num_rounds"], b["ranks"], bufs
+    )
+    cpu = map_state(lambda x: x.cpu(), st)
+    want = sorted_merge.place_text_batch(
+        cpu.elem_ctr, cpu.elem_act, cpu.deleted, cpu.chars, cpu.length, *(a.cpu() for a in args),
+        sp["num_rounds"], b["ranks"].cpu(), bufs.cpu(), sp["maxk"],
+    )
+    for g, w in zip(placed, want):
+        assert torch.equal(g.full().cpu(), w)
+    mask, has = S.flatten_sources_sp(mesh)(st.deleted, st.bnd_def, st.bnd_mask, st.length)
+    ref_mask, ref_has = K.flatten_sources(cpu)
+    live = torch.arange(512)[None, :] < cpu.length[:, None]
+    assert torch.equal(mask.full().cpu() * live[..., None], ref_mask * live[..., None])
+    assert torch.equal(has.full().cpu() & live, ref_has & live)

@@ -125,10 +125,12 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax\b|jaxlib\b|peritext_tpu(\.|\s
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     """In a process where ``jax``, ``jaxlib`` and ``peritext_tpu`` cannot be
     imported (blocked in ``sys.modules``), every module of the port, the
-    runtime copies and the native codec included, and ``chip_smoke.py``
-    with its dependencies import, every name of the package's ``__all__``
-    resolves (the lazy ``obs`` and bridge names too) and the codec round
-    trips; and no source of them names one of those packages."""
+    runtime copies, the native codec and the mesh layer included, and
+    ``chip_smoke.py`` with its dependencies import, every name of the
+    package's ``__all__`` resolves (the lazy ``obs`` and bridge names too),
+    the nine mesh names of ``peritext_tpu.parallel.__all__`` resolve from
+    ``peritext_tpu_torch.parallel`` and the codec round trips; and no
+    source of them names one of those packages."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'peritext_tpu'):\n"
@@ -140,10 +142,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "import chip_smoke\n"
         "assert {'peritext_tpu_torch.runtime.' + m for m in ('serve', 'checkpoint', 'pubsub', 'serve_shard', "
         "'elastic', 'lifecycle', 'sync')} <= set(mods)\n"
-        "assert {'peritext_tpu_torch.' + m for m in ('parallel.stream', 'testing', 'replay', 'bridge', "
-        "'fuzz', 'examples.fleet_demo', 'runtime.native_codec')} <= set(mods)\n"
+        "assert {'peritext_tpu_torch.' + m for m in ('parallel.stream', 'parallel.mesh', 'parallel.shard', "
+        "'testing', 'replay', 'bridge', 'fuzz', 'examples.fleet_demo', 'runtime.native_codec')} <= set(mods)\n"
         "for name in peritext_tpu_torch.__all__:\n"
         "    getattr(peritext_tpu_torch, name)\n"
+        "import peritext_tpu_torch.parallel as par\n"
+        "mesh_names = ('make_mesh', 'mesh_slices', 'shard_states', 'sharded_apply', 'sharded_digest_reduce', "
+        "'state_sharding', 'flatten_sources_sp', 'place_text_sp', 'merge_step_sorted_sp')\n"
+        "assert set(mesh_names) <= set(par.__all__)\n"
+        "for name in mesh_names:\n"
+        "    assert callable(getattr(par, name)), name\n"
         "from peritext_tpu_torch.runtime import native_codec\n"
         "assert native_codec.decode_columns(native_codec.encode_columns([[5, -7]]), 1, 2).tolist() == [[5, -7]]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'peritext_tpu') "
