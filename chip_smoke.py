@@ -224,11 +224,31 @@ Phases, in order; any failure exits non-zero:
    sampled spans and digests equal, before and after ``add_replicas`` of 4
    (the layout dropped, one unsharded catch-up merge), and after sharding
    again over 4x1.  Every line names the card and its power limit.
+22. The multi-host layer, the stream on a mesh and serving with a mesh
+   within each shard, on the one card.  (a) ``initialize_distributed``
+   over NCCL at a world of one (``tcp://127.0.0.1`` on a free port),
+   ``global_mesh`` over the card, phase 2's batch assembled from this
+   process's ``local_replica_slice`` and run through ``sharded_apply``:
+   states, digests and the all-reduced global digest byte-equal to
+   ``merge_step_full`` and its digests; prints the merge's device ms
+   beside the unsharded merge's, the whole step and the ``all_reduce``
+   per call; the process group is destroyed after.  (b) Phase 17's
+   population, its first 16,384 replicas (cut from 100,000 for time), in
+   cohorts of 4,096 at depth 2, unsharded and on the logical meshes 4x1
+   and 2x2 (``shard_seq``): digests equal to the unsharded sweep's, the
+   states of the first 8,192 rows equal to the resident rows; prints
+   sweep seconds and per-cohort times.  (c) 2 shards over 8 logical
+   entries of the card (slices of 4) with ``mesh_within_shard``: 8
+   sessions (each universe 4 wide, sharded 4x1) take phase 10's genesis
+   and writer rounds 1-2, a ninth joins shard 0 (width 5: unsharded) and
+   is evicted (width 4: sharded again); every session's stream equals
+   direct ingest on an unsharded universe, with and without the flag;
+   prints flush ms beside the plane without it.
 19. Print the resilience counts of every phase (the script runs under
    ``PERITEXT_DEGRADE=0`` but for legs (b) and (c); launch retries,
    fast-fails and degraded batches must be 0 outside the legs that inject
    them, which assert their exact counts), the kernels' JSON summary
-   (launches summed over phases 4, 5, 8-18, 20 and 21, a cluster launch counted
+   (launches summed over phases 4, 5, 8-18 and 20-22, a cluster launch counted
    in its kernel's and in its ``_cluster`` entry; ``ms`` per wrapper call
    between CUDA events, ``device_ms`` the kernel alone with a cold L2,
    both at phase 2, and for the ``_cluster`` entries at phase 3b's
@@ -243,6 +263,8 @@ import contextlib
 import copy
 import json
 import os
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -252,6 +274,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from peritext_tpu_torch import TorchDoc, TorchUniverse, replay, state_to_numpy
 from peritext_tpu_torch.bench.bounds import (
@@ -292,6 +315,12 @@ from peritext_tpu_torch.parallel.mesh import (
     shard_states,
     sharded_apply,
     sharded_merge_step,
+)
+from peritext_tpu_torch.parallel.multihost import (
+    assemble_global_states,
+    global_mesh,
+    initialize_distributed,
+    local_replica_slice,
 )
 from peritext_tpu_torch.parallel.shard import flatten_sources_sp, merge_step_sorted_sp, place_text_sp
 from peritext_tpu_torch.parallel.stream import (
@@ -2264,13 +2293,16 @@ def stream_args(pop: dict, lo: int, hi: int) -> tuple:
 
 
 def stream_sweep(label: str, args: tuple, launches: dict, **kw) -> tuple:
-    """One counted sweep: each kernel launches once a cohort, and the
-    launches join the phase's."""
+    """One counted sweep: each kernel launches once a cohort (on a mesh,
+    once per replica group a cohort), and the launches join the phase's."""
     reset_counts()
     t = time.perf_counter()
-    out, dg, stats = stream_merge_sorted(*args, device=DEVICE, **kw)
+    mesh = kw.get("mesh")
+    out, dg, stats = stream_merge_sorted(*args, **kw) if mesh is not None else \
+        stream_merge_sorted(*args, device=DEVICE, **kw)
     secs = time.perf_counter() - t
-    want = {"text_phase": stats["n_cohorts"], "mark_phase": stats["n_cohorts"]}
+    groups = 1 if mesh is None else mesh.shape["replica"]
+    want = {"text_phase": stats["n_cohorts"] * groups, "mark_phase": stats["n_cohorts"] * groups}
     if stats["route"] != "kernels" or cuda_kernels.LAUNCHES != want:
         raise AssertionError(f"[{label}] route {stats['route']}, launches {cuda_kernels.LAUNCHES}, expected {want}")
     add_launches(launches)
@@ -2434,7 +2466,8 @@ def phase_stream() -> dict:
             f"{', the last a padded tail' if padded else ''}): states equal to the resident rows; {secs:.2f} s")
         del out
     log(f"  phase 17 kernel launches (the stream's sweeps): {launches}")
-    return {"launches": launches, "wl": pop["wl"]}
+    return {"launches": launches, "wl": pop["wl"], "pop": pop, "classes": classes,
+            "class_digests": res_dg[:STREAM_CLASSES]}
 
 
 def card_doc(actor: str) -> TorchDoc:
@@ -3045,6 +3078,207 @@ def phase_mesh(p2: dict, p3: dict, p4: dict, card: str, runs: int) -> dict:
     return {"launches": acc}
 
 
+MULTIHOST_RUNS = 5
+MESH_STREAM_REPLICAS = 16_384  # phase 17's first rows, cut from 100,000 for time
+MESH_STREAM_SHAPES = ((4, 1), (2, 2))
+MESH_SHARDS = 2
+MESH_SHARD_DEVICES = 8  # logical entries naming the card: slices of 4
+MESH_SESSIONS = 8
+
+
+def free_address() -> str:
+    """A localhost port the OS just handed out (bound to 0, then freed)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
+
+
+def multihost_leg(label: str, p2: dict, card: str, acc: dict) -> None:
+    """(a) A world of one over NCCL: the global mesh over the card, phase
+    2's batch assembled from this process's rows, and the sharded step,
+    byte-equal to one ``merge_step_full`` and its digests."""
+    b = build_device_batch(p2["wl"], REPLICAS, p2["capacity"], p2["max_marks"], device=DEVICE)
+    st, text, marks, ranks, bufs = b["states"], b["text_ops"], b["mark_ops"], b["ranks"], b["char_buf"]
+    multi = torch.from_numpy(allow_multiple_array()).to(DEVICE)
+    ref = cuda_kernels.merge_step_full(st, text, marks, ranks, bufs)
+    ref_digests = K.convergence_digest(ref, ranks, multi)
+    want_total = int(ref_digests.sum().item()) & 0xFFFFFFFF
+    reset_counts()
+    address = free_address()
+    initialize_distributed(address, 1, 0)
+    try:
+        initialize_distributed(address, 1, 0)  # idempotent
+        mesh = global_mesh()
+        sl = local_replica_slice(REPLICAS)
+        local = map_state(lambda x: x[sl], st)
+        sharded = assemble_global_states(local, st, mesh)
+        step = sharded_apply(mesh)
+        args = (text[sl], marks[sl], ranks, multi, bufs[sl])
+        out, digests, total = counted(label, acc, {"text_phase": 1, "mark_phase": 1},
+                                      lambda: step(sharded, *args))
+        same_on_card(label, gather_states(out), ref)
+        if not torch.equal(digests.full(), ref_digests) or int(total) != want_total:
+            raise AssertionError(f"[{label}] digests, or the global digest {int(total)} against {want_total}")
+        del out, digests
+        merge_ms = device_ms(lambda: sharded_merge_step(sharded, *args[:2], ranks, args[4]), MULTIHOST_RUNS)
+        ref_ms = device_ms(lambda: cuda_kernels.merge_step_full(st, text, marks, ranks, bufs), MULTIHOST_RUNS)
+        step_ms = call_ms(lambda: step(sharded, *args), MULTIHOST_RUNS)
+        partial = torch.tensor(want_total, dtype=torch.int64, device=DEVICE)
+        reduce_ms = call_ms(lambda: mesh.reduce_total(partial), MULTIHOST_RUNS)
+        reset_counts()
+        log(f"  [{label}] {dist.get_backend()} world of {dist.get_world_size()} (rank {dist.get_rank()}, "
+            f"tcp://{address}), "
+            f"{mesh!r}; rows {sl.start}:{sl.stop} of R={REPLICAS} (C={p2['capacity']}, M={p2['max_marks']}): "
+            f"states, digests and the global digest {want_total} byte-equal to merge_step_full; merge "
+            f"{merge_ms:.4f} ms device against {ref_ms:.4f} unsharded, whole step with digests and the "
+            f"all_reduce {step_ms:.4f} ms per call, the all_reduce alone {reduce_ms:.4f} ms per call; {card}, "
+            "a world of one process: no interconnect measured")
+    finally:
+        dist.destroy_process_group()
+    if dist.is_initialized():
+        raise AssertionError(f"[{label}] a process group outlived the leg")
+
+
+def mesh_stream_leg(label: str, p17: dict, card: str, acc: dict) -> None:
+    """(b) Phase 17's population, its first MESH_STREAM_REPLICAS rows, on
+    logical meshes of the card: digests equal to the unsharded stream's,
+    states on the first STREAM_CHECK_REPLICAS equal to the resident rows
+    (which phase 17 held the unsharded stream to)."""
+    pop, classes, class_dg = p17["pop"], p17["classes"], p17["class_digests"]
+    r, check = MESH_STREAM_REPLICAS, STREAM_CHECK_REPLICAS
+    full, rows = stream_args(pop, 0, r), stream_args(pop, 0, check)
+    ref_dg = class_dg[np.arange(r) % STREAM_CLASSES]
+
+    def unsharded(when: str) -> float:
+        _, dg, stats, secs = stream_sweep(label, full, acc, cohort=STREAM_COHORT, depth=2, readback_states=False)
+        if not np.array_equal(dg, ref_dg):
+            raise AssertionError(f"[{label}] the unsharded sweep's digests differ from phase 17's resident digests")
+        log(f"  [{label}] {r:,} replicas (C={LARGE_CAPACITY}, M={STREAM_MARKS}), cohorts of {STREAM_COHORT}, "
+            f"depth 2, unsharded ({when}): sweep {secs:.3f} s; {stage_line(stats)}; {card}")
+        return secs
+
+    ref_s = unsharded("before the meshes")
+    for shape in MESH_STREAM_SHAPES:
+        mesh = logical_mesh(shape)
+        _, dg, stats, secs = stream_sweep(label, full, acc, cohort=STREAM_COHORT, depth=2, mesh=mesh,
+                                          shard_seq=True, readback_states=False)
+        if not np.array_equal(dg, ref_dg) or stats["cohort"] != STREAM_COHORT:
+            raise AssertionError(f"[{label} {shape}] digests differ from the unsharded stream's, or cohort "
+                                 f"{stats['cohort']}")
+        out, dg_rows, _, rows_s = stream_sweep(label, rows, acc, cohort=STREAM_COHORT, depth=2, mesh=mesh,
+                                               shard_seq=True)
+        same_rows(f"{label} {shape}", out, 0, classes)
+        if not np.array_equal(dg_rows, ref_dg[:check]):
+            raise AssertionError(f"[{label} {shape}] readback sweep digests differ")
+        del out
+        log(f"  [{label}] mesh {shape[0]}x{shape[1]} (shard_seq): {stats['n_cohorts']} cohorts, {shape[0]} "
+            f"launch(es) of each kernel a cohort, digests equal to the unsharded sweep's, states of rows "
+            f"0:{check} equal to the resident rows ({rows_s:.2f} s); sweep {secs:.3f} s against {ref_s:.3f} "
+            f"unsharded before them; {stage_line(stats)}; {card}, logical shards on one card")
+        torch.cuda.empty_cache()
+    unsharded("after the meshes")
+
+
+def mesh_serve_traffic(splane: ShardedServePlane, wl: dict, store: str, check: bool) -> tuple:
+    """Phase 22c's traffic on ``splane``: MESH_SESSIONS sessions (writer i %
+    4's genesis and round 1), a ninth on shard 0 (writer 0's), its
+    eviction, then round 2 for the eight.  Returns the sessions, what each
+    was handed, and the flush ms."""
+    def sharded_now() -> list:
+        return [is_sharded(s.universe._states) for s in splane.shards]
+
+    def expect(want_widths, want_sharded, when):
+        if check and (widths(splane) != want_widths or sharded_now() != want_sharded):
+            raise AssertionError(f"[phase 22c] {when}: widths {widths(splane)}, sharded {sharded_now()}")
+
+    sessions = [splane.session(f"m{i}", replica=f"m{i}", record_stream=True) for i in range(MESH_SESSIONS)]
+    handed = {s.name: [] for s in sessions}
+    per = MESH_SESSIONS // MESH_SHARDS
+    expect([per] * MESH_SHARDS, [True] * MESH_SHARDS, "after the sessions opened")
+
+    def submit(s, changes):
+        for c in changes:
+            s.submit([c])
+            handed[s.name].append(c)
+
+    for i, s in enumerate(sessions):
+        submit(s, [wl["genesis"]] + wl["rounds"][0][i % WRITERS])
+    flush_ms = drain_shards("phase 22c", splane)
+    late = splane.session("late", replica="late", shard=0, record_stream=True)
+    handed["late"] = []
+    expect([per + 1, per], [False, True], "after a ninth session joined shard 0")
+    submit(late, [wl["genesis"]] + wl["rounds"][0][0])
+    flush_ms += drain_shards("phase 22c", splane)
+    lc = DocLifecycle(splane, directory=store, start=False, watermark=0, keep=2, cooldown=0.0)
+    lc.evict("late")
+    expect([per] * MESH_SHARDS, [True] * MESH_SHARDS, "after it left")
+    for i, s in enumerate(sessions):
+        submit(s, wl["rounds"][1][i % WRITERS])
+    flush_ms += drain_shards("phase 22c", splane)
+    return sessions + [late], handed, flush_ms
+
+
+def mesh_serve_leg(label: str, p10: dict, card: str) -> None:
+    """(c) 2 shards over MESH_SHARD_DEVICES logical entries of the card
+    (slices of 4) with ``mesh_within_shard``: each universe 4 wide and
+    sharded 4x1; a ninth session on shard 0 unshards it, its eviction
+    reshards it.  Every session's stream equals direct ingest on an
+    unsharded universe; flush ms beside the same plane without the flag."""
+    wl = p10["wl"]
+    runs = {}
+    for flag in (True, False):
+        reset_counts()
+        splane = ShardedServePlane(MESH_SHARDS, start=False, capacity=2048, max_mark_ops=1024, quantum=1,
+                                   devices=[DEVICE] * MESH_SHARD_DEVICES, mesh_within_shard=flag)
+        store = tempfile.mkdtemp(prefix="chip_smoke_mesh_serve_")
+        t = time.perf_counter()
+        sessions, handed, flush_ms = mesh_serve_traffic(splane, wl, store, check=flag)
+        runs[flag] = (sessions, handed, flush_ms, time.perf_counter() - t)
+        no_kernel_or_plain_calls(label)
+        if flag and [len(s.devices) for s in splane.shards] != [MESH_SHARD_DEVICES // MESH_SHARDS] * MESH_SHARDS:
+            raise AssertionError(f"[{label}] slices {[len(s.devices) for s in splane.shards]}")
+        splane.close()
+        shutil.rmtree(store, ignore_errors=True)
+    # Direct ingest: one unsharded universe, each replica taking its k-th
+    # handed change in call k (replicas are independent, so each stream is
+    # what per-change ingest gives).
+    sessions, handed, flush_ms, secs = runs[True]
+    names = [s.name for s in sessions]
+    direct = TorchUniverse(names, capacity=2048, max_mark_ops=1024, device=DEVICE)
+    want = {n: [] for n in names}
+    t = time.perf_counter()
+    for k in range(max(map(len, handed.values()))):
+        batch = {n: [handed[n][k]] for n in names if k < len(handed[n])}
+        for n, patches in direct.apply_changes_with_patches(batch).items():
+            want[n] += patches
+    direct_s = time.perf_counter() - t
+    for flag, (got, _, _, _) in runs.items():
+        for s in got:
+            if s.patch_log != want[s.name]:
+                raise AssertionError(f"[{label}] mesh_within_shard={flag}: session {s.name}'s stream differs "
+                                     "from direct ingest")
+    off = runs[False]
+    log(f"  [{label}] {MESH_SHARDS} shards over {MESH_SHARD_DEVICES} logical entries of the card, "
+        f"{MESH_SESSIONS} sessions + 1 joining and evicted: every stream ({sum(map(len, handed.values()))} changes "
+        f"handed) byte-equal to direct ingest ({direct_s:.2f} s for it), with the flag and without; flush ms "
+        f"with mesh_within_shard {median_p95(flush_ms)} ({len(flush_ms)} flushes, {secs:.2f} s) against "
+        f"{median_p95(off[2])} without ({len(off[2])} flushes, {off[3]:.2f} s); {card}, logical shards on one "
+        "card")
+
+
+def phase_multihost(p2: dict, p10: dict, p17: dict, card: str) -> dict:
+    """Phase 22: the multi-host layer at a world of one, the stream on
+    logical meshes, and serving with a mesh within each shard."""
+    acc: dict = {}
+    multihost_leg("phase 22a", p2, card, acc)
+    torch.cuda.empty_cache()
+    mesh_stream_leg("phase 22b", p17, card, acc)
+    torch.cuda.empty_cache()
+    mesh_serve_leg("phase 22c", p10, card)
+    log(f"phase 22: launches on the main path {acc}")
+    return {"launches": acc}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3155,13 +3389,20 @@ def main() -> int:
         meshed = phase_mesh(bench_shape, large_shape, main, card, runs=5)
     log_peak("phase 21")
     log(f"phase 21 took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    with resilience("phase 22"):
+        multihost = phase_multihost(bench_shape, serving, streamed, card)
+    del streamed["pop"]
+    torch.cuda.empty_cache()
+    log_peak("phase 22")
+    log(f"phase 22 took {time.perf_counter() - t:.1f} s")
     runs = (main, past, sorted_run, window, serving, resilient, patched_sorted, patched_window, served_sorted,
-            capacity, sharded, streamed, drivers, codec, splices, meshed)
+            capacity, sharded, streamed, drivers, codec, splices, meshed, multihost)
     results.update({f"{name}_cluster": r for name, r in cluster_results.items()})
     launches = {name: sum(run["launches"].get(name, 0) for run in runs) for name in results}
     log("phase 19: resilience counts (launch_retries, fastfails, degraded_batches) per phase and leg: " + "; ".join(
         f"{lbl} {got['launch_retries']}/{got['fastfails']}/{got['degraded_batches']}" for lbl, got in PHASE_TALLIES))
-    log(f"  kernel launches summed over phases 4, 5, 8-18, 20 and 21: {launches}; the script so far "
+    log(f"  kernel launches summed over phases 4, 5, 8-18 and 20-22: {launches}; the script so far "
         f"{time.perf_counter() - started:.1f} s")
 
     replaces = {

@@ -8,7 +8,9 @@ grid is a ``Mesh`` of ``torch.device`` entries, and a sharded field is a
 device ``[i, j]``, with the global shape and the placement spec.  Entries
 may repeat (``8 x "cpu"`` in the tests, ``n x cuda:0`` on one card): each
 entry is one logical shard.  Processes, and ``torch.distributed``, belong
-to the multi-host layer; a mesh here never spans them.
+to the multi-host layer (``parallel/multihost.py``): a mesh here holds one
+process's devices, and its one hook, ``Mesh.reduce_total``, is where that
+layer sums the global digest across processes.
 
 Axes:
 
@@ -58,6 +60,12 @@ class Mesh:
     def group_device(self, i: int) -> torch.device:
         """Where replica group ``i`` merges: its first seq shard's device."""
         return self.devices[i, 0]
+
+    def reduce_total(self, total: torch.Tensor) -> torch.Tensor:
+        """The global digest's int64 sum over every process holding part of
+        the mesh: this process's own, since a mesh here is one process's
+        (``parallel.multihost.GlobalMesh`` all-reduces it)."""
+        return total
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, {self.devices.tolist()})"
@@ -175,7 +183,7 @@ class ShardedTensor:
         (default: the group's device)."""
         device = self.mesh.group_device(i) if device is None else device
         s_dim = _dim_of(self.spec, "seq")
-        if s_dim is None:
+        if s_dim is None or self.shards.shape[1] == 1:
             return self.shards[i, 0].to(device)
         return torch.cat([s.to(device) for s in self.shards[i]], dim=s_dim)
 
@@ -289,14 +297,15 @@ def sharded_merge_step(
 
 def _digests(states: DocState, ranks: torch.Tensor, multi: torch.Tensor):
     """Per-replica digests (sharded over ``replica``) and their uint32 sum
-    (wrapping) on the mesh's first device."""
+    (wrapping) on the mesh's first device, summed over the processes the
+    mesh spans (``Mesh.reduce_total``) before the wrap."""
     mesh = states.elem_ctr.mesh
     groups = []
     for i in range(mesh.shape["replica"]):
         dev = mesh.group_device(i)
         groups.append(K.convergence_digest(group_state(states, i), ranks.to(dev), multi.to(dev)))
     first = mesh.devices[0, 0]
-    total = sum(g.sum().to(first) for g in groups) & _U32
+    total = mesh.reduce_total(sum(g.sum().to(first) for g in groups)) & _U32
     return ShardedTensor.from_groups(groups, mesh, ("replica",)), total
 
 

@@ -36,13 +36,24 @@ The pipeline is CUDA's own, not a copy of JAX's asynchronous dispatch:
   and the digest take their bounds from shapes and from what the host
   knows of its inputs (``mark_cols``).
 
+On a mesh (``mesh=``, ``shard_seq=``: JAX's cohorts over a device mesh)
+each cohort is laid over the mesh's entries with ``state_sharding``'s
+placement, and each replica group merges through both hand kernels and
+takes its digest on its group device, its seq shards gathered before the
+merge and split after, as ``parallel.mesh.sharded_merge_step`` does.
+Every device of the mesh has its own copy, compute and D2H streams and
+events; a copy that crosses devices runs with every device's stream of
+that kind current.  Entries that name one device (``n x cuda:0``) share
+its three streams, so the groups merge one after another on one compute
+stream.  Without a mesh the stream is a one-entry mesh on ``device``.
+
 On the CPU the same function runs the kernels' plain versions, without
 pinning or streams.  There is no fallback: a kernel that fails to build or
-launch on the card fails the sweep.  The JAX stream's ``mesh=`` and
-``shard_seq=`` have no counterpart yet.
+launch on the card fails the sweep.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings
 from collections import deque
@@ -55,6 +66,15 @@ from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops.cuda_kernels import kernel_capacity_limit, merge_step_full
 from peritext_tpu_torch.ops.sorted_merge import merge_step_sorted_batch
 from peritext_tpu_torch.ops.state import FIELDS, MASK_WORD_BITS, DocState, Device, resolve_device
+from peritext_tpu_torch.parallel.mesh import (
+    Mesh,
+    ShardedTensor,
+    _check_even,
+    from_group_states,
+    group_state,
+    make_mesh,
+    state_sharding,
+)
 from peritext_tpu_torch.runtime import faults, health, telemetry
 from peritext_tpu_torch.schema import allow_multiple_array
 
@@ -156,26 +176,45 @@ def _stage(dst: torch.Tensor, src: np.ndarray, lo: int, hi: int) -> None:
         dst[n:].copy_(_tensor(src[0:1]).expand((dst.shape[0] - n,) + src.shape[1:]))
 
 
-class _Slot:
-    """One pipeline slot: staging buffers (pinned on the card), the device
-    buffers the merge reads, the output buffers the drain reads, and the
-    events that order and time the three streams."""
+def _key(device: torch.device) -> torch.device:
+    """A device with its index: the key of its streams and events."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
-    def __init__(self, specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]], out_specs,
-                 device: torch.device, streams: Tuple[Any, ...]) -> None:
-        cuda = device.type == "cuda"
+
+class _Slot:
+    """One pipeline slot: staging buffers (pinned on the card) for each
+    replica group's rows (and each seq part of a field split over
+    ``seq``), the buffers of every mesh entry the merge reads, the output
+    buffers the drain reads, and per device of the mesh the events that
+    order and time its three streams."""
+
+    def __init__(self, specs: Dict[Any, Tuple[Tuple[int, ...], torch.dtype]], out_specs,
+                 entries: Dict[Any, Tuple[Any, torch.device]], streams: Dict[torch.device, Tuple[Any, ...]],
+                 cuda: bool) -> None:
         self.stage = {k: torch.empty(shape, dtype=dt, pin_memory=cuda) for k, (shape, dt) in specs.items()}
         self.out = {k: torch.empty(shape, dtype=dt, pin_memory=cuda) for k, (shape, dt) in out_specs.items()}
-        self.dev = self.stage
-        self.ev: Optional[Dict[str, Any]] = None
+        self.dev = {k: self.stage[src] for k, (src, _) in entries.items()}
+        self.ev: Optional[Dict[torch.device, Dict[str, Any]]] = None
         if cuda:
-            self.dev = {k: torch.empty_like(t, device=device) for k, t in self.stage.items()}
+            self.dev = {k: torch.empty_like(self.stage[src], device=dev) for k, (src, dev) in entries.items()}
             for t in self.dev.values():
                 # Written on the copy stream, read on the compute stream:
                 # their memory must outlive both streams' use when freed.
-                for s in streams:
+                for s in streams[_key(t.device)]:
                     t.record_stream(s)
-            self.ev = {name: torch.cuda.Event(enable_timing=True) for name in _EVENTS}
+            self.ev = {d: {name: torch.cuda.Event(enable_timing=True) for name in _EVENTS} for d in streams}
+
+
+def _on(streams: Dict[torch.device, Tuple[Any, ...]], which: int) -> contextlib.ExitStack:
+    """Every device's stream ``which`` (0 copy, 1 compute, 2 D2H) made
+    current at once, so a copy between two devices of the mesh orders on
+    both of them."""
+    stack = contextlib.ExitStack()
+    for trio in streams.values():
+        stack.enter_context(torch.cuda.stream(trio[which]))
+    return stack
 
 
 def stream_merge_sorted(
@@ -188,6 +227,8 @@ def stream_merge_sorted(
     char_buf: np.ndarray,
     maxk: int,
     cohort: int,
+    mesh: Optional[Mesh] = None,
+    shard_seq: bool = True,
     compute_digest: bool = True,
     readback_states: bool = True,
     depth: int = 2,
@@ -197,25 +238,46 @@ def stream_merge_sorted(
 
     ``states`` (13 host fields) and the op arrays (``prepare_sorted_batch``
     rows) have leading dim R_total; at most ``depth`` cohorts of
-    ``cohort`` replicas are on ``device`` at once (``None``: the card).
-    Returns (updated host states as ``state_to_numpy`` gives them | None,
-    digests [R_total] uint32, stats).  The tail cohort is padded by
-    repeating replica 0; padded lanes are dropped on readback.  With
-    ``compute_digest=False`` the digest slot carries post-merge lengths
-    instead (a completion token, not a convergence digest).  ``stats``
-    has the JAX stream's keys, ``route`` (``kernels`` or ``sorted``),
-    ``capacity_routes`` and per-cohort ``timings`` (host seconds to
-    stage, to enqueue the copies, merge and digest, and to drain; H2D,
-    merge, digest and D2H ms from CUDA events on the card).
+    ``cohort`` replicas are on ``device`` (``None``: the card) or on
+    ``mesh`` at once.  With a mesh the cohort rounds up to a multiple of
+    its replica axis (as JAX's stream does), each cohort is laid over it
+    with ``state_sharding(mesh, shard_seq)``'s placement (the op rows
+    split over ``replica``), and each replica group merges and digests on
+    its group device, its seq shards gathered before the merge and split
+    after (``parallel.mesh.sharded_merge_step``); ``device`` must then be
+    ``None``.  Returns (updated host states as ``state_to_numpy`` gives
+    them | None, digests [R_total] uint32, stats).  The tail cohort is
+    padded by repeating replica 0; padded lanes are dropped on readback.
+    With ``compute_digest=False`` the digest slot carries post-merge
+    lengths instead (a completion token, not a convergence digest).
+    ``stats`` has the JAX stream's keys, ``route`` (``kernels`` or
+    ``sorted``), ``capacity_routes`` and per-cohort ``timings`` (host
+    seconds to stage, to enqueue the copies, merge and digest, and to
+    drain; H2D, merge, digest and D2H ms from CUDA events on the card, of
+    the mesh's first device's streams).
     """
-    device = resolve_device(device)
-    cuda = device.type == "cuda"
     r_total = int(text_ops.shape[0])
     if cohort <= 0:
         raise ValueError(f"cohort must be positive, got {cohort}")
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
-    cohort = min(cohort, r_total)
+    if mesh is None:
+        mesh = make_mesh([resolve_device(device)], 1, 1)
+        cohort = min(cohort, r_total)
+    else:
+        if device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        # Cohorts must divide over the replica mesh axis; round up (the
+        # tail pad already fills partial cohorts).
+        axis = mesh.shape["replica"]
+        cohort = min(cohort, -(-r_total // axis) * axis)
+        cohort = -(-cohort // axis) * axis
+    kinds = {d.type for d in mesh.devices.flat}
+    if len(kinds) != 1:
+        raise ValueError(f"a stream's mesh holds one kind of device, got {sorted(kinds)}")
+    cuda = kinds == {"cuda"}
+    groups, n_seq = mesh.shape["replica"], mesh.shape["seq"]
+    rows = cohort // groups
     host = _host_fields(states)
     capacity = host["elem_ctr"].shape[-1]
     words = host["bnd_mask"].shape[-1]
@@ -234,24 +296,48 @@ def stream_merge_sorted(
     sources.update(text_ops=text_ops, mark_ops=mark_ops, char_buf=char_buf)
     if not kernels:
         sources["round_of"] = round_of
-    specs = {}
+    field_specs = state_sharding(mesh, shard_seq)
+    spec = {name: getattr(field_specs, name) if name in FIELDS else ("replica",) for name in sources}
+    # Staging (and output) parts: group i's rows of a source, and its seq
+    # part j where the spec splits it over ``seq`` (else part 0 only).
+    split = {name: "seq" in spec[name] and n_seq > 1 for name in sources}
+    parts = {name: range(n_seq) if split[name] else range(1) for name in sources}
+
+    def seq_part(a: np.ndarray, name: str, j: int) -> np.ndarray:
+        """Seq part ``j`` of rows ``a`` of source ``name`` (a view)."""
+        if not split[name]:
+            return a
+        width = a.shape[1] // n_seq
+        return a[:, j * width : (j + 1) * width]
+
+    specs: Dict[Any, Tuple[Tuple[int, ...], torch.dtype]] = {}
+    entries: Dict[Any, Tuple[Any, torch.device]] = {}
     for name, a in sources.items():
         if a.dtype not in (np.int32, np.bool_):
             raise TypeError(f"{name}: dtype {a.dtype}, expected int32")
-        specs[name] = ((cohort,) + a.shape[1:], torch.bool if a.dtype == np.bool_ else torch.int32)
-    out_specs = {"digest": ((cohort,), torch.int64)}
+        _check_even((cohort,) + a.shape[1:], mesh, spec[name])
+        shape = seq_part(a[:rows], name, 0).shape
+        dtype = torch.bool if a.dtype == np.bool_ else torch.int32
+        for i in range(groups):
+            for j in parts[name]:
+                specs[(name, i, j)] = ((rows,) + shape[1:], dtype)
+            for j in range(n_seq):
+                entries[(name, i, j)] = ((name, i, j if split[name] else 0), mesh.devices[i, j])
+    out_specs = {("digest", i, 0): ((rows,), torch.int64) for i in range(groups)}
     if readback_states:
-        out_specs.update({f: specs[f] for f in FIELDS})
+        out_specs.update({k: specs[k] for k in specs if k[0] in FIELDS})
 
-    streams: Tuple[Any, ...] = ()
+    devices = list(dict.fromkeys(_key(d) for d in mesh.devices.flat))
+    streams: Dict[torch.device, Tuple[Any, ...]] = {}
     if cuda:
-        streams = tuple(torch.cuda.Stream(device) for _ in range(3))
-    copy_s, compute_s, d2h_s = streams if cuda else (None, None, None)
-    slots = [_Slot(specs, out_specs, device, streams) for _ in range(depth)]
-    ranks_d = torch.from_numpy(np.ascontiguousarray(ranks, dtype=np.int32)).to(device)
-    multi_d = torch.from_numpy(allow_multiple_array()).to(device)
-    if cuda:
-        compute_s.wait_stream(torch.cuda.current_stream(device))
+        streams = {d: tuple(torch.cuda.Stream(d) for _ in range(3)) for d in devices}
+    slots = [_Slot(specs, out_specs, entries, streams, cuda) for _ in range(depth)]
+    ranks_np = np.ascontiguousarray(ranks, dtype=np.int32)
+    ranks_d = {d: torch.from_numpy(ranks_np).to(d) for d in devices}
+    multi_d = {d: torch.from_numpy(allow_multiple_array()).to(d) for d in devices}
+    for d, trio in streams.items():
+        trio[1].wait_stream(torch.cuda.current_stream(d))
+    first = devices[0]
 
     out_states = (
         {f: np.empty((r_total,) + host[f].shape[1:], host[f].dtype) for f in FIELDS}
@@ -260,27 +346,63 @@ def stream_merge_sorted(
     digests = np.zeros((r_total,), np.uint32)
     timings = []
 
-    def merge(bufs: Dict[str, torch.Tensor]) -> DocState:
-        st = DocState(**{f: bufs[f] for f in FIELDS})
+    def laid_out(slot: _Slot, name: str) -> ShardedTensor:
+        grid = np.empty((groups, n_seq), dtype=object)
+        for i in range(groups):
+            for j in range(n_seq):
+                grid[i, j] = slot.dev[(name, i, j)]
+        return ShardedTensor(mesh, spec[name], grid, (cohort,) + sources[name].shape[1:])
+
+    def merge(st: DocState, ops: Dict[str, torch.Tensor], dev: torch.device) -> DocState:
         if kernels:
-            return merge_step_full(st, bufs["text_ops"], bufs["mark_ops"], ranks_d, bufs["char_buf"])
+            return merge_step_full(st, ops["text_ops"], ops["mark_ops"], ranks_d[dev], ops["char_buf"])
         return merge_step_sorted_batch(
-            st, bufs["text_ops"], bufs["round_of"], num_rounds, bufs["mark_ops"], ranks_d,
-            bufs["char_buf"], maxk,
+            st, ops["text_ops"], ops["round_of"], num_rounds, ops["mark_ops"], ranks_d[dev],
+            ops["char_buf"], maxk,
         )
 
-    def digest(new: DocState) -> torch.Tensor:
+    def digest(new: DocState, dev: torch.device) -> torch.Tensor:
         if compute_digest:
-            return K.convergence_digest(new, ranks_d, multi_d, DIGEST_CHUNK_ELEMS, mark_cols=mark_cols)
+            return K.convergence_digest(new, ranks_d[dev], multi_d[dev], DIGEST_CHUNK_ELEMS, mark_cols=mark_cols)
         return new.length.to(torch.int64)
+
+    def mark(ev, name: str, which: int) -> None:
+        """Record event ``name`` on every device's stream ``which``."""
+        if ev is not None:
+            for d, trio in streams.items():
+                ev[d][name].record(trio[which])
+
+    def compute(slot: _Slot, ev) -> list:
+        """Every group's merge and digest; returns (output key, tensor)
+        pairs to read back: the digests and the new state's shards."""
+        states_in = DocState(**{f: laid_out(slot, f) for f in FIELDS})
+        ops_in = {name: laid_out(slot, name) for name in sources if name not in FIELDS}
+        mark(ev, "merge0", 1)
+        outs = []
+        for i in range(groups):
+            dev = _key(mesh.group_device(i))
+            outs.append(merge(group_state(states_in, i), {k: v.group(i) for k, v in ops_in.items()}, dev))
+        new = from_group_states(outs, mesh, shard_seq)
+        mark(ev, "merge1", 1)
+        reads = [(("digest", i, 0), digest(outs[i], _key(mesh.group_device(i)))) for i in range(groups)]
+        mark(ev, "digest1", 1)
+        if readback_states:
+            reads += [((f, i, j), getattr(new, f).shards[i, j]) for f in FIELDS for i in range(groups)
+                      for j in parts[f]]
+        return reads
 
     def run_slot(slot: _Slot, lo: int, hi: int, timing: Dict[str, Any]) -> None:
         ev = slot.ev
         if ev is not None:
-            ev["h2d1"].synchronize()  # the slot's previous H2D has read its staging
+            for d in devices:
+                ev[d]["h2d1"].synchronize()  # the slot's previous H2D has read its staging
         t0 = time.perf_counter()
         for name, src in sources.items():
-            _stage(slot.stage[name], src, lo, hi)
+            for i in range(groups):
+                g_lo = min(lo + i * rows, hi)
+                g_hi = min(g_lo + rows, hi)
+                for j in parts[name]:
+                    _stage(slot.stage[(name, i, j)], seq_part(src, name, j), g_lo, g_hi)
         t1 = time.perf_counter()
         timing["stage_s"] = t1 - t0
         _enqueue(slot, ev)
@@ -288,34 +410,31 @@ def stream_merge_sorted(
 
     def _enqueue(slot: _Slot, ev) -> None:
         if ev is None:
-            new = merge(slot.dev)
-            dg = digest(new)
-            slot.out["digest"].copy_(dg)
-            if readback_states:
-                for f in FIELDS:
-                    slot.out[f].copy_(getattr(new, f))
+            for key, t in compute(slot, None):
+                slot.out[key].copy_(t)
             return
-        with torch.cuda.stream(copy_s):
-            copy_s.wait_event(ev["digest1"])  # the slot's previous cohort is done with its buffers
-            ev["h2d0"].record(copy_s)
-            for name, t in slot.stage.items():
-                slot.dev[name].copy_(t, non_blocking=True)
-            ev["h2d1"].record(copy_s)
-        with torch.cuda.stream(compute_s):
-            compute_s.wait_event(ev["h2d1"])
-            ev["merge0"].record(compute_s)
-            new = merge(slot.dev)
-            ev["merge1"].record(compute_s)
-            dg = digest(new)
-            ev["digest1"].record(compute_s)
-        with torch.cuda.stream(d2h_s):
-            d2h_s.wait_event(ev["digest1"])
-            ev["d2h0"].record(d2h_s)
-            reads = [("digest", dg)] + ([(f, getattr(new, f)) for f in FIELDS] if readback_states else [])
-            for name, t in reads:
-                slot.out[name].copy_(t, non_blocking=True)
-                t.record_stream(d2h_s)  # made on the compute stream, read here
-            ev["d2h1"].record(d2h_s)
+        with _on(streams, 0):
+            for trio in streams.values():
+                for e in devices:
+                    trio[0].wait_event(ev[e]["digest1"])  # the slot's previous cohort is done with its buffers
+            mark(ev, "h2d0", 0)
+            for key, (src, _) in entries.items():
+                slot.dev[key].copy_(slot.stage[src], non_blocking=True)
+            mark(ev, "h2d1", 0)
+        with _on(streams, 1):
+            for trio in streams.values():
+                for e in devices:
+                    trio[1].wait_event(ev[e]["h2d1"])
+            reads = compute(slot, ev)
+        with _on(streams, 2):
+            for trio in streams.values():
+                for e in devices:
+                    trio[2].wait_event(ev[e]["digest1"])
+            mark(ev, "d2h0", 2)
+            for key, t in reads:
+                slot.out[key].copy_(t, non_blocking=True)
+                t.record_stream(streams[_key(t.device)][2])  # made on the compute stream, read here
+            mark(ev, "d2h1", 2)
 
     def _record(br, exc: BaseException) -> None:
         # Transient errors are breaker signal; semantic errors and
@@ -372,21 +491,26 @@ def stream_merge_sorted(
     def drain(entry) -> None:
         lo, hi, slot, br, _decision, ctx, timing = entry
         with telemetry.span("stream.drain", lo=lo, hi=hi):
-            n = hi - lo
             try:
                 faults.fire("device_readback")
-                ev = slot.ev
-                if ev is not None:
-                    ev["d2h1"].synchronize()
+                if slot.ev is not None:
+                    for d in devices:
+                        slot.ev[d]["d2h1"].synchronize()
+                    ev = slot.ev[first]
                     timing["h2d_ms"] = ev["h2d0"].elapsed_time(ev["h2d1"])
                     timing["merge_ms"] = ev["merge0"].elapsed_time(ev["merge1"])
                     timing["digest_ms"] = ev["merge1"].elapsed_time(ev["digest1"])
                     timing["d2h_ms"] = ev["d2h0"].elapsed_time(ev["d2h1"])
                 t0 = time.perf_counter()
-                digests[lo:hi] = slot.out["digest"][:n].numpy().astype(np.uint32)
-                if out_states is not None:
-                    for f in FIELDS:
-                        out_states[f][lo:hi] = slot.out[f][:n].numpy()
+                for i in range(groups):
+                    g_lo = lo + i * rows
+                    m = min(rows, hi - g_lo)
+                    if m <= 0:
+                        break
+                    digests[g_lo : g_lo + m] = slot.out[("digest", i, 0)][:m].numpy().astype(np.uint32)
+                    for f in FIELDS if out_states is not None else ():
+                        for j in parts[f]:
+                            seq_part(out_states[f][g_lo : g_lo + m], f, j)[...] = slot.out[(f, i, j)][:m].numpy()
                 timing["drain_s"] = time.perf_counter() - t0
             except BaseException as exc:
                 _record(br, exc)

@@ -8,12 +8,19 @@ ServePlane` scheduler, and the facade
 - **partitions sessions across the shards** (cohort launches on different
   shards proceed independently — per-launch device work scales with the
   SHARD width, not the fleet width);
-- **places shard i on ``devices[i % len(devices)]``**: ``devices=None``
+- **places shard i on slice i of ``parallel.mesh.mesh_slices(shards,
+  devices)``**, its universe on the slice's lead device (with more shards
+  than devices the slices are singletons round-robin): ``devices=None``
   means every visible CUDA device, and with none visible the first
   session raises instead of moving to the CPU (tests pass
-  ``devices=["cpu"]`` or a ``universe_factory``).  The JAX package's
-  ``mesh_within_shard`` (its universe's replica axis split over a mesh
-  slice) is not ported;
+  ``devices=["cpu"]`` or a ``universe_factory``).  With
+  ``mesh_within_shard=True`` a shard whose slice has two or more devices
+  lays its universe's replica axis over them
+  (``TorchUniverse.shard(make_mesh(slice, len(slice), 1),
+  shard_seq=False)``) whenever its width divides the slice, re-judged
+  after every width change (the port keeps exact widths, so a shard is
+  sharded only at such widths; JAX's pow2 buckets make that its steady
+  state);
 - **holds each shard's width to its sessions**: a shard fronting n
   sessions runs an n-wide universe (the JAX package's ``bucket="exact"``).
   Its default, pow2 widths padded with inert rows so that shards share
@@ -258,12 +265,14 @@ class _Shard:
     """One shard slot: a lazily-created universe (first session brings it
     up on the shard's device) plus its ServePlane scheduler."""
 
-    __slots__ = ("index", "device", "universe", "plane", "real", "spare")
+    __slots__ = ("index", "devices", "device", "universe", "plane", "real", "spare")
 
     def __init__(self, index: int) -> None:
         self.index = index
         # Resolved lazily at first universe creation (a universe_factory
-        # plane never resolves a device: the factory owns placement).
+        # plane never resolves a device: the factory owns placement): the
+        # shard's mesh slice, and its lead device, which holds the universe.
+        self.devices: Optional[List[torch.device]] = None
         self.device: Optional[torch.device] = None
         self.universe: Any = None
         self.plane: Optional[ServePlane] = None
@@ -293,6 +302,7 @@ class ShardedServePlane:
         max_mark_ops: int = 64,
         universe_factory: Optional[Callable[[List[str], int], Any]] = None,
         devices: Optional[Sequence[Any]] = None,
+        mesh_within_shard: bool = False,
     ) -> None:
         if shards < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
@@ -306,6 +316,7 @@ class ShardedServePlane:
         self._capacity = capacity
         self._max_mark_ops = max_mark_ops
         self._universe_factory = universe_factory
+        self._mesh_within_shard = mesh_within_shard
         self._plane_kw = {
             k: v
             for k, v in dict(
@@ -396,16 +407,31 @@ class ShardedServePlane:
             return self._universe_factory(replica_ids, shard.index)
         # Imported here: the universe imports this package.
         from peritext_tpu_torch.ops.universe import TorchUniverse
+        from peritext_tpu_torch.parallel.mesh import mesh_slices
 
-        # Round-robin when shards outnumber devices.
-        devices = self._resolve_devices()
-        shard.device = devices[shard.index % len(devices)]
+        shard.devices = mesh_slices(len(self.shards), self._resolve_devices())[shard.index]
+        shard.device = shard.devices[0]
         return TorchUniverse(
             replica_ids,
             capacity=self._capacity,
             max_mark_ops=self._max_mark_ops,
             device=shard.device,
         )
+
+    def _reshard_slice(self, shard: _Shard) -> None:
+        """Lay the shard universe's replica axis over its mesh slice
+        (``mesh_within_shard``), when the slice has two or more devices
+        and the width divides it; otherwise leave it as the last change
+        left it (a membership change leaves it unsharded) until the next
+        width change re-judges it.  A factory-backed shard's placement is
+        the factory's."""
+        if not self._mesh_within_shard or shard.devices is None or len(shard.devices) < 2:
+            return
+        if len(shard.universe.replica_ids) % len(shard.devices) != 0:
+            return
+        from peritext_tpu_torch.parallel.mesh import make_mesh
+
+        shard.universe.shard(make_mesh(shard.devices, len(shard.devices), 1), shard_seq=False)
 
     def _provision_locked(self, shard: _Shard, replica: str) -> None:
         """Bring ``replica`` up on ``shard``: the first session creates the
@@ -427,6 +453,7 @@ class ShardedServePlane:
                 shard=shard.index,
                 **self._plane_kw,
             )
+            self._reshard_slice(shard)
             return
 
         def mutate() -> None:
@@ -435,6 +462,7 @@ class ShardedServePlane:
                 shard.spare = None
             else:
                 shard.universe.add_replicas([replica])
+            self._reshard_slice(shard)
 
         shard.plane.run_quiesced(mutate)
 
@@ -451,13 +479,14 @@ class ShardedServePlane:
             uni = shard.universe
             if len(uni.replica_ids) > 1:
                 uni.drop_replicas([replica])
-                return
-            shard.spare = f"__spare_{shard.index}"
-            if not uni.clocks[uni.index_of[replica]]:
-                uni.rename_replica(replica, shard.spare)
             else:
-                uni.add_replicas([shard.spare])
-                uni.drop_replicas([replica])
+                shard.spare = f"__spare_{shard.index}"
+                if not uni.clocks[uni.index_of[replica]]:
+                    uni.rename_replica(replica, shard.spare)
+                else:
+                    uni.add_replicas([shard.spare])
+                    uni.drop_replicas([replica])
+            self._reshard_slice(shard)
 
         shard.plane.run_quiesced(mutate)
 

@@ -22,7 +22,8 @@ included) equals the same run on the CPU, and kernel launches from two
 threads count and land on the card.  A universe sharded over a logical
 2x2 mesh of the card merges once per replica group and equals an
 unsharded one on the CPU, as do the sequence-parallel placement and
-flatten.
+flatten.  The stream over logical meshes of the card equals the resident
+merge, and an NCCL world of one runs the multi-host step.
 
 Needs a CUDA device; without one every test skips.  This file imports no
 JAX, so it runs where JAX is absent:
@@ -1245,3 +1246,74 @@ def test_sharded_universe_on_a_logical_mesh_equals_the_cpus(card):
     live = torch.arange(512)[None, :] < cpu.length[:, None]
     assert torch.equal(mask.full().cpu() * live[..., None], ref_mask * live[..., None])
     assert torch.equal(has.full().cpu() & live, ref_has & live)
+
+
+@pytest.mark.parametrize("shape,shard_seq", [((4, 1), True), ((2, 2), True), ((2, 2), False)])
+def test_stream_on_a_logical_mesh_of_the_card_equals_the_resident_merge(card, shape, shard_seq):
+    """The stream over ``n x cuda:0`` (each entry a logical shard, every
+    entry sharing the card's three streams): each cohort merges once per
+    replica group on the kernels, and states and digests equal one
+    resident ``merge_step_full`` byte for byte, at depth 2 and 1."""
+    from peritext_tpu_torch.ops.state import state_from_numpy
+    from peritext_tpu_torch.parallel import make_mesh, stream_merge_sorted
+
+    args = _stream_population(100, 1024, 64, seed=12)
+    st = state_from_numpy(args[0], device=card)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)  # noqa: E731
+    ranks = to(args[5])
+    resident = cuda_kernels.merge_step_full(st, to(args[1]), to(args[4]), ranks, to(args[6]))
+    want_dg = K.convergence_digest(resident, ranks, to(allow_multiple_array())).cpu().numpy()
+    want = state_to_numpy(resident)
+    mesh = make_mesh([card] * (shape[0] * shape[1]), *shape)
+    for depth in (2, 1):
+        cuda_kernels.reset_launch_counts()
+        out, dg, stats = stream_merge_sorted(*args, cohort=22, mesh=mesh, shard_seq=shard_seq, depth=depth)
+        cohort = -(-22 // shape[0]) * shape[0]
+        assert stats["cohort"] == cohort and stats["n_cohorts"] == -(-100 // cohort)
+        n = stats["n_cohorts"] * shape[0]
+        assert cuda_kernels.LAUNCHES == {"text_phase": n, "mark_phase": n}
+        np.testing.assert_array_equal(dg, want_dg.astype(np.uint32))
+        for f in want:
+            assert out[f].dtype == want[f].dtype, f
+            np.testing.assert_array_equal(out[f], want[f], err_msg=f)
+        assert all(t["merge_ms"] > 0 and t["d2h_ms"] > 0 for t in stats["timings"])
+
+
+def test_nccl_world_of_one_on_the_card(card):
+    """``initialize_distributed`` over NCCL at a world of one: the global
+    mesh over the card, the assembled batch and ``sharded_apply`` (its
+    global digest through an NCCL ``all_reduce``) equal one
+    ``merge_step_full`` and its digests; no group outlives the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from peritext_tpu_torch.parallel import (
+        assemble_global_states, global_mesh, initialize_distributed, local_replica_slice, sharded_apply,
+    )
+    from peritext_tpu_torch.parallel.mesh import gather_states
+
+    b = build_device_batch(make_merge_workload(200, 32, 4, True, seed=6), 64, 512, 128, device=card)
+    multi = torch.from_numpy(allow_multiple_array()).to(card)
+    want = cuda_kernels.merge_step_full(b["states"], b["text_ops"], b["mark_ops"], b["ranks"], b["char_buf"])
+    want_dg = K.convergence_digest(want, b["ranks"], multi)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+        assert dist.get_backend() == "nccl"
+        mesh = global_mesh(devices=[card] * 2)
+        sl = local_replica_slice(64)
+        st = assemble_global_states(map_state(lambda x: x[sl], b["states"]), b["states"], mesh)
+        new, digests, total = sharded_apply(mesh)(st, b["text_ops"][sl], b["mark_ops"][sl], b["ranks"], multi,
+                                                   b["char_buf"][sl])
+        got = gather_states(new)
+        for f in FIELDS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        assert torch.equal(digests.full(), want_dg)
+        assert int(total) == int(want_dg.sum().item()) & 0xFFFFFFFF
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()

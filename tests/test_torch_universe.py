@@ -128,8 +128,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     runtime copies, the native codec and the mesh layer included, and
     ``chip_smoke.py`` with its dependencies import, every name of the
     package's ``__all__`` resolves (the lazy ``obs`` and bridge names too),
-    the nine mesh names of ``peritext_tpu.parallel.__all__`` resolve from
-    ``peritext_tpu_torch.parallel`` and the codec round trips; and no
+    the nine mesh names of ``peritext_tpu.parallel.__all__`` and the four
+    of the multi-host module resolve from ``peritext_tpu_torch.parallel``,
+    the demos import, and the codec round trips; and no
     source of them names one of those packages."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -143,12 +144,15 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "assert {'peritext_tpu_torch.runtime.' + m for m in ('serve', 'checkpoint', 'pubsub', 'serve_shard', "
         "'elastic', 'lifecycle', 'sync')} <= set(mods)\n"
         "assert {'peritext_tpu_torch.' + m for m in ('parallel.stream', 'parallel.mesh', 'parallel.shard', "
-        "'testing', 'replay', 'bridge', 'fuzz', 'examples.fleet_demo', 'runtime.native_codec')} <= set(mods)\n"
+        "'parallel.multihost', 'testing', 'replay', 'bridge', 'fuzz', 'examples.fleet_demo', "
+        "'examples.essay_demo', 'examples.live_demo', 'examples.interactive_demo', 'examples.web_demo', "
+        "'runtime.native_codec')} <= set(mods)\n"
         "for name in peritext_tpu_torch.__all__:\n"
         "    getattr(peritext_tpu_torch, name)\n"
         "import peritext_tpu_torch.parallel as par\n"
         "mesh_names = ('make_mesh', 'mesh_slices', 'shard_states', 'sharded_apply', 'sharded_digest_reduce', "
-        "'state_sharding', 'flatten_sources_sp', 'place_text_sp', 'merge_step_sorted_sp')\n"
+        "'state_sharding', 'flatten_sources_sp', 'place_text_sp', 'merge_step_sorted_sp', "
+        "'initialize_distributed', 'global_mesh', 'local_replica_slice', 'assemble_global_states')\n"
         "assert set(mesh_names) <= set(par.__all__)\n"
         "for name in mesh_names:\n"
         "    assert callable(getattr(par, name)), name\n"
