@@ -1,0 +1,203 @@
+"""What every driver shares: finding a cell by name, the run's record, the
+statistics of the end-to-end metrics, the reading of a profiler trace, and
+the result line.  Imports nothing of the port."""
+from __future__ import annotations
+
+import importlib.util
+import json
+import math
+import sys
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+ROOT = Path(__file__).resolve().parent.parent
+HERE = Path(__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "peritext_tpu")
+NAME_CHARS = 160  # of an op's name in the breakdown
+
+
+def load_benchmark(root: Path = ROOT) -> Dict[str, Any]:
+    with open(root / "BENCHMARK.json") as f:
+        return json.load(f)
+
+
+def load_cell(name: str, root: Path = ROOT) -> Dict[str, Any]:
+    """The workload entry ``name`` with its configuration (from the file
+    ``BENCHMARK.json`` names) and its traffic mix (``traffic/<name>.json``),
+    and the metrics that the cell reports, by kind."""
+    bench = load_benchmark(root)
+    cells = {w["name"]: w for w in bench["workloads"]}
+    if name not in cells:
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json; known: {', '.join(sorted(cells))}")
+    cell = cells[name]
+    config = next(c for c in bench["configs"] if c["name"] == cell["config"])
+    with open(root / config["file"]) as f:
+        cfg = json.load(f)
+    with open(HERE / "traffic" / f"{cell['traffic']}.json") as f:
+        traffic = json.load(f)
+
+    def mine(metrics: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        return [m for m in metrics if name in m.get("workloads", [name])]
+
+    return {"name": name, "chips": cell["chips"], "config": cfg, "traffic": traffic,
+            "end_to_end": mine(bench["end_to_end"]), "per_layer": mine(bench["per_layer"])}
+
+
+def reader(metric: str) -> Callable[[Dict[str, Any]], Optional[float]]:
+    """The ``read`` function of ``metrics/<metric>.py``."""
+    path = HERE / "metrics" / f"{metric}.py"
+    spec = importlib.util.spec_from_file_location(f"portbench_metric_{metric.replace('.', '_').replace('-', '_')}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def p95(values: Sequence[float]) -> float:
+    """The 95th percentile by nearest rank: the smallest value with at least
+    95% of the values at or below it (``inf`` counts as the largest)."""
+    xs = sorted(values)
+    return xs[max(0, math.ceil(0.95 * len(xs)) - 1)]
+
+
+def forbidden_modules() -> List[str]:
+    """Modules loaded in this process whose top-level name is one of
+    ``FORBIDDEN``, compared whole."""
+    return sorted(n for n in list(sys.modules) if n.split(".", 1)[0] in FORBIDDEN)
+
+
+class Check:
+    """One number compared with its limit: the run is correct while every
+    value is at or below its limit."""
+
+    def __init__(self, name: str, value: float, limit: float):
+        self.name, self.value, self.limit = name, value, limit
+
+    @property
+    def ok(self) -> bool:
+        return self.value <= self.limit
+
+
+# -- the profiler's trace ---------------------------------------------------------------------------
+
+
+def _is_device(evt) -> bool:
+    return str(getattr(evt, "device_type", "")).endswith("CUDA")
+
+
+def summarize_profile(prof, wall_s: float, t_begin_us: Optional[float] = None) -> Dict[str, Any]:
+    """Busy seconds (the union of the device's kernel, copy and set
+    intervals), the device time of each operation by name, the ten longest
+    idle gaps labelled by the innermost host op or span that covers each
+    gap's middle, and ``wall_s``, the traced window's length."""
+    events = prof.events()
+    dev: List[Tuple[float, float, str]] = []
+    host: List[Tuple[float, float, str]] = []
+    for e in events:
+        tr = e.time_range
+        if _is_device(e):
+            if not e.name.startswith("portbench."):  # the harness's spans, mirrored on the device's timeline
+                dev.append((tr.start, tr.end, e.name))
+        else:
+            host.append((tr.start, tr.end, e.name))
+    by_name: Dict[str, float] = {}
+    for s, t, n in dev:
+        by_name[n] = by_name.get(n, 0.0) + (t - s) * 1e-6
+    dev.sort()
+    busy_us = 0.0
+    gaps: List[Tuple[float, float]] = []
+    cur_s = cur_t = None
+    for s, t, _ in dev:
+        if cur_t is None:
+            cur_s, cur_t = s, t
+        elif s > cur_t:
+            busy_us += cur_t - cur_s
+            gaps.append((cur_t, s))
+            cur_s, cur_t = s, t
+        else:
+            cur_t = max(cur_t, t)
+    if cur_t is not None:
+        busy_us += cur_t - cur_s
+    if dev and host:
+        first = min(h[0] for h in host) if t_begin_us is None else t_begin_us
+        last = max(h[1] for h in host)
+        gaps = [(first, dev[0][0])] + gaps + [(cur_t, last)]
+    gaps = sorted((g for g in gaps if g[1] > g[0]), key=lambda g: g[0] - g[1])[:10]
+    host.sort(key=lambda h: h[0])
+
+    def label(mid: float) -> str:
+        inner = None
+        for s, t, n in host:
+            if s > mid:
+                break
+            if t >= mid and (inner is None or t - s < inner[1] - inner[0]):
+                inner = (s, t, n)
+        return inner[2] if inner else "host: no op or span recorded"
+
+    idle = [[label((a + b) / 2), (b - a) * 1e-6] for a, b in gaps]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"busy_s": busy_us * 1e-6, "window_s": wall_s, "by_name": by_name,
+            "breakdown": {"device_ops": [[n[:NAME_CHARS], s] for n, s in top],
+                          "idle_gaps": [[n[:NAME_CHARS], s] for n, s in idle]}}
+
+
+def device_seconds(profile: Dict[str, Any], *needles: str) -> float:
+    """Device seconds of the operations whose name holds any of ``needles``."""
+    return sum(s for n, s in profile["by_name"].items() if any(k in n for k in needles))
+
+
+# -- the result ------------------------------------------------------------------------------------
+
+
+def result_line(rec: Dict[str, Any], metrics: List[Dict[str, Any]], trace: bool) -> Dict[str, Any]:
+    """The last line of standard output: the cell's metrics (those its
+    readers find something to read for), the device, and the checks last."""
+    out: Dict[str, Any] = {"correct": all(c.ok for c in rec["checks"]) and rec["failed"] == 0,
+                           "attempted": rec["attempted"], "failed": rec["failed"], "metrics": {}}
+    for m in metrics:
+        value = reader(m["name"])(rec)
+        if value is not None:
+            out["metrics"][m["name"]] = {"value": value, "unit": m["unit"]}
+    out["device"] = dict(rec["device"])
+    if trace and rec.get("profile"):
+        out["device"]["busy_s"] = rec["profile"]["busy_s"]
+        out["device"]["window_s"] = rec["profile"]["window_s"]
+        out["breakdown"] = rec["profile"]["breakdown"]
+    out["checks"] = {c.name: {"value": c.value, "limit": c.limit} for c in rec["checks"]}
+    return out
+
+
+class Clock:
+    """The run's host clock: ``t0`` is when the process began its set-up."""
+
+    def __init__(self, t0: Optional[float] = None):
+        self.t0 = time.perf_counter() if t0 is None else t0
+
+    def since(self) -> float:
+        return time.perf_counter() - self.t0
+
+
+# -- helpers the metric readers share ------------------------------------------------------------
+
+
+def idle_pct(rec: Dict[str, Any]) -> Optional[float]:
+    """The traced slice's share of time in which no device op ran."""
+    prof = rec.get("profile")
+    if not prof or prof["busy_s"] <= 0 or prof["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - prof["busy_s"] / prof["window_s"])
+
+
+def merge_roofline_pct(rec: Dict[str, Any]) -> Optional[float]:
+    """The traced merges' least time at the HBM rate (the frozen byte count)
+    over the device time of the two merge kernels in the trace."""
+    from portbench.roofline import bound_seconds
+
+    prof, layers = rec.get("profile"), rec.get("layers") or {}
+    if not prof or not layers.get("merges"):
+        return None
+    kernel_s = device_seconds(prof, "text_phase", "mark_phase")
+    if kernel_s <= 0:
+        return None
+    return 100.0 * bound_seconds(layers["merge_bytes"]) / kernel_s
