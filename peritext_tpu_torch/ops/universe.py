@@ -632,10 +632,7 @@ class TorchUniverse:
                         result, barrier = attempt()
                         if needs_barrier or timeout > 0:
                             faults.fire("device_readback")
-                            tb = time.monotonic()
                             barrier.cpu()
-                            if telemetry.enabled:
-                                telemetry.observe("ingest.readback_wait_seconds", time.monotonic() - tb)
                             if timeout > 0 and time.monotonic() - t0 > timeout:
                                 raise TimeoutError(
                                     f"device launch attempt exceeded the {timeout}s deadline"
@@ -887,12 +884,15 @@ class TorchUniverse:
         Raises before any commit if any replica's batch is causally
         unsatisfiable.  Gate and encode are memoized per distinct (batch
         content, clock, text object) group, so a fleet ingesting one shared
-        stream pays for one encode, not one per replica."""
+        stream pays for one encode, not one per replica: span
+        ``ingest.group`` keys every replica, then ``ingest.encode`` gates
+        and encodes each group in first-seen order, dry-runs the host ops
+        and sums the new lengths."""
         n = len(batches)
         groups: List[Dict[str, Any]] = []
         memo: Dict[Any, int] = {}
         group_of = np.zeros(n, np.int32)
-        n_ingested = 0
+        firsts: List[int] = []  # each group's first replica
         hash_by_id: Dict[int, str] = {}
 
         def change_digest(c: Change) -> str:
@@ -904,23 +904,31 @@ class TorchUniverse:
                 hash_by_id[id(c)] = h
             return h
 
-        for r, changes in enumerate(batches):
-            clock = self.clocks[r]
-            text_obj = self.text_objs[r]
-            key = (
-                tuple(change_digest(c) for c in changes),
-                tuple(sorted(clock.items())),
-                text_obj,
-            )
-            gi = memo.get(key)
-            if gi is None:
+        with telemetry.span("ingest.group"):
+            if telemetry.enabled:
+                telemetry.flow_steps()
+            for r, changes in enumerate(batches):
+                key = (
+                    tuple(change_digest(c) for c in changes),
+                    tuple(sorted(self.clocks[r].items())),
+                    self.text_objs[r],
+                )
+                gi = memo.get(key)
+                if gi is None:
+                    gi = memo[key] = len(firsts)
+                    firsts.append(r)
+                group_of[r] = gi
+
+        with telemetry.span("ingest.encode"):
+            if telemetry.enabled:
+                telemetry.flow_steps()
+            for r in firsts:
+                changes, clock, text_obj = batches[r], self.clocks[r], self.text_objs[r]
                 new_clock = dict(clock) if changes else clock
                 ordered, dupes = self._gate(new_clock, changes)
                 rows, host_ops, counts = encode_changes(
                     ordered, self.actors, self.attrs, text_obj=text_obj
                 )
-                gi = len(groups)
-                memo[key] = gi
                 groups.append(
                     {
                         "clock": new_clock,
@@ -934,38 +942,38 @@ class TorchUniverse:
                         "marks": counts["mark"],
                     }
                 )
-            n_ingested += len(groups[gi]["ordered"])
-            group_of[r] = gi
+            sizes = np.bincount(group_of, minlength=len(groups))
+            n_ingested = sum(len(g["ordered"]) * int(k) for g, k in zip(groups, sizes))
 
-        # Host structural ops dry-run against store copies, one per (group,
-        # store version) class; a bad op raises here, before any commit.
-        # Their patches are kept per class, tagged with each op's position
-        # in the batch stream, for the patch path to interleave.
-        new_stores: Dict[int, ObjectStore] = {}
-        new_versions: Dict[int, int] = {}
-        host_patches: Dict[int, List[Any]] = {}
-        by_class: Dict[Any, Any] = {}
-        for r in range(n):
-            g = groups[group_of[r]]
-            if not g["host_ops"]:
-                continue
-            key = (group_of[r], self.store_versions[r])
-            hit = by_class.get(key)
-            if hit is None:
-                store = copy.deepcopy(self.stores[r])
-                emitted: List[Any] = []
-                for pos, op in g["host_ops"]:
-                    emitted.extend((pos, p) for p in apply_host_op(store, op))
-                if g["text_obj"] is not None:
-                    store.device_objects.add(g["text_obj"])
-                self._store_version_counter += 1
-                hit = by_class[key] = (store, self._store_version_counter, emitted)
-            new_stores[r], new_versions[r], host_patches[r] = hit
+            # Host structural ops dry-run against store copies, one per (group,
+            # store version) class; a bad op raises here, before any commit.
+            # Their patches are kept per class, tagged with each op's position
+            # in the batch stream, for the patch path to interleave.
+            new_stores: Dict[int, ObjectStore] = {}
+            new_versions: Dict[int, int] = {}
+            host_patches: Dict[int, List[Any]] = {}
+            by_class: Dict[Any, Any] = {}
+            for r in range(n):
+                g = groups[group_of[r]]
+                if not g["host_ops"]:
+                    continue
+                key = (group_of[r], self.store_versions[r])
+                hit = by_class.get(key)
+                if hit is None:
+                    store = copy.deepcopy(self.stores[r])
+                    emitted: List[Any] = []
+                    for pos, op in g["host_ops"]:
+                        emitted.extend((pos, p) for p in apply_host_op(store, op))
+                    if g["text_obj"] is not None:
+                        store.device_objects.add(g["text_obj"])
+                    self._store_version_counter += 1
+                    hit = by_class[key] = (store, self._store_version_counter, emitted)
+                new_stores[r], new_versions[r], host_patches[r] = hit
 
-        ins = np.asarray([g["inserts"] for g in groups], np.int64)[group_of]
-        mks = np.asarray([g["marks"] for g in groups], np.int64)[group_of]
-        lengths = np.asarray(self.lengths, np.int64) + ins
-        mark_counts = np.asarray(self.mark_counts, np.int64) + mks
+            ins = np.asarray([g["inserts"] for g in groups], np.int64)[group_of]
+            mks = np.asarray([g["marks"] for g in groups], np.int64)[group_of]
+            lengths = np.asarray(self.lengths, np.int64) + ins
+            mark_counts = np.asarray(self.mark_counts, np.int64) + mks
         return {
             "groups": groups,
             "group_of": group_of,
@@ -979,27 +987,35 @@ class TorchUniverse:
             "need_marks": int(mark_counts.max(initial=0)),
         }
 
-    def _commit(self, prep: Dict[str, Any]) -> None:
-        """Publish a prepared batch's control-plane effects (post-merge)."""
-        groups = prep["groups"]
-        group_of = prep["group_of"]
-        self.lengths = [int(v) for v in prep["new_lengths"]]
-        self.mark_counts = [int(v) for v in prep["new_mark_counts"]]
-        for r in range(len(self.replica_ids)):
-            g = groups[group_of[r]]
-            if g["ordered"]:
-                self.clocks[r] = dict(g["clock"])
-            if r in prep["new_stores"]:
-                self.stores[r] = prep["new_stores"][r]
-                self.store_versions[r] = prep["new_store_versions"][r]
-                if g["text_obj"] is not None:
-                    self.text_objs[r] = g["text_obj"]
-        self.stats["changes_ingested"] += prep["ingested"]
-        sizes = np.bincount(group_of, minlength=len(groups))
-        dupes = np.asarray([g["dupes"] for g in groups], np.int64)
-        self.stats["duplicates_dropped"] += int((dupes * sizes).sum())
-        for g in groups:
-            self._count_multi_groups(g["rows"])
+    def _commit(self, prep: Dict[str, Any], wplan: Optional[Dict[str, Any]] = None,
+                wrec: Optional[Dict[str, np.ndarray]] = None) -> None:
+        """Publish a prepared batch's control-plane effects (post-merge),
+        after splicing a windowed merge's readback ``wrec`` into the
+        mirrors where ``wplan`` is given (span ``ingest.commit``)."""
+        with telemetry.span("ingest.commit"):
+            if telemetry.enabled:
+                telemetry.flow_steps()
+            if wplan is not None:
+                self._mirror_commit(wplan, wrec, prep)
+            groups = prep["groups"]
+            group_of = prep["group_of"]
+            self.lengths = [int(v) for v in prep["new_lengths"]]
+            self.mark_counts = [int(v) for v in prep["new_mark_counts"]]
+            for r in range(len(self.replica_ids)):
+                g = groups[group_of[r]]
+                if g["ordered"]:
+                    self.clocks[r] = dict(g["clock"])
+                if r in prep["new_stores"]:
+                    self.stores[r] = prep["new_stores"][r]
+                    self.store_versions[r] = prep["new_store_versions"][r]
+                    if g["text_obj"] is not None:
+                        self.text_objs[r] = g["text_obj"]
+            self.stats["changes_ingested"] += prep["ingested"]
+            sizes = np.bincount(group_of, minlength=len(groups))
+            dupes = np.asarray([g["dupes"] for g in groups], np.int64)
+            self.stats["duplicates_dropped"] += int((dupes * sizes).sum())
+            for g in groups:
+                self._count_multi_groups(g["rows"])
 
     def _count_multi_groups(self, rows: np.ndarray) -> None:
         """Fold a batch's allowMultiple mark rows into ``_multi_groups``."""
@@ -1176,69 +1192,44 @@ class TorchUniverse:
         use_scan = _merge_path() == "scan"
         batches = self._normalize_batches(per_replica)
         prep = self._prepare(batches)
-        groups, group_of = prep["groups"], prep["group_of"]
-
-        text_rows_list: List[np.ndarray] = []
-        mark_rows_list: List[np.ndarray] = []
-        for g in groups:
-            text_rows, mark_rows = split_rows(g["rows"])
-            text_rows_list.append(text_rows)
-            mark_rows_list.append(mark_rows)
-        sizes, row_counts = self._account_rows(groups, group_of)
-        self._ensure_capacity(prep["need_len"], prep["need_marks"])
-        if not row_counts.any():
+        with telemetry.span("ingest.plan"):
+            if telemetry.enabled:
+                telemetry.flow_steps()
+            plan = self._plan_merge(prep, use_scan)
+        if plan is None:
             self._commit(prep)
             self.stats["host_seconds"] += time.perf_counter() - t_host
             return
-        max_rounds = None if use_scan else env_int("PERITEXT_SORTED_MAX_ROUNDS", "8", 0)
-        if self.capacity <= kernel_capacity_limit(self.max_mark_ops // MASK_WORD_BITS):
-            sorted_prep = prepare_sorted_batch(
-                text_rows_list, max_run=K.MAX_RUN_LEN if use_scan else 0,
-                fallback_max_rounds=max_rounds,
-            )
-            if sorted_prep["fell_back"]:
-                use_scan = True
-                self.stats["scan_fallbacks"] += 1
-        else:
-            # The capacity route: the kernels cannot hold this capacity, so
-            # a batch they would take places in as many rounds as it needs.
-            sorted_prep = prepare_sorted_batch(text_rows_list, max_run=0)
-            if use_scan or sorted_prep["num_rounds"] > max_rounds:
-                self.stats["capacity_routes"] += 1
-                if telemetry.enabled:
-                    telemetry.counter("ingest.path.capacity")
-            use_scan = False
-        mark_pad = bucket_length(max(max(m.shape[0] for m in mark_rows_list), 1))
-        g_mark = np.stack([pad_rows(rows, mark_pad) for rows in mark_rows_list])
-        pad_per_group = (sorted_prep["text"][:, :, K.K_KIND] == K.KIND_PAD).sum(axis=1) + (
-            g_mark[:, :, K.K_KIND] == K.KIND_PAD
-        ).sum(axis=1)
-        self.stats["rows_padded"] += int((pad_per_group * sizes).sum())
-        wplan = None if use_scan else self._window_plan(prep)
+        use_scan, sorted_prep, g_mark, wplan = plan
 
         # Upload one copy per group; the replica batch is a device gather.
-        idx = torch.from_numpy(group_of.astype(np.int64)).to(self.device)
+        with telemetry.span("ingest.upload"):
+            if telemetry.enabled:
+                telemetry.flow_steps()
+            group_idx = prep["group_of"].astype(np.int64)
+            idx = torch.from_numpy(group_idx).to(self.device)
 
-        def per_replica_rows(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a).to(self.device).index_select(0, idx).contiguous()
+            def per_replica_rows(a: np.ndarray) -> torch.Tensor:
+                return torch.from_numpy(a).to(self.device).index_select(0, idx).contiguous()
 
-        text = per_replica_rows(sorted_prep["text"])
-        marks = per_replica_rows(g_mark)
-        bufs = per_replica_rows(sorted_prep["bufs"])
-        ranks = self._ranks_device()
-        if not use_scan:
-            rounds = per_replica_rows(sorted_prep["rounds"])
-            sorted_args = (text, rounds, sorted_prep["num_rounds"], marks, ranks, bufs, sorted_prep["maxk"])
+            text = per_replica_rows(sorted_prep["text"])
+            marks = per_replica_rows(g_mark)
+            bufs = per_replica_rows(sorted_prep["bufs"])
+            ranks = self._ranks_device()
+            sent = [group_idx, sorted_prep["text"], g_mark, sorted_prep["bufs"]]
+            if not use_scan:
+                rounds = per_replica_rows(sorted_prep["rounds"])
+                sorted_args = (text, rounds, sorted_prep["num_rounds"], marks, ranks, bufs, sorted_prep["maxk"])
+                sent.append(sorted_prep["rounds"])
+            if wplan is not None:
+                starts, hulls = (torch.from_numpy(wplan[k]).to(self.device) for k in ("starts", "hulls"))
+                sent += [wplan["starts"], wplan["hulls"]]
+            h2d = sum(a.nbytes for a in sent)  # host bytes copied: per group, not per replica
         self.stats["host_seconds"] += time.perf_counter() - t_host
 
         strict = os.environ.get("PERITEXT_STRICT_COMMIT") == "1"
 
-        def h2d_bytes() -> int:
-            return sum(t.numel() * t.element_size() for t in (text, marks, bufs))
-
         if wplan is not None:
-            starts, hulls = (torch.from_numpy(wplan[k]).to(self.device) for k in ("starts", "hulls"))
-
             def wattempt():
                 faults.fire("device_launch")
                 st, wrec = merge_step_sorted_windowed_batch(self.states, starts, hulls, *sorted_args, wplan["w_cap"])
@@ -1261,12 +1252,11 @@ class TorchUniverse:
                     telemetry.flow_steps(path="windowed", window=int(wplan["w_cap"]))
                     for name in ("ingest.launches", "ingest.path.sorted", "ingest.path.windowed"):
                         telemetry.counter(name)
-                    telemetry.counter("ingest.h2d_bytes", h2d_bytes())
+                    telemetry.counter("ingest.h2d_bytes", h2d)
                     telemetry.counter("ingest.d2h_bytes", int(sum(v.nbytes for v in wrec_np.values())))
                 t_host = time.perf_counter()
                 self._wcaches = None
-                self._mirror_commit(wplan, wrec_np, prep)
-                self._commit(prep)
+                self._commit(prep, wplan, wrec_np)
                 self.stats["host_seconds"] += time.perf_counter() - t_host
                 return
             self._window_fallback()
@@ -1298,13 +1288,60 @@ class TorchUniverse:
         if telemetry.enabled:
             telemetry.counter("ingest.launches")
             telemetry.counter("ingest.path.scan" if use_scan else "ingest.path.sorted")
-            telemetry.counter("ingest.h2d_bytes", h2d_bytes())
+            telemetry.counter("ingest.h2d_bytes", h2d)
         # The no-patch merges rewrite boundary rows without maintaining the
         # patched route's winner cache.
         self._wcaches = None
         t_host = time.perf_counter()
         self._commit(prep)
         self.stats["host_seconds"] += time.perf_counter() - t_host
+
+    def _plan_merge(
+        self, prep: Dict[str, Any], use_scan: bool
+    ) -> Optional[Tuple[bool, Dict[str, Any], np.ndarray, Any]]:
+        """The host plan of a prepared batch for :meth:`apply_changes`: its
+        rows split and tallied, the capacity grown, the route chosen (the
+        kernels' merge for ``use_scan`` unless the capacity route takes
+        it), the sorted batch and padded mark rows built per group, and the
+        window planned.  ``(use_scan, sorted_prep, g_mark, wplan)``, or
+        None when no replica has a row (nothing to launch)."""
+        groups, group_of = prep["groups"], prep["group_of"]
+        text_rows_list: List[np.ndarray] = []
+        mark_rows_list: List[np.ndarray] = []
+        for g in groups:
+            text_rows, mark_rows = split_rows(g["rows"])
+            text_rows_list.append(text_rows)
+            mark_rows_list.append(mark_rows)
+        sizes, row_counts = self._account_rows(groups, group_of)
+        self._ensure_capacity(prep["need_len"], prep["need_marks"])
+        if not row_counts.any():
+            return None
+        max_rounds = None if use_scan else env_int("PERITEXT_SORTED_MAX_ROUNDS", "8", 0)
+        if self.capacity <= kernel_capacity_limit(self.max_mark_ops // MASK_WORD_BITS):
+            sorted_prep = prepare_sorted_batch(
+                text_rows_list, max_run=K.MAX_RUN_LEN if use_scan else 0,
+                fallback_max_rounds=max_rounds,
+            )
+            if sorted_prep["fell_back"]:
+                use_scan = True
+                self.stats["scan_fallbacks"] += 1
+        else:
+            # The capacity route: the kernels cannot hold this capacity, so
+            # a batch they would take places in as many rounds as it needs.
+            sorted_prep = prepare_sorted_batch(text_rows_list, max_run=0)
+            if use_scan or sorted_prep["num_rounds"] > max_rounds:
+                self.stats["capacity_routes"] += 1
+                if telemetry.enabled:
+                    telemetry.counter("ingest.path.capacity")
+            use_scan = False
+        mark_pad = bucket_length(max(max(m.shape[0] for m in mark_rows_list), 1))
+        g_mark = np.stack([pad_rows(rows, mark_pad) for rows in mark_rows_list])
+        pad_per_group = (sorted_prep["text"][:, :, K.K_KIND] == K.KIND_PAD).sum(axis=1) + (
+            g_mark[:, :, K.K_KIND] == K.KIND_PAD
+        ).sum(axis=1)
+        self.stats["rows_padded"] += int((pad_per_group * sizes).sum())
+        wplan = None if use_scan else self._window_plan(prep)
+        return use_scan, sorted_prep, g_mark, wplan
 
     # -- patch-emitting ingestion -------------------------------------------
 
@@ -1491,7 +1528,6 @@ class TorchUniverse:
         self.stats["launches"] += launches
         if use_window:
             self.stats["windowed_launches"] += 1
-            self._mirror_commit(wplan, record_chunks[0], prep)
         if telemetry.enabled:
             telemetry.counter("ingest.launches", launches)
             telemetry.counter("ingest.path." + path)
@@ -1505,7 +1541,7 @@ class TorchUniverse:
         if wcache is not None:
             # Keyed to the registry this launch's ranks came from.
             self._wcaches_actors = len(self.actors.actors)
-        self._commit(prep)
+        self._commit(prep, wplan if use_window else None, record_chunks[0])
 
         t = time.perf_counter()
         with telemetry.span("ingest.assemble", replicas=n):
@@ -1530,7 +1566,8 @@ class TorchUniverse:
         ops = g_ops[group_of]
         pad_per_group = (g_ops[:, :, K.K_KIND] == K.KIND_PAD).sum(axis=1)
         self.stats["rows_padded"] += int((pad_per_group * group_sizes).sum())
-        idx = torch.from_numpy(group_of.astype(np.int64)).to(self.device)
+        group_idx = group_of.astype(np.int64)
+        idx = torch.from_numpy(group_idx).to(self.device)
         d_ops = torch.from_numpy(g_ops).to(self.device).index_select(0, idx)
         ranks = self._ranks_device()
         multi = self._multi_device()
@@ -1546,7 +1583,7 @@ class TorchUniverse:
             return assemble_patches(rec, i, ops[r], table, self.attrs, row_pos=groups[group_of[r]]["row_pos"])
 
         return self._launch_patched(
-            prep, host_patches_for, with_positions, "scan", int(ops.nbytes),
+            prep, host_patches_for, with_positions, "scan", g_ops.nbytes + group_idx.nbytes,
             self._patch_chunk(len(self.replica_ids)), merge_chunk, assemble_one,
         )
 
@@ -1605,18 +1642,16 @@ class TorchUniverse:
         self.stats["rows_padded"] += int((pad_per_group * sizes).sum())
 
         # One upload per group; the replica batch is a device gather.
-        idx = torch.from_numpy(group_of.astype(np.int64)).to(self.device)
+        group_idx = group_of.astype(np.int64)
+        idx = torch.from_numpy(group_idx).to(self.device)
 
         def per_replica(a: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device).index_select(0, idx).contiguous()
 
-        d_text, d_rounds, d_bufs, d_tpos, d_mark, d_mpos = (
-            per_replica(a) for a in (
-                sorted_prep["text"], sorted_prep["rounds"], sorted_prep["bufs"],
-                sorted_prep["text_pos"], g_mark, g_mark_pos,
-            )
-        )
-        h2d = int(sum(t.numel() * t.element_size() for t in (d_text, d_rounds, d_bufs, d_tpos, d_mark, d_mpos)))
+        sent = [sorted_prep["text"], sorted_prep["rounds"], sorted_prep["bufs"], sorted_prep["text_pos"], g_mark,
+                g_mark_pos]
+        d_text, d_rounds, d_bufs, d_tpos, d_mark, d_mpos = (per_replica(a) for a in sent)
+        sent.append(group_idx)
         ranks = self._ranks_device()
         multi = self._multi_device()
         n = len(self.replica_ids)
@@ -1640,9 +1675,9 @@ class TorchUniverse:
 
         merge_window = None
         if wplan is not None:
-            d_wstart, d_whull, d_wvb, d_wva = (
-                torch.from_numpy(wplan[k]).to(self.device) for k in ("starts", "hulls", "vis_base", "vis_after")
-            )
+            window = [wplan[k] for k in ("starts", "hulls", "vis_base", "vis_after")]
+            d_wstart, d_whull, d_wvb, d_wva = (torch.from_numpy(a).to(self.device) for a in window)
+            sent += window
 
             def merge_window(rb):
                 return SP.merge_step_sorted_patched_windowed_batch(
@@ -1662,6 +1697,7 @@ class TorchUniverse:
         # The full-table launches are the only replica slicing: each chunk
         # keeps the merge's transients under the memory bound.
         chunk = self._patch_chunk(n, SP.patched_replica_step(self.states, d_text, d_mark, multi, maxk))
+        h2d = sum(a.nbytes for a in sent)  # host bytes copied: per group, not per replica
         return self._launch_patched(
             prep, host_patches_for, with_positions, "delta", h2d, chunk, merge_chunk, assemble_one,
             merge_window, wplan,

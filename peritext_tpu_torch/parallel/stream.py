@@ -394,8 +394,9 @@ def stream_merge_sorted(
     def run_slot(slot: _Slot, lo: int, hi: int, timing: Dict[str, Any]) -> None:
         ev = slot.ev
         if ev is not None:
-            for d in devices:
-                ev[d]["h2d1"].synchronize()  # the slot's previous H2D has read its staging
+            with telemetry.span("stream.wait", on="h2d"):
+                for d in devices:
+                    ev[d]["h2d1"].synchronize()  # the slot's previous H2D has read its staging
         t0 = time.perf_counter()
         for name, src in sources.items():
             for i in range(groups):
@@ -494,8 +495,9 @@ def stream_merge_sorted(
             try:
                 faults.fire("device_readback")
                 if slot.ev is not None:
-                    for d in devices:
-                        slot.ev[d]["d2h1"].synchronize()
+                    with telemetry.span("stream.wait", on="d2h"):
+                        for d in devices:
+                            slot.ev[d]["d2h1"].synchronize()
                     ev = slot.ev[first]
                     timing["h2d_ms"] = ev["h2d0"].elapsed_time(ev["h2d1"])
                     timing["merge_ms"] = ev["merge0"].elapsed_time(ev["merge1"])

@@ -1050,6 +1050,23 @@ def test_stream_whose_kernel_launch_fails_raises_and_leaves_no_lane_open(card, m
     assert proc.returncode == 0 and "problems=0" in proc.stdout, proc.stdout + proc.stderr
 
 
+def test_stream_records_its_host_waits_on_the_card(card):
+    """Each cohort's host waits (the slot's previous H2D before staging,
+    the D2H before the drain reads) are ``stream.wait`` spans."""
+    from peritext_tpu_torch.parallel import stream_merge_sorted
+    from peritext_tpu_torch.runtime import telemetry
+
+    args = _stream_population(40, 512, 64, seed=13)
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        _, _, stats = stream_merge_sorted(*args, cohort=16, depth=2, readback_states=False, device=card)
+        waits = telemetry.snapshot()["histograms"]["span.stream.wait.seconds"]
+    finally:
+        telemetry.reset()
+    assert stats["n_cohorts"] == 3 and waits["count"] >= 3
+
+
 def _append_with_nonzero(states, mark_ops):
     """The mark-table append as it was before it became sync-free
     (``nonzero`` picks the rows), kept as the reference."""

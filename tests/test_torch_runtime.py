@@ -17,7 +17,7 @@ import peritext_tpu.runtime.queue as jqueue
 import peritext_tpu.runtime.slo as jslo
 import peritext_tpu.runtime.telemetry as jtelemetry
 from peritext_tpu.testing import generate_docs
-from peritext_tpu_torch import TorchUniverse
+from peritext_tpu_torch import TorchUniverse, state_to_numpy
 from peritext_tpu_torch.runtime import faults, health, log, queue, slo, telemetry
 
 PAIRS = {
@@ -356,8 +356,9 @@ def test_telemetry_env_activation_matches(monkeypatch, tmp_path):
 
 
 def test_disabled_telemetry_is_one_attribute_check_and_changes_nothing():
-    """Off: sites allocate nothing (the null span is shared, no counter
-    registers), and a telemetry-on ingest is byte-identical to an off one."""
+    """Off: sites allocate nothing (the null span is shared, no counter or
+    span histogram registers), and a telemetry-on ingest, with and without
+    patches, is byte-identical to an off one."""
     assert not telemetry.enabled
     assert telemetry.span("a") is telemetry.span("b")
     telemetry.counter("x")
@@ -374,10 +375,18 @@ def test_disabled_telemetry_is_one_attribute_check_and_changes_nothing():
         if on:
             telemetry.enable()
         uni = TorchUniverse(["doc1", "doc2"], device="cpu")
+        plain = TorchUniverse(["doc1", "doc2"], device="cpu")
+        plain.apply_changes({"doc1": [genesis, c], "doc2": [genesis]})
         outs.append((uni.apply_changes_with_patches({"doc1": [genesis, c], "doc2": [genesis]}),
-                     uni.spans_batch(), uni.digests().tolist()))
+                     uni.spans_batch(), uni.digests().tolist(), plain.spans_batch(), plain.digests().tolist(),
+                     {f: a.tobytes() for f, a in state_to_numpy(plain.states).items()}))
+        if not on:
+            assert telemetry.snapshot()["histograms"] == {}
     assert outs[0] == outs[1]
-    assert telemetry.snapshot()["counters"]["ingest.launches"] == 1
+    snap = telemetry.snapshot()
+    assert snap["counters"]["ingest.launches"] == 2
+    assert all(f"span.ingest.{p}.seconds" in snap["histograms"]
+               for p in ("group", "encode", "plan", "upload", "commit"))
 
 
 # ---------------------------------------------------------------------------
