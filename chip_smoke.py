@@ -279,6 +279,7 @@ import torch.distributed as dist
 from peritext_tpu_torch import TorchDoc, TorchUniverse, replay, state_to_numpy
 from peritext_tpu_torch.bench.bounds import (
     bound,
+    convergence_digest_bytes,
     mark_tail_bytes,
     merge_step_full_bytes,
     merge_step_stage_bytes,
@@ -455,6 +456,41 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+MERGE_KERNELS = ("text_phase", "mark_phase")
+
+
+def merge_launches() -> dict:
+    """The merge kernels' launch counts (``LAUNCHES`` also counts the
+    digest kernel's)."""
+    return {name: cuda_kernels.LAUNCHES[name] for name in MERGE_KERNELS}
+
+
+def measure_digest(label: str, st, ranks, runs: int) -> dict:
+    """Hold the digest kernel, one launch a call, byte-equal to its plain
+    version on the states ``st``; time it and bound it."""
+    multi = torch.from_numpy(allow_multiple_array()).to(DEVICE)
+    before = cuda_kernels.LAUNCHES["digest"]
+    got = cuda_kernels.convergence_digest(st, ranks, multi)
+    if cuda_kernels.LAUNCHES["digest"] != before + 1:
+        raise AssertionError(f"[{label}] convergence_digest did not launch the digest kernel once")
+    want = K.convergence_digest(st, ranks, multi)
+    torch.cuda.synchronize()
+    err = max_abs_err([got], [want])
+    if err != 0:
+        raise AssertionError(f"[{label}] the digest kernel differs from its plain version: max abs err {err}")
+    d_bound, d_by = bound(convergence_digest_bytes(st, ranks, multi), 0)
+    r = {
+        "err": err,
+        "ms": call_ms(lambda: cuda_kernels.convergence_digest(st, ranks, multi), runs),
+        "device_ms": device_ms(lambda: cuda_kernels.convergence_digest(st, ranks, multi), runs),
+        "plain_ms": call_ms(lambda: K.convergence_digest(st, ranks, multi), max(2, runs // 4)),
+        "bound_ms": d_bound,
+        "bound_by": d_by,
+    }
+    report(label, "digest", r)
+    return r
+
+
 def measure_text(label: str, text_in, capacity: int, runs: int) -> dict:
     """Hold the text kernel byte-equal to its plain version, time it and
     bound it."""
@@ -573,7 +609,7 @@ def phase_kernels(label: str, b: dict, capacity: int, runs: int, profile: bool =
     merge_in = (st, text_ops, mark_ops, ranks, char_buf)
     before = dict(cuda_kernels.LAUNCHES)
     full = cuda_kernels.merge_step_full(*merge_in)
-    if {k: n - before[k] for k, n in cuda_kernels.LAUNCHES.items()} != {"text_phase": 1, "mark_phase": 1}:
+    if {k: n - before[k] for k, n in cuda_kernels.LAUNCHES.items()} != {"text_phase": 1, "mark_phase": 1, "digest": 0}:
         raise AssertionError(f"[{label}] merge_step_full did not launch each kernel once")
     plain = K.merge_step_plain(*merge_in)
     torch.cuda.synchronize()
@@ -614,6 +650,7 @@ def phase_kernels(label: str, b: dict, capacity: int, runs: int, profile: bool =
         f"byte-equal to merge_step_full and merge_step_plain on all {len(FIELDS)} fields; "
         f"{step_ms:.4f} ms per call; 0 launches on the main path")
     insert_heavy(label, b, capacity, runs)
+    results["digest"] = measure_digest(f"{label} merged", full, ranks, runs)
     return results
 
 
@@ -655,9 +692,9 @@ def phase_large_shape(replicas: int, runs: int) -> dict:
     return results, {"wl": wl, "capacity": LARGE_CAPACITY, "max_marks": 128}
 
 
-def measure_merge(label: str, b: dict, capacity: int, runs: int) -> None:
+def measure_merge(label: str, b: dict, capacity: int, runs: int):
     """``merge_step_full`` byte-equal to ``merge_step_plain`` on every
-    field, timed per call beside its bound."""
+    field, timed per call beside its bound; returns the merged states."""
     st, text_ops, mark_ops = b["states"], b["text_ops"], b["mark_ops"]
     merge_in = (st, text_ops, mark_ops, b["ranks"], b["char_buf"])
     full = cuda_kernels.merge_step_full(*merge_in)
@@ -666,13 +703,14 @@ def measure_merge(label: str, b: dict, capacity: int, runs: int) -> None:
     err = max_abs_err([getattr(full, f) for f in FIELDS], [getattr(plain, f) for f in FIELDS])
     if err != 0:
         raise AssertionError(f"[{label}] merge_step_full differs from merge_step_plain: max abs err {err}")
-    del full, plain
+    del plain
     live = int((text_ops[:, :, K.K_KIND] != K.KIND_PAD).sum().item())
     live_marks = int((mark_ops[:, :, K.K_KIND] == K.KIND_MARK).sum().item())
     full_bound, full_by = bound(merge_step_full_bytes(*merge_in), (4 * live + 8 * live_marks) * capacity)
     full_ms = call_ms(lambda: cuda_kernels.merge_step_full(*merge_in), runs)
     log(f"  [{label}] merge_step_full: byte-equal to merge_step_plain on all {len(FIELDS)} fields; "
         f"{full_ms:.4f} ms per call, bound {full_bound:.4f} ms ({full_by}), {full_bound / full_ms:.0%} of it")
+    return full
 
 
 def measure_cluster(label: str, b: dict, capacity: int, runs: int, merge: bool = False) -> dict:
@@ -705,7 +743,8 @@ def measure_cluster(label: str, b: dict, capacity: int, runs: int, merge: bool =
         log(f"  [{label}] {name}: {cuda_kernels.CLUSTER_LAUNCHES[name] - before[name]} cluster launches; "
             f"active clusters (cudaOccupancyMaxActiveClusters, blocks and shared bytes): {active}")
     if merge:
-        measure_merge(label, b, capacity, runs)
+        full = measure_merge(label, b, capacity, runs)
+        measure_digest(f"{label} merged", full, b["ranks"], runs)
     return out
 
 
@@ -803,7 +842,7 @@ def phase_main_path(label: str, replicas: int, doc_len: int, writers: int, round
     with env(**({} if scan else SORTED)):
         uni = TorchUniverse(names, capacity=capacity, max_mark_ops=max_marks, device=DEVICE)
         times, host = drive(uni, batches)
-    launches = dict(cuda_kernels.LAUNCHES)
+    launches = merge_launches()
     merges = uni.stats["launches"]
     want = merges if scan else uni.stats["scan_fallbacks"]
     if merges <= 0 or any(n != want for n in launches.values()) or any(PLAIN_CALLS.values()):
@@ -866,8 +905,8 @@ def count_plain_calls() -> None:
 def no_kernel_or_plain_calls(label: str) -> None:
     """The patch path and TorchDoc run neither merge kernel nor either
     kernel's plain version: the counts must still be 0."""
-    if any(cuda_kernels.LAUNCHES.values()) or any(PLAIN_CALLS.values()):
-        raise AssertionError(f"[{label}] launches {cuda_kernels.LAUNCHES}, plain calls {PLAIN_CALLS}")
+    if any(merge_launches().values()) or any(PLAIN_CALLS.values()):
+        raise AssertionError(f"[{label}] launches {merge_launches()}, plain calls {PLAIN_CALLS}")
 
 
 def reset_counts() -> None:
@@ -909,8 +948,8 @@ def load_universe(names, wl, rounds, writers, capacity, max_marks) -> TorchUnive
     for rnd in wl["rounds"][:rounds]:
         uni.apply_changes([rnd[r % writers] for r in range(len(names))])
     merges = uni.stats["launches"]
-    if any(n != merges for n in cuda_kernels.LAUNCHES.values()):
-        raise AssertionError(f"launch counts {cuda_kernels.LAUNCHES} != merges {merges}")
+    if any(n != merges for n in merge_launches().values()):
+        raise AssertionError(f"launch counts {merge_launches()} != merges {merges}")
     return uni
 
 
@@ -1162,7 +1201,7 @@ def phase_window(replicas: int, full_replicas: int, samples: int) -> dict:
     with env(**SORTED):
         uni = TorchUniverse(names, capacity=LARGE_CAPACITY, max_mark_ops=128, device=DEVICE)
         times, host = drive(uni, batches)
-    launches = dict(cuda_kernels.LAUNCHES)
+    launches = merge_launches()
     if any(n != uni.stats["scan_fallbacks"] for n in launches.values()) or any(PLAIN_CALLS.values()):
         raise AssertionError(f"[{label}] launch counts {launches} (plain calls {PLAIN_CALLS}) != "
                              f"scan fallbacks {uni.stats['scan_fallbacks']}")
@@ -1192,7 +1231,7 @@ def phase_window(replicas: int, full_replicas: int, samples: int) -> dict:
     reset_counts()
     scan = TorchUniverse(names, capacity=LARGE_CAPACITY, max_mark_ops=128, device=DEVICE)
     scan_times, scan_host = drive(scan, batches)
-    scan_launches = dict(cuda_kernels.LAUNCHES)
+    scan_launches = merge_launches()
     if any(n != scan.stats["launches"] for n in scan_launches.values()) or any(PLAIN_CALLS.values()):
         raise AssertionError(f"[{label}] default-route launch counts {scan_launches} (plain calls "
                              f"{PLAIN_CALLS}) != merges {scan.stats['launches']}")
@@ -1282,7 +1321,8 @@ def add_launches(acc: dict) -> None:
     reset."""
     for name, n in cuda_kernels.LAUNCHES.items():
         acc[name] = acc.get(name, 0) + n
-        acc[f"{name}_cluster"] = acc.get(f"{name}_cluster", 0) + cuda_kernels.CLUSTER_LAUNCHES[name]
+    for name, n in cuda_kernels.CLUSTER_LAUNCHES.items():
+        acc[f"{name}_cluster"] = acc.get(f"{name}_cluster", 0) + n
     reset_counts()
 
 
@@ -1312,8 +1352,8 @@ def phase_serving(replicas: int, threaded: int, samples: int) -> dict:
     reset_counts()
     uni = TorchUniverse(names, capacity=2048, max_mark_ops=1024, device=DEVICE)
     uni.apply_changes([[wl["genesis"]]] * replicas)
-    if any(n != uni.stats["launches"] for n in cuda_kernels.LAUNCHES.values()):
-        raise AssertionError(f"[{label}] genesis launches {cuda_kernels.LAUNCHES} != merges")
+    if any(n != uni.stats["launches"] for n in merge_launches().values()):
+        raise AssertionError(f"[{label}] genesis launches {merge_launches()} != merges")
     add_launches(launches)
 
     manual = serve_manual_leg(label, uni, names, wl, per_round)
@@ -1426,8 +1466,8 @@ def phase_resilience(serve_run: dict, samples: int) -> dict:
         retry_ms = 1e3 * (time.perf_counter() - t)
     if plan.stats["device_launch"]["failed"] != 1 or plan.stats["device_launch"]["fired"] != 2:
         raise AssertionError(f"[{label}a] fault stats {plan.stats}")
-    if any(n != 1 for n in cuda_kernels.LAUNCHES.values()):
-        raise AssertionError(f"[{label}a] launches {cuda_kernels.LAUNCHES} != 1 (one merge after the retry)")
+    if any(n != 1 for n in merge_launches().values()):
+        raise AssertionError(f"[{label}a] launches {merge_launches()} != 1 (one merge after the retry)")
     add_launches(launches)
     # A device_readback fault after the merge ran (strict barrier): the
     # merge runs twice from the same committed states.
@@ -1437,8 +1477,8 @@ def phase_resilience(serve_run: dict, samples: int) -> dict:
         uni.apply_changes(rounds[1])
         torch.cuda.synchronize()
         readback_ms = 1e3 * (time.perf_counter() - t)
-    if any(n != 2 for n in cuda_kernels.LAUNCHES.values()):
-        raise AssertionError(f"[{label}a] launches {cuda_kernels.LAUNCHES} != 2 (one merge per attempt)")
+    if any(n != 2 for n in merge_launches().values()):
+        raise AssertionError(f"[{label}a] launches {merge_launches()} != 2 (one merge per attempt)")
     add_launches(launches)
     same_fields(f"{label}a", uni.states, twin.states)
     log(f"{label}a: R={REPLICAS}: a device_launch fault on round 1 retried once ({retry_ms:.4f} ms, each "
@@ -1554,7 +1594,7 @@ def phase_resilience(serve_run: dict, samples: int) -> dict:
         resumed = ckpt.resume_universe(path, changelog)
         torch.cuda.synchronize()
         resume_ms = 1e3 * (time.perf_counter() - t)
-    resume_launches = dict(cuda_kernels.LAUNCHES)
+    resume_launches = merge_launches()
     if resumed.stats["launches"] != 1 or any(n != 1 for n in resume_launches.values()):
         raise AssertionError(f"[{label}d] resume launches {resume_launches}, merges {resumed.stats['launches']}")
     add_launches(launches)
@@ -1834,10 +1874,10 @@ def phase_capacity(replicas: int, samples: int) -> dict:
         reset_counts()
         uni = TorchUniverse(names, capacity=LARGE_CAPACITY, max_mark_ops=256, device=DEVICE)
         uni.apply_changes([[hist["genesis"]]] * replicas)
-        if uni.capacity != LARGE_CAPACITY or cuda_kernels.LAUNCHES != {"text_phase": 1, "mark_phase": 1} \
+        if uni.capacity != LARGE_CAPACITY or merge_launches() != {"text_phase": 1, "mark_phase": 1} \
                 or any(cuda_kernels.CLUSTER_LAUNCHES.values()):
             raise AssertionError(f"[{label} {leg}] the genesis did not merge through the one-block kernels: "
-                                 f"{cuda_kernels.LAUNCHES}, cluster {cuda_kernels.CLUSTER_LAUNCHES}")
+                                 f"{merge_launches()}, cluster {cuda_kernels.CLUSTER_LAUNCHES}")
         add_launches(launches)
         times = []
         for batch in batches:
@@ -1852,10 +1892,10 @@ def phase_capacity(replicas: int, samples: int) -> dict:
     uni, times = grow("cluster kernels")
     n = len(batches)
     want = {"text_phase": n, "mark_phase": n}
-    if (uni.stats["capacity_routes"] != 0 or cuda_kernels.LAUNCHES != want
+    if (uni.stats["capacity_routes"] != 0 or merge_launches() != want
             or cuda_kernels.CLUSTER_LAUNCHES != want or any(PLAIN_CALLS.values())):
         raise AssertionError(f"[{label}] capacity_routes {uni.stats['capacity_routes']}, launches "
-                             f"{cuda_kernels.LAUNCHES}, cluster launches {cuda_kernels.CLUSTER_LAUNCHES}, plain "
+                             f"{merge_launches()}, cluster launches {cuda_kernels.CLUSTER_LAUNCHES}, plain "
                              f"calls {PLAIN_CALLS}: expected every merge past C = 16384 on the cluster kernels")
     cluster = dict(cuda_kernels.CLUSTER_LAUNCHES)
     add_launches(launches)
@@ -1873,10 +1913,10 @@ def phase_capacity(replicas: int, samples: int) -> dict:
         routed, route_times = grow("capacity route")
     finally:
         port_universe.kernel_capacity_limit = real_limit
-    if (routed.stats["capacity_routes"] != n or any(cuda_kernels.LAUNCHES.values())
+    if (routed.stats["capacity_routes"] != n or any(merge_launches().values())
             or any(PLAIN_CALLS.values())):
         raise AssertionError(f"[{label}] under a limit of {LARGE_CAPACITY}: capacity_routes "
-                             f"{routed.stats['capacity_routes']} != {n}, or launches {cuda_kernels.LAUNCHES} / "
+                             f"{routed.stats['capacity_routes']} != {n}, or launches {merge_launches()} / "
                              f"plain calls {PLAIN_CALLS} moved")
     same_fields(f"{label} capacity route", routed.states, uni.states)
     log(f"  R={replicas}: C {LARGE_CAPACITY} -> {uni.capacity} (kernel limit "
@@ -2302,7 +2342,9 @@ def stream_sweep(label: str, args: tuple, launches: dict, **kw) -> tuple:
         stream_merge_sorted(*args, device=DEVICE, **kw)
     secs = time.perf_counter() - t
     groups = 1 if mesh is None else mesh.shape["replica"]
-    want = {"text_phase": stats["n_cohorts"] * groups, "mark_phase": stats["n_cohorts"] * groups}
+    per_kernel = stats["n_cohorts"] * groups
+    want = {"text_phase": per_kernel, "mark_phase": per_kernel,
+            "digest": per_kernel if kw.get("compute_digest", True) else 0}
     if stats["route"] != "kernels" or cuda_kernels.LAUNCHES != want:
         raise AssertionError(f"[{label}] route {stats['route']}, launches {cuda_kernels.LAUNCHES}, expected {want}")
     add_launches(launches)
@@ -2715,8 +2757,8 @@ def phase_codec(p4: dict, p17: dict) -> dict:
         uni = TorchUniverse(names, capacity=2048, max_mark_ops=1024, device=DEVICE)
         drive(uni, leg)
         merges = uni.stats["launches"]
-        if merges <= 0 or any(n != merges for n in cuda_kernels.LAUNCHES.values()) or any(PLAIN_CALLS.values()):
-            raise AssertionError(f"[{label}] launch counts {cuda_kernels.LAUNCHES} (plain calls {PLAIN_CALLS}) "
+        if merges <= 0 or any(n != merges for n in merge_launches().values()) or any(PLAIN_CALLS.values()):
+            raise AssertionError(f"[{label}] launch counts {merge_launches()} (plain calls {PLAIN_CALLS}) "
                                  f"!= merges {merges}")
         add_launches(launches)
         unis.append(uni)
@@ -2735,8 +2777,8 @@ def splice_leg(mode: str, names, batches, capacity: int, max_marks: int, route: 
     with splice(mode), env(**route):
         uni = TorchUniverse(names, capacity=capacity, max_mark_ops=max_marks, device=DEVICE)
         times, _ = drive(uni, batches)
-    if any(n != uni.stats["scan_fallbacks"] for n in cuda_kernels.LAUNCHES.values()) or any(PLAIN_CALLS.values()):
-        raise AssertionError(f"[{mode}] launch counts {cuda_kernels.LAUNCHES} (plain calls {PLAIN_CALLS}) != "
+    if any(n != uni.stats["scan_fallbacks"] for n in merge_launches().values()) or any(PLAIN_CALLS.values()):
+        raise AssertionError(f"[{mode}] launch counts {merge_launches()} (plain calls {PLAIN_CALLS}) != "
                              f"scan fallbacks {uni.stats['scan_fallbacks']}")
     return uni, times
 
@@ -2874,12 +2916,12 @@ def same_on_card(label: str, got, want) -> None:
 
 def counted(label: str, acc: dict, want: dict, fn):
     """``fn()`` with the kernels' counts set to 0 before it and read after:
-    they must equal ``want``, no plain version may run, and the launches
-    join ``acc``."""
+    those of the kernels ``want`` names must equal it, no plain version may
+    run, and the launches join ``acc``."""
     reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    got = dict(cuda_kernels.LAUNCHES)
+    got = {name: cuda_kernels.LAUNCHES[name] for name in want}
     if got != want or any(PLAIN_CALLS.values()):
         raise AssertionError(f"[{label}] launches {got} (plain calls {PLAIN_CALLS}), expected {want}")
     add_launches(acc)
@@ -2903,7 +2945,8 @@ def mesh_apply_leg(label: str, b: dict, runs: int, card: str, acc: dict) -> None
         mesh = logical_mesh(shape)
         sharded = shard_states(st, mesh)
         step = sharded_apply(mesh)
-        out, digests, total = counted(f"{label} {shape}", acc, {"text_phase": shape[0], "mark_phase": shape[0]},
+        out, digests, total = counted(f"{label} {shape}", acc,
+                                      {"text_phase": shape[0], "mark_phase": shape[0], "digest": shape[0]},
                                       lambda: step(sharded, text, marks, ranks, multi, bufs))
         got = gather_states(out)
         err = max_abs_err([getattr(got, f) for f in FIELDS], [getattr(ref, f) for f in FIELDS])
@@ -3114,7 +3157,7 @@ def multihost_leg(label: str, p2: dict, card: str, acc: dict) -> None:
         sharded = assemble_global_states(local, st, mesh)
         step = sharded_apply(mesh)
         args = (text[sl], marks[sl], ranks, multi, bufs[sl])
-        out, digests, total = counted(label, acc, {"text_phase": 1, "mark_phase": 1},
+        out, digests, total = counted(label, acc, {"text_phase": 1, "mark_phase": 1, "digest": 1},
                                       lambda: step(sharded, *args))
         same_on_card(label, gather_states(out), ref)
         if not torch.equal(digests.full(), ref_digests) or int(total) != want_total:
@@ -3408,6 +3451,7 @@ def main() -> int:
     replaces = {
         "text_phase": "peritext_tpu/ops/pallas_kernels.py:152",
         "mark_phase": "peritext_tpu/ops/pallas_kernels.py:331 (and merge_step_pallas_full's tail, :619-636)",
+        "digest": "none: the JAX package computes the digest in XLA (peritext_tpu/ops/kernels.py convergence_digest)",
     }
     # Each kernel's two forms, one block and a cluster, from one source;
     # the cluster form's numbers are phase 3b's at C = 32768.

@@ -85,3 +85,24 @@ def merge_step_stage_bytes(st, text_ops, mark_ops, ranks, char_buf=None) -> int:
     text = text_phase_bytes(st.elem_ctr, st.elem_act, st.deleted, st.chars, st.length, text_ops, ranks,
                             char_buf)
     return text + mark_tail_bytes(st, st.elem_ctr, st.elem_act, st.elem_ctr, st.length, mark_ops)
+
+
+def convergence_digest_bytes(st, ranks, multi) -> int:
+    """Bytes the digest must read on this input, and its output: of each
+    replica the tombstone and both definedness flags of every element below
+    ``length`` and the chars of the live ones; per source slot (an element
+    below ``length`` whose "before" slot, or whose left neighbour's "after"
+    slot, is defined) the mask words that hold a live column; the live
+    table columns (5 x 4 B each), ``length`` and ``mark_count``; the ranks
+    and allowMultiple flags; 8 B of digest a replica out."""
+    r, c = st.chars.shape
+    ar = torch.arange(c, device=st.chars.device)[None, :]
+    below = ar < st.length.clamp(0, c)[:, None]
+    live = below & ~st.deleted
+    after = st.bnd_def[:, 1::2]
+    prev_after = torch.roll(after, 1, dims=1) & (ar > 0)
+    sources = ((st.bnd_def[:, 0::2] | prev_after) & below).sum(dim=1)
+    cols = st.mark_count.clamp(0, st.max_mark_ops).long()
+    words = (cols + K.MASK_WORD_BITS - 1) // K.MASK_WORD_BITS
+    per_replica = 3 * below.sum(dim=1) + 4 * live.sum(dim=1) + 4 * words * sources + 20 * cols
+    return int(per_replica.sum().item()) + nbytes(st.length, st.mark_count, ranks, multi) + 8 * r

@@ -15,13 +15,15 @@ one JSON line: each kernel's ``call_ms`` (events around one wrapper call,
 ``chip_smoke.py``'s ``ms``) and ``device_ms`` (the kernel alone, cold L2),
 the mark kernel alone on the permuted planes and, where the checkout has
 it, as the merge's tail (``mark_tail`` on the planes before the permute),
-``merge_step_full``'s ``call_ms``, and ``convergence_digest``'s ``call_ms``
-with a hash of its digests (equal on both sides when the two digests
-agree) on the merged states and on 1024 random short documents (C = 256)
-under a full mark table (M = 1024), written once by this checkout.  Both
+``merge_step_full``'s ``call_ms``, and the digest's ``call_ms`` with a hash
+of its digests (equal on both sides when the two digests agree) on the
+merged states and on 1024 random short documents (C = 256) under a full
+mark table (M = 1024), written once by this checkout.  The digest is
+``cuda_kernels.convergence_digest`` (the digest kernel), or on a checkout
+from before that kernel the plain ``kernels.convergence_digest``.  Both
 sides are timed by this checkout's ``timing.py``, so they share one
 yardstick.  The workers call ``text_phase``, ``mark_phase``,
-``merge_step_full``, ``convergence_digest``, ``state_from_numpy``,
+``merge_step_full``, a ``convergence_digest``, ``state_from_numpy``,
 ``allow_multiple_array`` and ``build_device_batch`` as the port has had
 them since its first slices: a checkout with other signatures needs this
 script changed.  Needs one CUDA device.
@@ -85,12 +87,12 @@ def _full_table_state(rng, replicas=1024, capacity=256, marks=1024, actors=4) ->
     }
 
 
-def _digest_entry(K, states, ranks, multi, timing) -> dict:
+def _digest_entry(digest_fn, states, ranks, multi, timing) -> dict:
     import hashlib
 
-    digest = K.convergence_digest(states, ranks, multi)
+    digest = digest_fn(states, ranks, multi)
     return {
-        "call_ms": timing.call_ms(lambda: K.convergence_digest(states, ranks, multi), 20),
+        "call_ms": timing.call_ms(lambda: digest_fn(states, ranks, multi), 20),
         "mark_count_max": int(states.mark_count.max().item()),
         "sha256": hashlib.sha256(digest.cpu().numpy().astype("uint32").tobytes()).hexdigest()[:16],
     }
@@ -144,10 +146,12 @@ def worker(label: str) -> None:
     }
     multi = torch.from_numpy(allow_multiple_array()).to("cuda")
     merged = cuda_kernels.merge_step_full(*merge_in)
-    out["convergence_digest"] = _digest_entry(K, merged, b["ranks"], multi, timing)
+    # A checkout from before the digest kernel has only the plain digest.
+    digest_fn = getattr(cuda_kernels, "convergence_digest", K.convergence_digest)
+    out["convergence_digest"] = _digest_entry(digest_fn, merged, b["ranks"], multi, timing)
     full = state_from_numpy(dict(np.load(FULL_TABLE)), device="cuda")
     ranks = torch.arange(4, dtype=torch.int32, device="cuda")
-    out["convergence_digest_full_table"] = _digest_entry(K, full, ranks, multi, timing)
+    out["convergence_digest_full_table"] = _digest_entry(digest_fn, full, ranks, multi, timing)
     print(json.dumps(out), flush=True)
 
 

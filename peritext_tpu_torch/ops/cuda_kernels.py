@@ -1,6 +1,7 @@
-"""The merge's two hand-written CUDA kernels and their wrappers.
+"""The port's three hand-written CUDA kernels and their wrappers.
 
-Counterpart of ``peritext_tpu/ops/pallas_kernels.py``:
+The merge's two kernels are the counterparts of
+``peritext_tpu/ops/pallas_kernels.py``:
 
 - ``text_phase`` runs ``csrc/text_phase.cu`` (replaces ``_text_kernel``);
 - ``mark_phase`` runs ``csrc/mark_phase.cu`` (replaces ``_mark_kernel``);
@@ -15,12 +16,16 @@ Counterpart of ``peritext_tpu/ops/pallas_kernels.py``:
   scan in plain torch -> mark-table append (``merge_step_pallas``, the
   latency composite whose mark phase JAX runs in XLA).
 
+``convergence_digest`` runs ``csrc/digest.cu``, which has no Pallas
+counterpart (JAX computes the digest in XLA): one launch a call, one block
+a replica, at any capacity.
+
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain PyTorch version from ``kernels.py``, which the
 kernels are held byte-for-byte against.  Nothing falls back from the card
 to the plain version.  ``LAUNCHES`` counts the kernel launches of each
 kernel (only launches on the card count; ``mark_tail``'s under
-``mark_phase``).  Both kernels hold C <= 16384
+``mark_phase``).  Both merge kernels hold C <= 16384
 (a 10k-character document) in one block's shared memory; past that a
 replica runs on a thread-block cluster of 2, 4 or 8 blocks, each holding
 an equal slice (``cluster_size``), up to C = 131072.  A cluster launch
@@ -52,7 +57,7 @@ _SCRATCH_INTS = 64
 # A cluster's block: two areas of cluster-min slots, [MAX_CLUSTER][2] ints.
 _CLUSTER_SLOT_INTS = 2 * 2 * MAX_CLUSTER
 
-LAUNCHES: Dict[str, int] = {"text_phase": 0, "mark_phase": 0}
+LAUNCHES: Dict[str, int] = {"text_phase": 0, "mark_phase": 0, "digest": 0}
 # The launches of LAUNCHES that ran a kernel's cluster form.
 CLUSTER_LAUNCHES: Dict[str, int] = {"text_phase": 0, "mark_phase": 0}
 # cudaOccupancyMaxActiveClusters of each cluster shape launched so far, by
@@ -63,9 +68,9 @@ _LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-        CLUSTER_LAUNCHES[name] = 0
+    for counts in (LAUNCHES, CLUSTER_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _text_tile_rows(capacity: int) -> int:
@@ -164,6 +169,7 @@ _ARGTYPES = {
     "pt_mark_tail": [_P] * 7 + [_I] + [_P] * 14 + [_I] * 5 + [_P],
     "pt_text_phase_max_clusters": [_I, _I, _P],
     "pt_mark_phase_max_clusters": [_I, _I, _I, _P],
+    "pt_digest": [_P] * 12 + [_I, _P, _I, _P] + [_I] * 4 + [_P],
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -180,17 +186,20 @@ def _fn(kernel: str, symbol: str) -> ctypes._CFuncPtr:
     return fn
 
 
-def _launch(kernel: str, symbol: str, device: torch.device, blocks: int, *args) -> None:
+def _launch(kernel: str, symbol: str, device: torch.device, blocks: Optional[int], *args) -> None:
     """Call a kernel library's C entry point on ``device``'s current stream
     with ``device`` made current, so a launch never depends on the calling
     thread's current device (a shard's universe may sit on another card),
-    and count it (``blocks`` > 1: a cluster launch)."""
+    and count it.  ``blocks`` (the blocks a replica spans; > 1 a cluster
+    launch) goes to the entry point before the stream; None for a kernel
+    without a cluster form."""
+    extra = () if blocks is None else (blocks,)
     with torch.cuda.device(device):
-        err = _fn(kernel, symbol)(*args, blocks, torch.cuda.current_stream(device).cuda_stream)
+        err = _fn(kernel, symbol)(*args, *extra, torch.cuda.current_stream(device).cuda_stream)
     _raise_on_error(kernel, err)
     with _LAUNCHES_LOCK:
         LAUNCHES[kernel] += 1
-        if blocks > 1:
+        if blocks is not None and blocks > 1:
             CLUSTER_LAUNCHES[kernel] += 1
 
 
@@ -433,3 +442,42 @@ def merge_step(
         bnd_def=bnd_def, bnd_mask=bnd_mask,
     )
     return K.append_mark_table(out, mark_ops)
+
+
+def convergence_digest(
+    states: DocState,
+    ranks: torch.Tensor,  # [A] int32
+    multi: torch.Tensor,  # [T] bool, allowMultiple by mark type
+) -> torch.Tensor:
+    """Each replica's convergence digest, uint32 values in an int64 tensor
+    [R] (see ``kernels.convergence_digest``).  On the card one launch of the
+    digest kernel, with no host wait; its shared memory grows with the
+    table alone, and ``pt_digest`` refuses a table past one block's."""
+    table = [getattr(states, name) for name, _ in K._TABLE_FIELDS]
+    if _on_cpu(states.chars, states.deleted, states.bnd_def, states.bnd_mask, states.length,
+               states.mark_count, *table, ranks, multi):
+        return K.convergence_digest(states, ranks, multi)
+    r, c = states.chars.shape
+    m = states.max_mark_ops
+    words = states.bnd_mask.shape[-1]
+    _check("chars", states.chars, torch.int32, (r, c))
+    _check("deleted", states.deleted, torch.bool, (r, c))
+    _check("bnd_def", states.bnd_def, torch.bool, (r, 2 * c))
+    _check("bnd_mask", states.bnd_mask, torch.int32, (r, 2 * c, m // K.MASK_WORD_BITS))
+    _check("length", states.length, torch.int32, (r,))
+    _check("mark_count", states.mark_count, torch.int32, (r,))
+    for (name, _), col in zip(K._TABLE_FIELDS, table):
+        _check(name, col, torch.int32, (r, m))
+    for name, t, dtype in (("ranks", ranks, torch.int32), ("multi", multi, torch.bool)):
+        if t.dim() != 1 or t.shape[0] < 1:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected [N] with N >= 1")
+        _check(name, t, dtype, (t.shape[0],))
+    out = torch.empty(r, dtype=torch.int64, device=states.chars.device)
+    _launch(
+        "digest", "pt_digest", states.chars.device, None,
+        states.chars.data_ptr(), states.deleted.data_ptr(), states.bnd_def.data_ptr(),
+        states.bnd_mask.data_ptr(), states.length.data_ptr(), states.mark_count.data_ptr(),
+        *(col.data_ptr() for col in table), ranks.data_ptr(), ranks.shape[0], multi.data_ptr(),
+        multi.shape[0], out.data_ptr(), r, c, words, m,
+    )
+    return out

@@ -76,7 +76,7 @@ from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops import window as W
 from peritext_tpu_torch.ops._build import KernelBuildError
 from peritext_tpu_torch.ops import sorted_patched as SP
-from peritext_tpu_torch.ops.cuda_kernels import kernel_capacity_limit, merge_step_full
+from peritext_tpu_torch.ops.cuda_kernels import convergence_digest, kernel_capacity_limit, merge_step_full
 from peritext_tpu_torch.ops.sorted_merge import (
     merge_step_sorted_batch,
     merge_step_sorted_windowed_batch,
@@ -1865,7 +1865,7 @@ class TorchUniverse:
 
     def digests(self) -> np.ndarray:
         """Per-replica convergence digests (uint32), computed on device."""
-        digests = K.convergence_digest(self.states, self._ranks_device(), self._multi_device())
+        digests = convergence_digest(self.states, self._ranks_device(), self._multi_device())
         return _numpy(digests).astype(np.uint32)
 
     # -- cursors -------------------------------------------------------------

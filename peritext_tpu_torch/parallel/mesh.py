@@ -21,13 +21,14 @@ Axes:
   within a group.
 
 ``sharded_apply`` runs the exact merge through the hand kernels once per
-replica group (``cuda_kernels.merge_step_full``; their plain versions on
-the CPU), then ``convergence_digest``.  There is no GSPMD to partition the
-per-op merge over ``seq``: a group's seq shards are gathered onto the
-group's first device, merged whole and split back, which is the explicit
-form of the collectives GSPMD inserts.  The global digest is the uint32
-sum of the replicas' digests, wrapping as JAX's ``jnp.sum`` of uint32
-does.  ``parallel/shard.py`` has the explicit sequence-parallel kernels.
+replica group (``cuda_kernels.merge_step_full``, then the digest kernel,
+``cuda_kernels.convergence_digest``; their plain versions on the CPU).
+There is no GSPMD to partition the per-op merge over ``seq``: a group's
+seq shards are gathered onto the group's first device, merged whole and
+split back, which is the explicit form of the collectives GSPMD inserts.
+The global digest is the uint32 sum of the replicas' digests, wrapping as
+JAX's ``jnp.sum`` of uint32 does.  ``parallel/shard.py`` has the explicit
+sequence-parallel kernels.
 """
 from __future__ import annotations
 
@@ -37,7 +38,6 @@ import numpy as np
 import torch
 
 from peritext_tpu_torch.ops import cuda_kernels
-from peritext_tpu_torch.ops import kernels as K
 from peritext_tpu_torch.ops.state import FIELDS, DocState, resolve_device
 
 _U32 = 0xFFFFFFFF
@@ -303,7 +303,7 @@ def _digests(states: DocState, ranks: torch.Tensor, multi: torch.Tensor):
     groups = []
     for i in range(mesh.shape["replica"]):
         dev = mesh.group_device(i)
-        groups.append(K.convergence_digest(group_state(states, i), ranks.to(dev), multi.to(dev)))
+        groups.append(cuda_kernels.convergence_digest(group_state(states, i), ranks.to(dev), multi.to(dev)))
     first = mesh.devices[0, 0]
     total = mesh.reduce_total(sum(g.sum().to(first) for g in groups)) & _U32
     return ShardedTensor.from_groups(groups, mesh, ("replica",)), total

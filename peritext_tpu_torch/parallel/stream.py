@@ -8,11 +8,12 @@ plane it touches.  The population stays in host memory as numpy arrays
 (a broadcast view is fine) and fixed-size cohorts stream through the
 card.  Each cohort runs both hand kernels (``cuda_kernels.merge_step_full``:
 the text kernel, then the mark kernel with the boundary permute and the
-table append folded in), then the
-convergence digest (past C = 16384 the kernels run as thread-block
-clusters).  A batch the kernels cannot take (a capacity past
-``kernel_capacity_limit``, C = 131072, or an insert run longer than the
-kernels' MAX_RUN_LEN window) takes the sorted merge instead
+table append folded in; past C = 16384 they run as thread-block
+clusters), then the digest kernel (``cuda_kernels.convergence_digest``:
+one launch a cohort and replica group, at any capacity).  A batch the
+kernels cannot take (a capacity past ``kernel_capacity_limit``, C =
+131072, or an insert run longer than the kernels' MAX_RUN_LEN window)
+takes the sorted merge instead
 (``sorted_merge.merge_step_sorted_batch``), counted in
 ``stats["capacity_routes"]``.  Either way the result is byte-identical to
 one resident merge of the whole population, for every cohort size and
@@ -33,8 +34,8 @@ The pipeline is CUDA's own, not a copy of JAX's asynchronous dispatch:
   copy and H2D of k+1 overlap the merge of k.  A drain waits on its
   cohort's D2H event, never on the whole device.
 - Nothing on the kernel route waits on the host: the mark-table append
-  and the digest take their bounds from shapes and from what the host
-  knows of its inputs (``mark_cols``).
+  takes its bounds from shapes, and the digest kernel reads each
+  replica's mark count on the card.
 
 On a mesh (``mesh=``, ``shard_seq=``: JAX's cohorts over a device mesh)
 each cohort is laid over the mesh's entries with ``state_sharding``'s
@@ -63,7 +64,7 @@ import numpy as np
 import torch
 
 from peritext_tpu_torch.ops import kernels as K
-from peritext_tpu_torch.ops.cuda_kernels import kernel_capacity_limit, merge_step_full
+from peritext_tpu_torch.ops.cuda_kernels import convergence_digest, kernel_capacity_limit, merge_step_full
 from peritext_tpu_torch.ops.sorted_merge import merge_step_sorted_batch
 from peritext_tpu_torch.ops.state import FIELDS, MASK_WORD_BITS, DocState, Device, resolve_device
 from peritext_tpu_torch.parallel.mesh import (
@@ -79,14 +80,6 @@ from peritext_tpu_torch.runtime import faults, health, telemetry
 from peritext_tpu_torch.schema import allow_multiple_array
 
 _BOOL_FIELDS = ("deleted", "bnd_def")
-# The digest's chunk, in [C, M'] entries (``convergence_digest``'s
-# ``chunk_elems``).  Each chunk enqueues a few dozen eager kernels, and
-# the host cannot stage the next cohort while it enqueues them, so a
-# cohort's digest runs in few, large chunks: at C = 16384 and M' = 32 one
-# chunk is 256 replicas, 1 GiB an int64 plane.  On an H100 (PERF.md,
-# ``bench/stream_chunks.py``) depth 2 beat depth 1 by 26-29% at 2**27 and
-# not at all at the universe's 2**24.
-DIGEST_CHUNK_ELEMS = 1 << 27
 _EVENTS = ("h2d0", "h2d1", "merge0", "merge1", "digest1", "d2h0", "d2h1")
 
 
@@ -288,10 +281,6 @@ def stream_merge_sorted(
         and char_buf.shape[-1] >= K.MAX_RUN_LEN
         and (runs.size == 0 or int(runs.max()) <= K.MAX_RUN_LEN)
     )
-    # A bound on every replica's post-merge mark count, known on the host:
-    # the digest then never reads one back.
-    mark_cols = int(host["mark_count"].max()) + int((mark_ops[..., K.K_KIND] == K.KIND_MARK).sum(axis=-1).max())
-
     sources: Dict[str, np.ndarray] = dict(host)
     sources.update(text_ops=text_ops, mark_ops=mark_ops, char_buf=char_buf)
     if not kernels:
@@ -363,7 +352,7 @@ def stream_merge_sorted(
 
     def digest(new: DocState, dev: torch.device) -> torch.Tensor:
         if compute_digest:
-            return K.convergence_digest(new, ranks_d[dev], multi_d[dev], DIGEST_CHUNK_ELEMS, mark_cols=mark_cols)
+            return convergence_digest(new, ranks_d[dev], multi_d[dev])
         return new.length.to(torch.int64)
 
     def mark(ev, name: str, which: int) -> None:

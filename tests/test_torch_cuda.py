@@ -453,7 +453,7 @@ def _held_tail(states, text_out, ops, blocks):
     want = K.mark_tail_plain(states, *text_out, ops)
     cuda_kernels.reset_launch_counts()
     got = cuda_kernels.mark_tail(states, *text_out, ops)
-    assert cuda_kernels.LAUNCHES == {"text_phase": 0, "mark_phase": 1}
+    assert cuda_kernels.LAUNCHES == {"text_phase": 0, "mark_phase": 1, "digest": 0}
     assert cuda_kernels.CLUSTER_LAUNCHES["mark_phase"] == (blocks > 1)
     torch.cuda.synchronize()
     names = ("bnd_def", "bnd_mask", "mark_ctr", "mark_act", "mark_action", "mark_type", "mark_attr", "mark_count")
@@ -541,7 +541,7 @@ def test_merge_step_full_is_two_launches_on_the_card(card):
     want = K.merge_step_plain(*args)
     cuda_kernels.reset_launch_counts()
     got = cuda_kernels.merge_step_full(*args)
-    assert cuda_kernels.LAUNCHES == {"text_phase": 1, "mark_phase": 1}
+    assert cuda_kernels.LAUNCHES == {"text_phase": 1, "mark_phase": 1, "digest": 0}
     torch.cuda.synchronize()
     _same([getattr(got, f) for f in FIELDS], [getattr(want, f) for f in FIELDS])
 
@@ -560,9 +560,8 @@ def test_universe_on_the_card_grows_past_8192(card, monkeypatch):
     uni.apply_changes([w0, w1])
     uni.apply_changes([w1, w0])
     assert uni.capacity == 16384 and uni.stats["capacity_growths"] >= 1
-    assert cuda_kernels.LAUNCHES == {"text_phase": 3, "mark_phase": 3} == {
-        k: uni.stats["launches"] for k in ("text_phase", "mark_phase")
-    }
+    assert cuda_kernels.LAUNCHES == {"text_phase": 3, "mark_phase": 3, "digest": 0}
+    assert uni.stats["launches"] == 3
     oracle = Doc("oracle")
     for c in [wl["genesis"], *w0, *w1]:
         oracle.apply_change(c)
@@ -605,7 +604,7 @@ def test_sorted_universe_on_the_card_equals_the_scan_path(card, monkeypatch, win
                 assert uni.spans(r) == wl["writers"][r % 4].get_text_with_formatting(["text"])
         uni.apply_changes(a2a)
         n = uni.stats["scan_fallbacks"] if path == "sorted" else uni.stats["launches"]
-        assert cuda_kernels.LAUNCHES == {"text_phase": n, "mark_phase": n}
+        assert cuda_kernels.LAUNCHES == {"text_phase": n, "mark_phase": n, "digest": 0}
     a, b = state_to_numpy(unis["scan"].states), state_to_numpy(unis["sorted"].states)
     assert all((a[f] == b[f]).all() for f in a)
     oracle = Doc("oracle")
@@ -725,7 +724,7 @@ def test_checkpoint_round_trip_on_the_card(card, tmp_path):
     assert cpu.digests()[0] == uni.digests()[1] and cpu.spans("x") == uni.spans("b")
     cuda_kernels.reset_launch_counts()
     resumed = ckpt.resume_universe(path, log)
-    assert all(n == 1 for n in cuda_kernels.LAUNCHES.values())
+    assert cuda_kernels.LAUNCHES == {"text_phase": 1, "mark_phase": 1, "digest": 0}
     uni.apply_changes({n: log.missing_changes(log.clock(), uni.clock(n)) for n in names})
     a, b = state_to_numpy(resumed.states), state_to_numpy(uni.states)
     assert all((a[f] == b[f]).all() for f in a)
@@ -814,7 +813,7 @@ def test_capacity_route_on_the_card_grows_past_16384(card, monkeypatch):
     on_card = run(card)
     assert on_card.capacity == 32768
     assert on_card.stats["capacity_routes"] == 0
-    assert cuda_kernels.LAUNCHES == {"text_phase": len(steps), "mark_phase": len(steps)}
+    assert cuda_kernels.LAUNCHES == {"text_phase": len(steps), "mark_phase": len(steps), "digest": 0}
     assert cuda_kernels.CLUSTER_LAUNCHES == {"text_phase": len(steps) - 1, "mark_phase": len(steps) - 1}
     a = state_to_numpy(on_card.states)
     assert all((a[f] == on_cpu[f]).all() for f in a)
@@ -824,7 +823,7 @@ def test_capacity_route_on_the_card_grows_past_16384(card, monkeypatch):
     cuda_kernels.reset_launch_counts()
     routed = run(card)
     assert routed.stats["capacity_routes"] == len(steps) - 1
-    assert cuda_kernels.LAUNCHES == {"text_phase": 1, "mark_phase": 1}
+    assert cuda_kernels.LAUNCHES == {"text_phase": 1, "mark_phase": 1, "digest": 0}
     assert cuda_kernels.CLUSTER_LAUNCHES == {"text_phase": 0, "mark_phase": 0}
     b = state_to_numpy(routed.states)
     assert all((b[f] == on_cpu[f]).all() for f in b)
@@ -854,7 +853,7 @@ def test_patched_sorted_route_on_the_card_equals_the_per_op_loop(card, monkeypat
         cuda_kernels.reset_launch_counts()
         outs = [uni.apply_changes_with_patches([rnd[i % 4] for i in range(64)], with_positions=k == 0)
                 for k, rnd in enumerate(wl["rounds"][1:])]
-        assert cuda_kernels.LAUNCHES == {"text_phase": 0, "mark_phase": 0}
+        assert cuda_kernels.LAUNCHES == {"text_phase": 0, "mark_phase": 0, "digest": 0}
         runs[route] = (uni, outs)
     (scan, want), (srt, got) = runs["scan"], runs["sorted"]
     assert got == want
@@ -933,7 +932,7 @@ def test_kernel_launches_from_threads_count_and_land_on_the_card(card):
         t.join()
     merges = sum(u.stats["launches"] for u in unis)
     assert merges == 2 * (1 + len(wl["rounds"]))
-    assert all(n == merges for n in cuda_kernels.LAUNCHES.values())
+    assert cuda_kernels.LAUNCHES == {"text_phase": merges, "mark_phase": merges, "digest": 0}
     cpu = TorchUniverse(["a", "b"], capacity=512, device="cpu")
     run(cpu)
     want = state_to_numpy(cpu.states)
@@ -977,7 +976,7 @@ def test_stream_at_depth_two_equals_the_resident_kernel_merge(card):
     cuda_kernels.reset_launch_counts()
     out, dg, stats = stream_merge_sorted(*args, cohort=24, depth=2, device=card)
     assert stats["route"] == "kernels" and stats["n_cohorts"] == 5 and stats["padded_tail"]
-    assert cuda_kernels.LAUNCHES == {"text_phase": 5, "mark_phase": 5}
+    assert cuda_kernels.LAUNCHES == {"text_phase": 5, "mark_phase": 5, "digest": 5}
     np.testing.assert_array_equal(dg, want_dg.astype(np.uint32))
     for f in want:
         assert out[f].dtype == want[f].dtype, f
@@ -1005,7 +1004,8 @@ def test_stream_past_16384_runs_the_cluster_kernels(card):
     cuda_kernels.reset_launch_counts()
     out, dg, stats = stream_merge_sorted(*args, cohort=16, depth=2, device=card)
     assert stats["route"] == "kernels" and stats["capacity_routes"] == 0 and stats["n_cohorts"] == 3
-    assert cuda_kernels.LAUNCHES == cuda_kernels.CLUSTER_LAUNCHES == {"text_phase": 3, "mark_phase": 3}
+    assert cuda_kernels.LAUNCHES == {"text_phase": 3, "mark_phase": 3, "digest": 3}
+    assert cuda_kernels.CLUSTER_LAUNCHES == {"text_phase": 3, "mark_phase": 3}
     np.testing.assert_array_equal(dg, want_dg.astype(np.uint32))
     for f in want:
         np.testing.assert_array_equal(out[f], want[f], err_msg=f)
@@ -1147,6 +1147,156 @@ def test_sync_free_append_and_digest_equal_the_old_forms(card, monkeypatch):
     assert torch.equal(new, old) and torch.equal(bounded, old)
 
 
+def _digest_is_the_twins(st, ranks, multi=None):
+    """The digest kernel on ``st``, one launch, equal byte for byte to the
+    plain digest on the card and on the CPU; returns the digests."""
+    multi = torch.from_numpy(allow_multiple_array()).to(st.chars.device) if multi is None else multi
+    before = cuda_kernels.LAUNCHES["digest"]
+    got = cuda_kernels.convergence_digest(st, ranks, multi)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["digest"] == before + 1
+    assert got.dtype == torch.int64 and got.shape == st.length.shape
+    assert torch.equal(got, K.convergence_digest(st, ranks, multi))
+    on_cpu = K.convergence_digest(map_state(lambda x: x.cpu(), st), ranks.cpu(), multi.cpu())
+    assert torch.equal(got.cpu(), on_cpu)
+    return got
+
+
+def _random_table_state(rng, r, c, m, fill, card, types=None, attrs=3, dense=0.2):
+    """``_random_state``'s planes under a random mark table: ``types`` to
+    draw the type column from (default every type, and out-of-range ones
+    the clamp must catch), counts from empty to past M."""
+    import dataclasses
+
+    ec, ea, dl, ch, ln, _, bmask = _random_state(rng, r, c, m // 32, fill)
+    bdef = rng.random((r, 2 * c)) < dense
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)  # noqa: E731
+    st = map_state(lambda x: x.unsqueeze(0).expand(r, *x.shape).contiguous(), make_empty_state(c, m, card))
+    types = np.arange(-1, 6) if types is None else np.asarray(types)
+    return dataclasses.replace(
+        st, elem_ctr=to(ec), elem_act=to(ea), deleted=to(dl), chars=to(ch), length=to(ln),
+        bnd_def=to(bdef), bnd_mask=to(bmask),
+        mark_count=to(rng.integers(0, m + 8, size=r).astype(np.int32)),
+        mark_ctr=to(rng.integers(1, 40, (r, m)).astype(np.int32)),
+        mark_act=to(rng.integers(-1, 6, (r, m)).astype(np.int32)),
+        mark_action=to(rng.integers(0, 2, (r, m)).astype(np.int32)),
+        mark_type=to(rng.choice(types, (r, m)).astype(np.int32)),
+        mark_attr=to(rng.integers(-1, attrs, (r, m)).astype(np.int32)),
+    )
+
+
+@pytest.mark.parametrize("c,doc_len,writers,replicas,max_marks,seed", [
+    (2048, 1000, 4, 64, 1024, 0),
+    (16384, 6000, 2, 33, 128, 1),
+])
+def test_digest_kernel_equals_the_twin_on_merged_states(card, c, doc_len, writers, replicas, max_marks, seed):
+    """``make_merge_workload`` documents merged by the kernels, at C = 2048
+    (chip_smoke phase 2's table, M = 1024) and C = 16384 (M = 128)."""
+    b = build_device_batch(make_merge_workload(doc_len, 64, writers, True, seed=seed), replicas, c, max_marks,
+                           device=card)
+    merged = cuda_kernels.merge_step_full(b["states"], b["text_ops"], b["mark_ops"], b["ranks"], b["char_buf"])
+    assert int(merged.mark_count.max()) > 0 and int(merged.length.min()) >= doc_len
+    _digest_is_the_twins(merged, b["ranks"])
+
+
+def test_digest_kernel_equals_the_twin_at_32768(card):
+    """Random planes at C = 32768 (64 tiles of a block), lengths from 0 to
+    full, random tombstones, definedness and masks, a random table."""
+    st = _random_table_state(np.random.default_rng(31), 7, 32768, 128, 32768, card)
+    _digest_is_the_twins(st, torch.tensor([0, 3, 1, 2], dtype=torch.int32, device=card))
+
+
+def test_digest_kernel_equals_the_twin_under_a_full_table(card):
+    """``bench/kernel_ab.py``'s full table: every one of M = 1024 columns
+    live, random masks on half the slots of C = 256 documents."""
+    from peritext_tpu_torch.bench.kernel_ab import _full_table_state
+    from peritext_tpu_torch.ops.state import state_from_numpy
+
+    full = state_from_numpy(_full_table_state(np.random.default_rng(1), replicas=96), device=card)
+    _digest_is_the_twins(full, torch.arange(4, dtype=torch.int32, device=card))
+
+
+def test_digest_kernel_resolves_allow_multiple_groups(card):
+    """Tables of comments (allowMultiple: one group per comment id) and
+    links (one group for every url) with many ids and duplicate keys; the
+    flags change the digest, so the groups are exercised."""
+    from peritext_tpu_torch.schema import MARK_TYPE_ID
+
+    types = [MARK_TYPE_ID["comment"], MARK_TYPE_ID["link"]]
+    st = _random_table_state(np.random.default_rng(32), 24, 1024, 256, 1024, card, types=types, attrs=12,
+                             dense=0.4)
+    ranks = torch.tensor([0, 3, 1, 2], dtype=torch.int32, device=card)
+    got = _digest_is_the_twins(st, ranks)
+    lww = torch.zeros_like(torch.from_numpy(allow_multiple_array())).to(card)
+    assert not torch.equal(_digest_is_the_twins(st, ranks, lww), got)
+
+
+def test_digest_kernel_on_tombstones_carrying_after_slots(card):
+    """Every element's only defined slot is its "after" slot and most
+    elements are tombstones: the sources are the tombstones' after slots."""
+    import dataclasses
+
+    st = _random_table_state(np.random.default_rng(33), 16, 2048, 64, 2048, card)
+    after = torch.rand((16, 2048), device=card) < 0.3
+    bnd_def = torch.stack([torch.zeros_like(after), after], dim=2).reshape(16, 4096)
+    st = dataclasses.replace(st, bnd_def=bnd_def, deleted=torch.rand((16, 2048), device=card) < 0.8,
+                             mark_count=torch.full((16,), 64, dtype=torch.int32, device=card))
+    _digest_is_the_twins(st, torch.tensor([0, 3, 1, 2], dtype=torch.int32, device=card))
+
+
+def test_digest_kernel_on_empty_replicas(card):
+    """Replicas with length 0 and mark count 0, alone and among full ones:
+    an empty replica's digest is the FNV offset basis, 2166136261."""
+    import dataclasses
+
+    ranks = torch.tensor([0, 3, 1, 2], dtype=torch.int32, device=card)
+    st = _random_table_state(np.random.default_rng(34), 9, 4096, 128, 4000, card)
+    empty = torch.tensor([True, False] * 4 + [True], device=card)
+    st = dataclasses.replace(st, length=torch.where(empty, 0, st.length),
+                             mark_count=torch.where(empty, 0, st.mark_count))
+    got = _digest_is_the_twins(st, ranks)
+    assert (got[empty] == 2166136261).all()
+    alone = map_state(lambda x: x[:1].contiguous(), st)
+    assert int(_digest_is_the_twins(alone, ranks)[0]) == 2166136261
+
+
+def test_digest_shared_memory_grows_with_the_table_alone(card):
+    """The kernel's shared memory is 28 bytes a table column and a fixed
+    6,656 bytes, at every capacity: a table of 7,968 columns (229,760 bytes)
+    runs and equals the twin; one of 8,192 (236,032 bytes, past one
+    block's 232,448) is refused before any launch, with no error left
+    behind for the next launch."""
+    ranks = torch.tensor([0, 3, 1, 2], dtype=torch.int32, device=card)
+    _digest_is_the_twins(_random_table_state(np.random.default_rng(36), 3, 96, 7968, 96, card), ranks)
+    big = _random_table_state(np.random.default_rng(37), 2, 64, 8192, 64, card)
+    before = cuda_kernels.LAUNCHES["digest"]
+    with pytest.raises(RuntimeError, match="digest kernel launch failed"):
+        cuda_kernels.convergence_digest(big, ranks, torch.from_numpy(allow_multiple_array()).to(card))
+    assert cuda_kernels.LAUNCHES["digest"] == before
+    _digest_is_the_twins(_random_table_state(np.random.default_rng(38), 5, 256, 128, 256, card), ranks)
+
+
+@pytest.mark.parametrize("replicas", [1, 13])
+def test_digest_kernel_at_one_and_an_odd_number_of_replicas(card, replicas):
+    st = _random_table_state(np.random.default_rng(35 + replicas), replicas, 1000, 96, 1000, card)
+    _digest_is_the_twins(st, torch.tensor([0, 3, 1, 2], dtype=torch.int32, device=card))
+
+
+def test_stream_sweep_launches_one_digest_a_cohort_and_equals_the_cpus(card):
+    """A sweep on the card launches the digest kernel once a cohort, and
+    its digests equal the same sweep's on the CPU (the plain digest)."""
+    from peritext_tpu_torch.parallel import stream_merge_sorted
+
+    args = _stream_population(100, 1024, 64, seed=14)
+    cuda_kernels.reset_launch_counts()
+    _, dg, stats = stream_merge_sorted(*args, cohort=24, depth=2, readback_states=False, device=card)
+    assert stats["n_cohorts"] == 5
+    assert cuda_kernels.LAUNCHES == {"text_phase": 5, "mark_phase": 5, "digest": 5}
+    _, want, _ = stream_merge_sorted(*args, cohort=24, depth=2, readback_states=False, device="cpu")
+    np.testing.assert_array_equal(dg, want)
+    assert all(t["digest_ms"] > 0 for t in stats["timings"])
+
+
 @pytest.mark.parametrize("mode", ["sort", "scatter", "roll"])
 def test_splices_on_the_card_equal_the_cpu_and_sort(card, monkeypatch, mode):
     """Each splice of the sorted placement, on insert-heavy random rows in
@@ -1235,7 +1385,7 @@ def test_sharded_universe_on_a_logical_mesh_equals_the_cpus(card):
         cuda_kernels.reset_launch_counts()
         for uni in unis:
             uni.apply_changes(batch)
-        assert cuda_kernels.LAUNCHES == {"text_phase": 2, "mark_phase": 2}
+        assert cuda_kernels.LAUNCHES == {"text_phase": 2, "mark_phase": 2, "digest": 0}
         assert M.is_sharded(unis[0]._states)
     got, want = (state_to_numpy(u.states) for u in unis)
     for f in FIELDS:
@@ -1288,7 +1438,7 @@ def test_stream_on_a_logical_mesh_of_the_card_equals_the_resident_merge(card, sh
         cohort = -(-22 // shape[0]) * shape[0]
         assert stats["cohort"] == cohort and stats["n_cohorts"] == -(-100 // cohort)
         n = stats["n_cohorts"] * shape[0]
-        assert cuda_kernels.LAUNCHES == {"text_phase": n, "mark_phase": n}
+        assert cuda_kernels.LAUNCHES == {"text_phase": n, "mark_phase": n, "digest": n}
         np.testing.assert_array_equal(dg, want_dg.astype(np.uint32))
         for f in want:
             assert out[f].dtype == want[f].dtype, f

@@ -6,6 +6,7 @@ runs them.  Integer and bit state must agree exactly (tolerance 0), digests
 included, and every state field must stay int32/bool after a merge.
 """
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -165,7 +166,7 @@ def test_merge_step_plain_matches_pallas_full_and_xla(seed):
         torch.from_numpy(batch["ranks"]), torch.from_numpy(char_buf),
     )
     _assert_state_equal(xla, again)
-    assert cuda_kernels.LAUNCHES == {"text_phase": 0, "mark_phase": 0}
+    assert cuda_kernels.LAUNCHES == {"text_phase": 0, "mark_phase": 0, "digest": 0}
 
 
 def test_unfused_rows_match_xla_merge_step_batch():
@@ -267,6 +268,89 @@ def test_views_match_jax(seed):
         assert (got.numpy() == digest.astype(np.int64)).all()  # a uint32 value, wrapped
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_digest_wrapper_on_cpu_is_the_plain_version(seed):
+    """On CPU tensors ``cuda_kernels.convergence_digest`` returns the plain
+    digest (equal to the JAX package's) and counts no launch."""
+    st, ranks = _merged(seed)
+    port = _port_state(st)
+    multi = allow_multiple_array()
+    args = (port, torch.from_numpy(ranks), torch.from_numpy(multi))
+    want = K.convergence_digest(*args)
+    cuda_kernels.reset_launch_counts()
+    assert torch.equal(cuda_kernels.convergence_digest(*args), want)
+    digest = _np(JK.convergence_digest_batch(st, jnp.asarray(ranks), jnp.asarray(multi)))
+    assert (want.numpy() == digest.astype(np.int64)).all()
+    assert cuda_kernels.LAUNCHES == {"text_phase": 0, "mark_phase": 0, "digest": 0}
+
+
+def test_digest_kernel_has_no_merge_kernel_name():
+    """The merge kernels' roofline sums the device time of kernels whose
+    names hold ``text_phase`` or ``mark_phase``: no kernel of
+    ``csrc/digest.cu`` may take such a name."""
+    src = (_build.CSRC_DIR / "digest.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src)
+    assert names == ["digest_kernel"]
+    assert not any("text_phase" in n or "mark_phase" in n for n in names)
+    assert "digest" in _build.KERNELS and "digest" in cuda_kernels.LAUNCHES
+    assert "digest" not in cuda_kernels.CLUSTER_LAUNCHES  # one block a replica at every capacity
+
+
+def test_digest_wrapper_on_cpu_takes_a_table_past_the_kernels():
+    """The CPU route has no shared-memory limit: a table of 8,192 columns,
+    which one block of the digest kernel cannot hold, gets the plain
+    digest, and no launch is counted."""
+    from peritext_tpu_torch.ops.state import make_empty_state, map_state
+
+    r, c, m = 3, 16, 8192
+    rng = np.random.default_rng(7)
+    st = map_state(lambda x: x.unsqueeze(0).expand(r, *x.shape).clone(), make_empty_state(c, m, "cpu"))
+    st = dataclasses.replace(
+        st,
+        chars=torch.from_numpy(rng.integers(32, 0x10FFFF, (r, c)).astype(np.int32)),
+        length=torch.tensor([0, 9, 16], dtype=torch.int32),
+        bnd_def=torch.from_numpy(rng.random((r, 2 * c)) < 0.3),
+        bnd_mask=torch.from_numpy(rng.integers(-(2**31), 2**31, (r, 2 * c, m // 32)).astype(np.int32)),
+        mark_count=torch.tensor([0, 100, m], dtype=torch.int32),
+        mark_ctr=torch.from_numpy(rng.integers(1, 40, (r, m)).astype(np.int32)),
+        mark_type=torch.from_numpy(rng.integers(0, 4, (r, m)).astype(np.int32)),
+    )
+    ranks, multi = torch.arange(4, dtype=torch.int32), torch.from_numpy(allow_multiple_array())
+    cuda_kernels.reset_launch_counts()
+    got = cuda_kernels.convergence_digest(st, ranks, multi)
+    assert torch.equal(got, K.convergence_digest(st, ranks, multi))
+    assert int(got[0]) == 2166136261 and int(got[1]) != int(got[2])
+    assert cuda_kernels.LAUNCHES == {"text_phase": 0, "mark_phase": 0, "digest": 0}
+
+
+def test_digest_bound_counts_what_the_digest_reads():
+    """The digest's byte bound: per replica 3 B for each element below
+    length (tombstone, two definedness flags), 4 B for each live char, the
+    mask words of its live columns at each source slot, 20 B a live table
+    column; length, mark_count, ranks and flags; 8 B out a replica."""
+    from peritext_tpu_torch.ops.state import make_empty_state, map_state
+
+    r, c, m = 2, 8, 64
+    st = map_state(lambda x: x.unsqueeze(0).expand(r, *x.shape).clone(), make_empty_state(c, m, "cpu"))
+    st = dataclasses.replace(
+        st,
+        length=torch.tensor([5, 9], dtype=torch.int32),  # the second clamps to C
+        mark_count=torch.tensor([33, 0], dtype=torch.int32),
+        deleted=torch.zeros((r, c), dtype=torch.bool).index_fill_(1, torch.tensor([1]), True),
+    )
+    bnd_def = torch.zeros((r, 2 * c), dtype=torch.bool)
+    bnd_def[0, 0] = True  # element 0's before slot: a source
+    bnd_def[0, 5] = True  # element 2's after slot: element 3 is a source
+    bnd_def[0, 9] = True  # element 4's after slot: element 5 is past length
+    bnd_def[1, 2] = True  # element 1's before slot: a source
+    st = dataclasses.replace(st, bnd_def=bnd_def)
+    ranks, multi = torch.zeros(4, dtype=torch.int32), torch.zeros(12, dtype=torch.bool)
+    first = 3 * 5 + 4 * 4 + 4 * 2 * 2 + 20 * 33
+    second = 3 * 8 + 4 * 7 + 0 + 0
+    fixed = 4 * r + 4 * r + 4 * 4 + 12 + 8 * r
+    assert bounds.convergence_digest_bytes(st, ranks, multi) == first + second + fixed
+
+
 def test_digest_wraps_like_uint32_on_large_codepoints():
     st, ranks = _merged(2)
     chars = _np(st.chars).copy()
@@ -294,6 +378,16 @@ def test_wrappers_refuse_other_devices_and_never_fall_back():
             st.bnd_def, st.bnd_mask, st.elem_ctr, st.elem_act, st.length,
             st.mark_count, torch.empty((2, 1, 15), dtype=torch.int32, device="meta"),
         )
+
+
+def test_digest_wrapper_refuses_other_devices():
+    st = _port_state(_batch(0, replicas=2, ops=8)["states"])
+    meta = K.map_state(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"), st)
+    ranks, multi = torch.zeros(4, dtype=torch.int32), torch.zeros(12, dtype=torch.bool)
+    with pytest.raises(ValueError, match="several devices"):
+        cuda_kernels.convergence_digest(meta, ranks, multi)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        cuda_kernels.convergence_digest(meta, ranks.to("meta"), multi.to("meta"))
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -119,6 +119,20 @@ def test_sharded_digest_reduce_matches_jax(batch):
     assert int(got_total) == int(_np(total))
 
 
+def test_sharded_digests_take_one_digest_call_per_group(batch, monkeypatch):
+    """The sharded digest is one call of ``cuda_kernels.convergence_digest``
+    (one launch of the digest kernel on the card) per replica group, on the
+    group's gathered rows."""
+    pm = M.make_mesh(["cpu"] * 8, 4, 2)
+    calls = []
+    real = M.cuda_kernels.convergence_digest
+    monkeypatch.setattr(M.cuda_kernels, "convergence_digest", lambda *a: calls.append(a[0]) or real(*a))
+    ranks, multi = torch.from_numpy(np.asarray(batch["ranks"])), torch.from_numpy(allow_multiple_array())
+    got, _ = M.sharded_digest_reduce(pm)(M.shard_states(batch["port"], pm), ranks, multi)
+    assert [st.chars.shape for st in calls] == [(4, 128)] * 4
+    assert torch.equal(got.full(), K.convergence_digest(batch["port"], ranks, multi))
+
+
 def test_sorted_merge_on_sharded_state_matches_jax(batch):
     """JAX's sorted merge on a (4, 2)-sharded state (GSPMD partitions it);
     the port's sorted route gathers the shards, merges and lays the result

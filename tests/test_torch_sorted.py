@@ -342,7 +342,7 @@ def test_sorted_universe_matches_tpu_universe(monkeypatch, seed, locality):
         _assert_universes_equal(tpu, port, f"batch {k}")
     assert port.stats["capacity_growths"] >= 1 and port.stats["scan_fallbacks"] == 0
     assert port.stats["windowed_launches"] >= (1 if locality else 0)
-    assert cuda_kernels.LAUNCHES == {"text_phase": 0, "mark_phase": 0}
+    assert cuda_kernels.LAUNCHES == {"text_phase": 0, "mark_phase": 0, "digest": 0}
     oracle = Doc("oracle")
     oracle.apply_change(wl["genesis"])
     for w in range(3):

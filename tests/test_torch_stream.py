@@ -128,6 +128,29 @@ def test_stream_no_state_readback(merge_inputs):
     np.testing.assert_array_equal(dg, digests)
 
 
+@pytest.mark.parametrize("compute_digest", [True, False])
+def test_stream_takes_one_digest_call_a_cohort(merge_inputs, monkeypatch, compute_digest):
+    """Each cohort's digest is one call of ``cuda_kernels.convergence_digest``
+    (one launch of the digest kernel on the card); without digests there
+    is none."""
+    inputs, _, digests = merge_inputs
+    calls = []
+    real = S.convergence_digest
+
+    def spy(states, ranks, multi):
+        calls.append(states.chars.shape[0])
+        return real(states, ranks, multi)
+
+    monkeypatch.setattr(S, "convergence_digest", spy)
+    _, dg, stats = _stream(inputs, cohort=4, readback_states=False, compute_digest=compute_digest)
+    assert stats["n_cohorts"] == 3
+    if not compute_digest:
+        assert calls == []
+        return
+    np.testing.assert_array_equal(dg, digests)
+    assert calls == [4, 4, 4]
+
+
 def test_stream_takes_a_broadcast_population(merge_inputs):
     """A population that is a read-only broadcast view of one replica (how
     a north-star sweep holds 100k replicas on the host) streams without a
