@@ -86,29 +86,13 @@ def _is_device(evt) -> bool:
     return str(getattr(evt, "device_type", "")).endswith("CUDA")
 
 
-def summarize_profile(prof, wall_s: float, t_begin_us: Optional[float] = None) -> Dict[str, Any]:
-    """Busy seconds (the union of the device's kernel, copy and set
-    intervals), the device time of each operation by name, the ten longest
-    idle gaps labelled by the innermost host op or span that covers each
-    gap's middle, and ``wall_s``, the traced window's length."""
-    events = prof.events()
-    dev: List[Tuple[float, float, str]] = []
-    host: List[Tuple[float, float, str]] = []
-    for e in events:
-        tr = e.time_range
-        if _is_device(e):
-            if not e.name.startswith("portbench."):  # the harness's spans, mirrored on the device's timeline
-                dev.append((tr.start, tr.end, e.name))
-        else:
-            host.append((tr.start, tr.end, e.name))
-    by_name: Dict[str, float] = {}
-    for s, t, n in dev:
-        by_name[n] = by_name.get(n, 0.0) + (t - s) * 1e-6
-    dev.sort()
+def _union(dev: Sequence[tuple]) -> Tuple[float, List[Tuple[float, float]], Optional[float]]:
+    """Busy microseconds of sorted device intervals ``(start, end, ...)``
+    (their union), the gaps between them, and the end of the last."""
     busy_us = 0.0
     gaps: List[Tuple[float, float]] = []
     cur_s = cur_t = None
-    for s, t, _ in dev:
+    for s, t, *_ in dev:
         if cur_t is None:
             cur_s, cur_t = s, t
         elif s > cur_t:
@@ -119,10 +103,53 @@ def summarize_profile(prof, wall_s: float, t_begin_us: Optional[float] = None) -
             cur_t = max(cur_t, t)
     if cur_t is not None:
         busy_us += cur_t - cur_s
-    if dev and host:
+    return busy_us, gaps, cur_t
+
+
+def summarize_profile(prof, wall_s: float, t_begin_us: Optional[float] = None, cards: int = 1) -> Dict[str, Any]:
+    """Per card of the cell (``device_index`` 0 to ``cards`` - 1): its busy
+    seconds (the union of its kernel, copy and set intervals) and its idle
+    gaps, labelled by the innermost host op or span that covers each gap's
+    middle; while any card of the cell ran an op, one that ran none is idle
+    the whole slice.  ``busy_s`` sums the cards' busy seconds
+    (device-seconds), ``busy_any_s`` is the union over the cards,
+    ``per_card`` each card's by index; the device time of each operation
+    by name summed over the cards, the ten longest gaps over all cards,
+    and ``wall_s``, the traced window's length.  Ops on a card outside the
+    cell are left out of all of these: ``other_cards`` holds their busy
+    seconds by card.
+
+    Ranges mirrored on a device's timeline from host ranges (the harness's
+    ``portbench.*`` spans, the port's telemetry spans) are not device work:
+    the profiler marks them as user annotations, and they are left out.  A
+    profiler whose events lack that mark fails here."""
+    events = prof.events()
+    host = [(e.time_range.start, e.time_range.end, e.name) for e in events if not _is_device(e)]
+    by_name: Dict[str, float] = {}
+    per: List[List[Tuple[float, float, str]]] = [[] for _ in range(cards)]
+    other: Dict[int, List[Tuple[float, float]]] = {}
+    for e in events:
+        if not _is_device(e) or e.is_user_annotation:
+            continue
+        s, t, n, i = e.time_range.start, e.time_range.end, e.name, e.device_index
+        if not 0 <= i < cards:
+            other.setdefault(i, []).append((s, t))
+            continue
+        by_name[n] = by_name.get(n, 0.0) + (t - s) * 1e-6
+        per[i].append((s, t, n))
+    ran = any(per)
+    if host:
         first = min(h[0] for h in host) if t_begin_us is None else t_begin_us
         last = max(h[1] for h in host)
-        gaps = [(first, dev[0][0])] + gaps + [(cur_t, last)]
+    per_card: List[float] = []
+    gaps: List[Tuple[float, float]] = []
+    for card in per:
+        card.sort()
+        busy_us, card_gaps, end = _union(card)
+        if ran and host:
+            card_gaps = [(first, card[0][0])] + card_gaps + [(end, last)] if card else [(first, last)]
+        per_card.append(busy_us * 1e-6)
+        gaps += card_gaps
     gaps = sorted((g for g in gaps if g[1] > g[0]), key=lambda g: g[0] - g[1])[:10]
     host.sort(key=lambda h: h[0])
 
@@ -137,7 +164,10 @@ def summarize_profile(prof, wall_s: float, t_begin_us: Optional[float] = None) -
 
     idle = [[label((a + b) / 2), (b - a) * 1e-6] for a, b in gaps]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"busy_s": busy_us * 1e-6, "window_s": wall_s, "by_name": by_name,
+    return {"busy_s": sum(per_card), "busy_any_s": _union(sorted(x for card in per for x in card))[0] * 1e-6,
+            "cards": cards, "per_card": per_card,
+            "other_cards": {i: _union(sorted(x))[0] * 1e-6 for i, x in sorted(other.items())},
+            "window_s": wall_s, "by_name": by_name,
             "breakdown": {"device_ops": [[n[:NAME_CHARS], s] for n, s in top],
                           "idle_gaps": [[n[:NAME_CHARS], s] for n, s in idle]}}
 
@@ -161,11 +191,19 @@ def result_line(rec: Dict[str, Any], metrics: List[Dict[str, Any]], trace: bool)
             out["metrics"][m["name"]] = {"value": value, "unit": m["unit"]}
     out["device"] = dict(rec["device"])
     if trace and rec.get("profile"):
-        out["device"]["busy_s"] = rec["profile"]["busy_s"]
+        out["device"]["busy_s"] = rec["profile"]["busy_s"] / rec["profile"].get("cards", 1)  # a card's mean
         out["device"]["window_s"] = rec["profile"]["window_s"]
         out["breakdown"] = rec["profile"]["breakdown"]
     out["checks"] = {c.name: {"value": c.value, "limit": c.limit} for c in rec["checks"]}
     return out
+
+
+def card_memory_peaks(cards: int) -> List[int]:
+    """Each card's peak of allocated bytes (``torch.cuda.max_memory_allocated``),
+    cards 0 to ``cards`` - 1; the largest is the fullest card's."""
+    import torch
+
+    return [int(torch.cuda.max_memory_allocated(i)) for i in range(cards)]
 
 
 class Clock:
@@ -182,11 +220,12 @@ class Clock:
 
 
 def idle_pct(rec: Dict[str, Any]) -> Optional[float]:
-    """The traced slice's share of time in which no device op ran."""
+    """The traced slice's share of card-time in which no device op ran:
+    1 - busy device-seconds / (cards x the slice)."""
     prof = rec.get("profile")
     if not prof or prof["busy_s"] <= 0 or prof["window_s"] <= 0:
         return None
-    return 100.0 * (1.0 - prof["busy_s"] / prof["window_s"])
+    return 100.0 * (1.0 - prof["busy_s"] / (prof.get("cards", 1) * prof["window_s"]))
 
 
 def merge_roofline_pct(rec: Dict[str, Any]) -> Optional[float]:

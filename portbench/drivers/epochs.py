@@ -136,7 +136,7 @@ def run(cell: Dict[str, Any], seed: int, seconds: float, trace: bool, device: st
     epoch_s: List[float] = []
     host_s: List[float] = []  # the ingest counters, read where the profiler is off: it slows the host
     sl = Slice(False, device)
-    whole = Slice(cuda and not trace, device, host=False)
+    whole = Slice(cuda and not trace, device, host=False, cards=cell["chips"])
     trace_from = seconds / 3
     delivered = epochs = plain_ops = 0
     with whole:
@@ -144,7 +144,7 @@ def run(cell: Dict[str, Any], seed: int, seconds: float, trace: bool, device: st
         while True:
             w = order[epochs % len(order)]
             if trace and not traced_epochs and time.perf_counter() - t_start >= trace_from:
-                sl = Slice(True, device, universe_mod)
+                sl = Slice(True, device, universe_mod, cards=cell["chips"])
                 with sl:
                     unis = [epoch(order[(epochs + i) % len(order)], sl) for i in range(tr["trace_epochs"])]
                 for i, uni in enumerate(unis):
@@ -165,7 +165,7 @@ def run(cell: Dict[str, Any], seed: int, seconds: float, trace: bool, device: st
             if time.perf_counter() - t_start >= seconds:
                 break
         window_s = time.perf_counter() - t_start
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    peaks = core.card_memory_peaks(cell["chips"]) if cuda else [0]
     note("epoch seconds", epoch_s)
     note("epoch host seconds", host_s)
 
@@ -181,7 +181,7 @@ def run(cell: Dict[str, Any], seed: int, seconds: float, trace: bool, device: st
     return {"setup_s": setup_s, "window_s": window_s, "delivered_ops": delivered, "device_busy_s": busy,
             "attempted": epochs,
             "failed": 0, "checks": checks, "profile": sl.profile, "layers": layers,
-            "device": device_entry(device, cell["chips"], peak)}
+            "device": device_entry(device, cell["chips"], peaks)}
 
 
 def check(kept: Dict[int, Any], workloads: List[Dict[str, Any]], cfg: Dict[str, Any],
@@ -227,9 +227,11 @@ def note(what: str, xs: List[float]) -> None:
               f"max {max(xs):.4f}; first {', '.join(f'{x:.4f}' for x in xs[:3])}", file=sys.stderr)
 
 
-def device_entry(device: str, chips: int, peak: int) -> Dict[str, Any]:
+def device_entry(device: str, chips: int, peaks: List[int]) -> Dict[str, Any]:
+    """The result's device: ``memory_peak_bytes`` is the fullest card's
+    peak, ``memory_peak_bytes_per_card`` each card's."""
     import torch
 
     kind = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
     return {"platform": "gpu" if device == "cuda" else "cpu", "kind": kind, "count": chips,
-            "memory_peak_bytes": int(peak)}
+            "memory_peak_bytes": int(max(peaks)), "memory_peak_bytes_per_card": [int(p) for p in peaks]}

@@ -98,8 +98,6 @@ class Served:
 
 def run(cell: Dict[str, Any], seed: int, seconds: float, trace: bool, device: str, clock: core.Clock,
         program: Optional[Any] = None, rate: Optional[float] = None) -> Dict[str, Any]:
-    import torch
-
     from peritext_tpu_torch import TorchUniverse
     from peritext_tpu_torch.runtime.serve import ServePlane
 
@@ -170,7 +168,7 @@ def run(cell: Dict[str, Any], seed: int, seconds: float, trace: bool, device: st
     trace_from, trace_len = warm + seconds / 3, min(tr["trace_seconds"], seconds / 3)
     if trace:
         i = submit_until(t_base, trace_from, i)
-        sl = Slice(True, device)
+        sl = Slice(True, device, cards=cell["chips"])
         a = counters()
         with sl:
             with sl.span("submit"):
@@ -182,7 +180,7 @@ def run(cell: Dict[str, Any], seed: int, seconds: float, trace: bool, device: st
     stuck += drain(plane, tr["drain_timeout_s"])  # what is left pending is rejected by close(): failed
     c1 = counters()
     plane.close()
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    peaks = core.card_memory_peaks(cell["chips"]) if cuda else [0]
 
     note("backlog samples (pending submissions, once a second)", backlog)
     note("generator lateness seconds", lateness)
@@ -198,7 +196,7 @@ def run(cell: Dict[str, Any], seed: int, seconds: float, trace: bool, device: st
     checks = check(served, pool, uni, cfg, tr, rng) + [core.Check("drains_timed_out", stuck, 0)]
     return {"setup_s": setup_s, "window_s": window_s, "latencies_s": lat, "attempted": len(timed),
             "failed": failed, "checks": checks, "profile": sl.profile, "layers": layers,
-            "lateness_s": lateness, "backlog": backlog, "device": device_entry(device, cell["chips"], peak)}
+            "lateness_s": lateness, "backlog": backlog, "device": device_entry(device, cell["chips"], peaks)}
 
 
 def check(served: List[Served], pool: List[Dict[str, Any]], uni: Any, cfg: Dict[str, Any], tr: Dict[str, Any],

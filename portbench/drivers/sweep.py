@@ -149,7 +149,7 @@ def run(cell: Dict[str, Any], seed: int, seconds: float, trace: bool, device: st
     t_start = time.perf_counter()
     while True:
         if trace and len(sweeps) == 1:
-            sl = Slice(True, device, stream_mod)
+            sl = Slice(True, device, stream_mod, cards=cell["chips"])
             with sl:
                 with sl.span("stream_merge_sorted"):
                     dg, stats = prog.sweep()
@@ -165,7 +165,7 @@ def run(cell: Dict[str, Any], seed: int, seconds: float, trace: bool, device: st
         if time.perf_counter() - t_start >= seconds:
             break
     window_s = time.perf_counter() - t_start
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    peaks = core.card_memory_peaks(cell["chips"]) if cuda else [0]
     if layers:
         layers["timings"] = untraced
     note("sweep seconds", sweep_s)
@@ -187,4 +187,4 @@ def run(cell: Dict[str, Any], seed: int, seconds: float, trace: bool, device: st
               core.Check("readback_digest_mismatch_rows", dg_bad, 0)]
     return {"setup_s": setup_s, "window_s": window_s, "swept_replicas": len(sweeps) * int(cls.size),
             "attempted": len(sweeps), "failed": 0, "checks": checks, "profile": sl.profile, "layers": layers,
-            "device": device_entry(device, cell["chips"], peak)}
+            "device": device_entry(device, cell["chips"], peaks)}

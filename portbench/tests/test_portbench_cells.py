@@ -55,7 +55,21 @@ def test_names_units_and_bounds():
     pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
     assert len(set(pairs)) == len(pairs)
     for w in BENCH["workloads"]:
-        assert w["chips"] == 1 and 1 <= len(w["why"]) <= 200 and NAME.match(w["traffic"])
+        assert w["chips"] in (1, 4) and 1 <= len(w["why"]) <= 200 and NAME.match(w["traffic"])
+    assert four_card_cells_fit(BENCH["workloads"])
+
+
+def four_card_cells_fit(workloads) -> bool:
+    """At most a quarter of the cells, rounded down, and always one, ask
+    for four cards."""
+    return sum(w["chips"] == 4 for w in workloads) <= max(1, len(workloads) // 4)
+
+
+@pytest.mark.parametrize("cells, four, fits", [(3, 1, True), (4, 2, False), (8, 2, True), (1, 1, True),
+                                               (2, 2, False), (7, 2, False), (12, 3, True), (12, 4, False)])
+def test_four_card_cells_per_benchmark(cells, four, fits):
+    workloads = [{"name": f"c{i}", "chips": 4 if i < four else 1} for i in range(cells)]
+    assert four_card_cells_fit(workloads) is fits
 
 
 def test_configs_are_files_under_paths():

@@ -59,14 +59,15 @@ def test_per_flush_and_per_merge_readers():
     assert core.reader("changes_per_flush.serve")({"layers": {}}) is None
 
 
-def _evt(name, start, end, device):
+def _evt(name, start, end, device, mirrored=False):
+    """A ``FunctionEvent`` on card 0; ``mirrored`` is the profiler's mark of a user annotation."""
     return types.SimpleNamespace(name=name, time_range=types.SimpleNamespace(start=start, end=end),
-                                 device_type=f"DeviceType.{device}")
+                                 device_type=f"DeviceType.{device}", device_index=0, is_user_annotation=mirrored)
 
 
 def test_summarize_profile():
     events = [_evt("portbench.apply_changes", 0, 1000, "CPU"), _evt("aten::copy_", 100, 150, "CPU"),
-              _evt("portbench.apply_changes", 0, 1000, "CUDA"),  # the span mirrored on the device: not busy
+              _evt("portbench.apply_changes", 0, 1000, "CUDA", mirrored=True),  # the span mirrored on the device: not busy
               _evt("k1", 100, 200, "CUDA"), _evt("k2", 150, 300, "CUDA"), _evt("k1", 700, 800, "CUDA")]
     prof = types.SimpleNamespace(events=lambda: events)
     s = core.summarize_profile(prof, 0.001)
