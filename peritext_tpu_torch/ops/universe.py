@@ -51,12 +51,16 @@ the CPU and off for one on the card (``PERITEXT_DEGRADE`` overrides both).
 A kernel that cannot build is not retried.
 Fault sites, breakers and telemetry are the port's own runtime modules.
 Fleet membership changes with ``add_replicas``, ``rename_replica`` and
-``drop_replicas``.  ``shard`` lays the fleet over a device mesh
-(``parallel/mesh.py``): the default route then merges once per replica
-group on its device, through both kernels, and every other path gathers.
+``drop_replicas``.  A universe built with ``mesh`` lays its state out
+over that device mesh (``parallel/mesh.py``) from the start, and ``shard``
+lays an existing one out: the default route then uploads each replica
+group's op rows to its own device and merges once per group there, through
+both kernels; ``texts``, ``spans`` and ``digests`` read each group on its
+device and join on the host; every other path gathers.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import hashlib
@@ -121,6 +125,7 @@ from peritext_tpu_torch.oracle.doc import (
     op_from_wire,
     ops_to_marks,
 )
+from peritext_tpu_torch.parallel import mesh as mesh_mod
 from peritext_tpu_torch.parallel.mesh import Mesh, gather_states, shard_states, sharded_merge_step
 from peritext_tpu_torch.runtime import faults, health, telemetry
 from peritext_tpu_torch.runtime.sync import causal_order
@@ -266,7 +271,16 @@ class TorchUniverse:
         max_mark_ops: int = 64,
         max_actors: int = 64,
         device: Optional[str | torch.device] = None,
+        mesh: Optional[Mesh] = None,
+        shard_seq: bool = True,
     ) -> None:
+        """``mesh``: lay the state out over that (replica, seq) mesh as it is
+        made, each replica group's block on its own devices (``shard``'s
+        layout, with ``shard_seq`` as there), so that no device ever holds
+        the whole; the home ``device`` is then the mesh's first unless
+        given."""
+        if mesh is not None and device is None:
+            device = mesh.devices[0, 0]
         self.device = resolve_device(device)
         self.replica_ids = list(replica_ids)
         self.index_of = {r: i for i, r in enumerate(self.replica_ids)}
@@ -276,13 +290,17 @@ class TorchUniverse:
         self.capacity = capacity
         self.max_mark_ops = max_mark_ops
         n = len(self.replica_ids)
-        empty = make_empty_state(capacity, max_mark_ops, self.device)
         self._states_version = 0
         # ``shard``'s (mesh, shard_seq), and the gathered view of the sharded
         # state with its tensors' versions when it was gathered.
         self._layout: Optional[Tuple[Mesh, bool]] = None
         self._gathered: Optional[Tuple[DocState, Tuple[int, ...]]] = None
-        self.states = map_state(lambda x: x.unsqueeze(0).expand(n, *x.shape).contiguous(), empty)
+        if mesh is None:
+            empty = make_empty_state(capacity, max_mark_ops, self.device)
+            self.states = map_state(lambda x: x.unsqueeze(0).expand(n, *x.shape).contiguous(), empty)
+        else:
+            self._layout = (mesh, shard_seq)
+            self.states = mesh_mod.empty_states(n, capacity, max_mark_ops, mesh, shard_seq)
         # Causal mirror of the window census: per-replica numpy copies of the
         # committed element ids, tombstones and boundary definedness, keyed
         # to the states token they were read from (``_states_token``).  Any
@@ -309,8 +327,13 @@ class TorchUniverse:
         self.store_versions: List[int] = [0] * n
         self._store_version_counter = 0
         self.text_objs: List[Optional[str]] = [None] * n
-        self._ranks_cache: Optional[Tuple[Tuple[int, int], torch.Tensor]] = None
-        self._multi_cache: Optional[Tuple[bytes, torch.Tensor]] = None
+        # The rank table and the allowMultiple flags: each with the key it
+        # was built for, the host array and its copy on each device that
+        # asked for one.
+        self._ranks_cache: Optional[Tuple[Tuple[int, int], np.ndarray, Dict[Any, torch.Tensor]]] = None
+        self._multi_cache: Optional[Tuple[bytes, np.ndarray, Dict[Any, torch.Tensor]]] = None
+        # A sharded universe's last global digest (``digests``).
+        self.global_digest: Optional[int] = None
         # allowMultiple group census: (type_id, attr_id) -> distinct (ctr,
         # act_id) op identities over every ingested change, a bound on any
         # replica's group width.  The patched sorted scan resolves a group
@@ -422,11 +445,13 @@ class TorchUniverse:
         """Lay the fleet's device state out over a (replica, seq) mesh
         (``TpuUniverse.shard``).  The default route's merge then runs once
         per replica group on the group's device, through the hand kernels
-        (``parallel.mesh.sharded_merge_step``), and the state stays sharded
-        between merges; every other route and every readback (spans,
-        texts, digests, cursors, checkpoints, ``TorchDoc``) gathers it and
-        gives the bytes of an unsharded universe, and what such a route
-        assigns is laid out again.  Call after construction or any
+        (``parallel.mesh.sharded_merge_step``), each group's op rows
+        uploaded to its own device, and the state stays sharded between
+        merges; ``texts``, ``spans`` and ``digests`` read each group on its
+        device; every other route and readback (cursors, checkpoints,
+        ``TorchDoc``) gathers it and gives the bytes of an unsharded
+        universe, and what such a route assigns is laid out again.  Call
+        after construction (or construct with ``mesh``) or after any
         elasticity change: ``add_replicas``, ``drop_replicas``,
         ``rename_replica`` and a capacity growth leave the state unsharded
         on the home device.  The replica count must divide the mesh's
@@ -557,23 +582,33 @@ class TorchUniverse:
         out[: len(ranks)] = ranks
         return out
 
-    def _ranks_device(self) -> torch.Tensor:
-        """Device rank table, uploaded once per actor-registry change
-        (interning renumbers ranks)."""
+    def _ranks_device(self, device: Optional[torch.device] = None) -> torch.Tensor:
+        """Device rank table on ``device`` (default: home), uploaded to each
+        device once per actor-registry change (interning renumbers ranks)."""
         key = (len(self.actors.actors), self.max_actors)
         if self._ranks_cache is None or self._ranks_cache[0] != key:
-            ranks = torch.from_numpy(self._ranks()).to(self.device)
-            self._ranks_cache = ((len(self.actors.actors), self.max_actors), ranks)
-        return self._ranks_cache[1]
+            ranks = self._ranks()
+            self._ranks_cache = ((len(self.actors.actors), self.max_actors), ranks, {})
+        return self._on(self._ranks_cache, device)
 
-    def _multi_device(self) -> torch.Tensor:
-        """Device allowMultiple flags, uploaded again only when the mark
-        type registry changes."""
+    def _multi_device(self, device: Optional[torch.device] = None) -> torch.Tensor:
+        """Device allowMultiple flags on ``device`` (default: home),
+        uploaded again only when the mark type registry changes."""
         arr = allow_multiple_array()
         key = arr.tobytes()
         if self._multi_cache is None or self._multi_cache[0] != key:
-            self._multi_cache = (key, torch.from_numpy(arr).to(self.device))
-        return self._multi_cache[1]
+            self._multi_cache = (key, arr, {})
+        return self._on(self._multi_cache, device)
+
+    def _on(self, cache, device: Optional[torch.device]) -> torch.Tensor:
+        """The copy on ``device`` (default: home) of a cache's host array,
+        uploaded from the host, never from another device, the first time."""
+        _, host, copies = cache
+        device = self.device if device is None else device
+        t = copies.get(device)
+        if t is None:
+            t = copies[device] = torch.from_numpy(host).to(device)
+        return t
 
     # -- resilient launch policy -------------------------------------------
 
@@ -590,10 +625,11 @@ class TorchUniverse:
 
         With ``needs_barrier`` (``PERITEXT_STRICT_COMMIT=1``) or a
         ``PERITEXT_LAUNCH_TIMEOUT``, each attempt ends with a host copy of
-        ``barrier_tensor``: on a GPU that is where an asynchronous CUDA
-        error surfaces, so a fault of the merge fails its attempt instead of
-        being committed; the deadline is judged after it.  After the budget
-        is spent, raises :class:`DeviceLaunchError` carrying the last cause.
+        ``barrier_tensor`` (of each tensor, given a list): on a GPU that is
+        where an asynchronous CUDA error surfaces, so a fault of the merge
+        fails its attempt instead of being committed; the deadline is
+        judged after it.  After the budget is spent, raises
+        :class:`DeviceLaunchError` carrying the last cause.
 
         An active ``device_launch`` breaker gates every launch: open
         fast-fails with no attempt (``stats["fastfails"]``), half-open
@@ -632,7 +668,8 @@ class TorchUniverse:
                         result, barrier = attempt()
                         if needs_barrier or timeout > 0:
                             faults.fire("device_readback")
-                            barrier.cpu()
+                            for t in barrier if isinstance(barrier, list) else [barrier]:
+                                t.cpu()
                             if timeout > 0 and time.monotonic() - t0 > timeout:
                                 raise TimeoutError(
                                     f"device launch attempt exceeded the {timeout}s deadline"
@@ -1203,28 +1240,32 @@ class TorchUniverse:
         use_scan, sorted_prep, g_mark, wplan = plan
 
         # Upload one copy per group; the replica batch is a device gather.
+        # On a mesh each replica group's device takes its own copy and
+        # gathers its own replicas' rows (``_upload_groups``).
+        sharded = use_scan and self._layout is not None
         with telemetry.span("ingest.upload"):
             if telemetry.enabled:
                 telemetry.flow_steps()
             group_idx = prep["group_of"].astype(np.int64)
-            idx = torch.from_numpy(group_idx).to(self.device)
-
-            def per_replica_rows(a: np.ndarray) -> torch.Tensor:
-                return torch.from_numpy(a).to(self.device).index_select(0, idx).contiguous()
-
-            text = per_replica_rows(sorted_prep["text"])
-            marks = per_replica_rows(g_mark)
-            bufs = per_replica_rows(sorted_prep["bufs"])
-            ranks = self._ranks_device()
-            sent = [group_idx, sorted_prep["text"], g_mark, sorted_prep["bufs"]]
+            arrays = [sorted_prep["text"], g_mark, sorted_prep["bufs"]]
             if not use_scan:
-                rounds = per_replica_rows(sorted_prep["rounds"])
-                sorted_args = (text, rounds, sorted_prep["num_rounds"], marks, ranks, bufs, sorted_prep["maxk"])
-                sent.append(sorted_prep["rounds"])
+                arrays.append(sorted_prep["rounds"])
+            targets = self._group_targets() if sharded else [(self.device, slice(None))]
+            with telemetry.span("mesh.upload") if sharded else contextlib.nullcontext():
+                rows = self._upload_groups(group_idx, arrays, targets)
+                ranks = [self._ranks_device(dev) for dev, _ in targets]
+            # host bytes copied: per group, not per replica
+            h2d = sum(group_idx[part].nbytes + sum(a.nbytes for a in arrays) for _, part in targets)
+            if sharded:
+                text, marks, bufs = rows
+            else:
+                text, marks, bufs, *rounds = (r[0] for r in rows)
+                ranks = ranks[0]
+            if not use_scan:
+                sorted_args = (text, rounds[0], sorted_prep["num_rounds"], marks, ranks, bufs, sorted_prep["maxk"])
             if wplan is not None:
                 starts, hulls = (torch.from_numpy(wplan[k]).to(self.device) for k in ("starts", "hulls"))
-                sent += [wplan["starts"], wplan["hulls"]]
-            h2d = sum(a.nbytes for a in sent)  # host bytes copied: per group, not per replica
+                h2d += wplan["starts"].nbytes + wplan["hulls"].nbytes
         self.stats["host_seconds"] += time.perf_counter() - t_host
 
         strict = os.environ.get("PERITEXT_STRICT_COMMIT") == "1"
@@ -1263,9 +1304,9 @@ class TorchUniverse:
 
         def attempt():
             faults.fire("device_launch")
-            if use_scan and self._layout is not None:
+            if sharded:
                 st = sharded_merge_step(self._shards(), text, marks, ranks, bufs)
-                return st, st.length.full()
+                return st, [st.length.shards[i, 0] for i in range(st.length.shards.shape[0])]
             if use_scan:
                 st = merge_step_full(self.states, text, marks, ranks, bufs)
             else:
@@ -1295,6 +1336,25 @@ class TorchUniverse:
         t_host = time.perf_counter()
         self._commit(prep)
         self.stats["host_seconds"] += time.perf_counter() - t_host
+
+    def _group_targets(self) -> List[Tuple[torch.device, slice]]:
+        """Each replica group's device and its rows, of a sharded universe."""
+        mesh = self._layout[0]
+        n = len(self.replica_ids) // mesh.shape["replica"]
+        return [(mesh.group_device(i), slice(i * n, (i + 1) * n)) for i in range(mesh.shape["replica"])]
+
+    def _upload_groups(self, group_idx: np.ndarray, arrays: Sequence[np.ndarray],
+                       targets: Sequence[Tuple[torch.device, slice]]) -> List[List[torch.Tensor]]:
+        """Each target device takes one copy of every batch group's arrays
+        and its part of ``group_idx``, and gathers those replicas' rows, so
+        on a mesh nothing passes through the home device.  Returns each
+        array's rows on each target."""
+        out: List[List[torch.Tensor]] = [[] for _ in arrays]
+        for dev, part in targets:
+            idx = torch.from_numpy(group_idx[part]).to(dev)
+            for rows, a in zip(out, arrays):
+                rows.append(torch.from_numpy(a).to(dev).index_select(0, idx).contiguous())
+        return out
 
     def _plan_merge(
         self, prep: Dict[str, Any], use_scan: bool
@@ -1724,14 +1784,18 @@ class TorchUniverse:
         """Per-replica mark tables from one readback, deduped so replicas
         with identical tables share one decoded object."""
         sel = torch.as_tensor(list(rows), dtype=torch.long, device=self.device)
+        return self._tables_of(map_state(lambda x: x.index_select(0, sel), self.states))
+
+    def _tables_of(self, sub: DocState) -> List[Dict[str, Dict[str, Any]]]:
+        """The mark tables of every row of ``sub`` (``_mark_tables``)."""
         cols = [
-            _numpy(getattr(self.states, f).index_select(0, sel))
+            _numpy(getattr(sub, f))
             for f in ("mark_ctr", "mark_act", "mark_action", "mark_type", "mark_attr")
         ]
-        counts = _numpy(self.states.mark_count.index_select(0, sel))
+        counts = _numpy(sub.mark_count)
         cache: Dict[bytes, Dict[str, Dict[str, Any]]] = {}
         tables = []
-        for i in range(len(rows)):
+        for i in range(counts.shape[0]):
             n = min(int(counts[i]), self.max_mark_ops)
             key = b"".join(a[i, :n].tobytes() for a in cols)
             t = cache.get(key)
@@ -1803,15 +1867,41 @@ class TorchUniverse:
         return oracle_spans(store.objects[host], store.metadata[host], store.mark_ops)
 
     def _spans_rows(self, rows: Sequence[int]) -> List[List[Dict[str, Any]]]:
-        sel = torch.as_tensor(list(rows), dtype=torch.long, device=self.device)
-        sub = map_state(lambda x: x.index_select(0, sel), self.states)
+        """Spans of ``rows``, each replica group's rows selected on its
+        device (``_select_rows``)."""
+        rows = list(rows)
+        out: List[Any] = [None] * len(rows)
+        for i, part in enumerate(self._row_groups()):
+            at = [k for k, r in enumerate(rows) if part.start <= r < part.stop]
+            if at:
+                got = self._spans_of([rows[k] for k in at], self._select_rows(i, [rows[k] - part.start for k in at]))
+                for k, spans in zip(at, got):
+                    out[k] = spans
+        return out
+
+    def _row_groups(self) -> List[slice]:
+        """Each replica group's rows: one group of every row when unsharded."""
+        if self._layout is None:
+            return [slice(0, len(self.replica_ids))]
+        return [part for _, part in self._group_targets()]
+
+    def _select_rows(self, i: int, rows: Sequence[int]) -> DocState:
+        """Rows ``rows`` (indices within replica group ``i``) of the state,
+        on the group's device (``mesh.select_rows`` when sharded)."""
+        if self._layout is not None:
+            return mesh_mod.select_rows(self._shards(), i, rows)
+        sel = torch.as_tensor(rows, dtype=torch.long, device=self.device)
+        return map_state(lambda x: x.index_select(0, sel), self.states)
+
+    def _spans_of(self, rows: Sequence[int], sub: DocState) -> List[List[Dict[str, Any]]]:
+        """Spans of replicas ``rows``, whose states are ``sub``'s rows."""
         mask, has = K.flatten_sources(sub)
         mask_np = _numpy(mask).view(np.uint32)
         has_np = _numpy(has)
         deleted = _numpy(sub.deleted)
         chars = _numpy(sub.chars)
         lengths = _numpy(sub.length)
-        tables = self._mark_tables(rows)
+        tables = self._tables_of(sub)
         mark_cache: Dict[Any, Dict[str, Any]] = {}
         out = []
         for i, r in enumerate(rows):
@@ -1840,31 +1930,51 @@ class TorchUniverse:
 
     def text(self, replica: str | int) -> str:
         r = replica if isinstance(replica, int) else self.index_of[replica]
-        host = self._text_source(r)
-        if host is not None:
-            return "".join(self.stores[r].objects[host])
-        n = int(self.states.length[r])
-        chars = _numpy(self.states.chars[r, :n])
-        deleted = _numpy(self.states.deleted[r, :n])
-        return _codepoints_to_str(chars[~deleted])
+        return self._texts_of(range(r, r + 1), *self._host_rows(r, r + 1))[0]
 
     def texts(self) -> List[str]:
-        """All replicas' visible texts from one readback."""
-        chars = _numpy(self.states.chars)
-        deleted = _numpy(self.states.deleted)
-        lengths = _numpy(self.states.length)
+        """All replicas' visible texts from one readback a replica group,
+        read from the group's devices."""
+        out: List[str] = []
+        for part in self._row_groups():
+            out += self._texts_of(range(part.start, part.stop), *self._host_rows(part.start, part.stop))
+        return out
+
+    def _host_rows(self, lo: int, hi: int) -> Tuple[np.ndarray, ...]:
+        """``chars``, ``deleted`` and ``length`` of replicas [lo, hi), which
+        lie in one replica group, read from the group's entries."""
+        fields = ("chars", "deleted", "length")
+        if self._layout is None:
+            return tuple(_numpy(getattr(self.states, f)[lo:hi]) for f in fields)
+        states = self._shards()
+        n = len(self.replica_ids) // self._layout[0].shape["replica"]
+        i = lo // n
+        return tuple(_numpy(getattr(states, f).host_group(i, lo - i * n, hi - i * n)) for f in fields)
+
+    def _texts_of(self, rows: Sequence[int], chars: np.ndarray, deleted: np.ndarray,
+                  lengths: np.ndarray) -> List[str]:
+        """The visible texts of replicas ``rows``, given their arrays."""
         out = []
-        for r in range(len(self.replica_ids)):
+        for k, r in enumerate(rows):
             host = self._text_source(r)
             if host is not None:
                 out.append("".join(self.stores[r].objects[host]))
                 continue
-            n = int(lengths[r])
-            out.append(_codepoints_to_str(chars[r, :n][~deleted[r, :n]]))
+            n = int(lengths[k])
+            out.append(_codepoints_to_str(chars[k, :n][~deleted[k, :n]]))
         return out
 
     def digests(self) -> np.ndarray:
-        """Per-replica convergence digests (uint32), computed on device."""
+        """Per-replica convergence digests (uint32), computed on device.  A
+        sharded universe digests each replica group on its device and
+        reduces them across the mesh (``mesh.read_digests``), keeping the
+        global digest in ``global_digest``."""
+        if self._layout is not None:
+            devices = [dev for dev, _ in self._group_targets()]
+            ranks = [self._ranks_device(dev) for dev in devices]
+            multi = [self._multi_device(dev) for dev in devices]
+            digests, self.global_digest = mesh_mod.read_digests(self._shards(), ranks, multi)
+            return digests
         digests = convergence_digest(self.states, self._ranks_device(), self._multi_device())
         return _numpy(digests).astype(np.uint32)
 

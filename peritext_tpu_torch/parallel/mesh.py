@@ -29,6 +29,19 @@ split back, which is the explicit form of the collectives GSPMD inserts.
 The global digest is the uint32 sum of the replicas' digests, wrapping as
 JAX's ``jnp.sum`` of uint32 does.  ``parallel/shard.py`` has the explicit
 sequence-parallel kernels.
+
+A state can be built on the mesh (``empty_states``), so that no entry
+ever holds the whole; ``select_rows`` and ``ShardedTensor.host_group``
+read a group's rows entry by entry.  Under ``runtime.telemetry`` the mesh path counts what
+it moves, by mesh position (so logical shards of one device count too):
+``mesh.p2p_bytes``, bytes moved from one entry to another (a group's seq
+shards joined or split, a replicated or plain input sent to a group other
+than the first, the digest totals); ``mesh.gather_bytes``, bytes of a
+whole tensor gathered onto one entry (``ShardedTensor.full``, so
+``gather_states``).  A plain tensor, and a replicated input given as one
+tensor, are taken to live on the first entry.  Spans: ``mesh.merge`` (one
+merge's launches over every group) and ``mesh.digest`` (a digest over
+every group, its reduction and its readback).
 """
 from __future__ import annotations
 
@@ -38,7 +51,8 @@ import numpy as np
 import torch
 
 from peritext_tpu_torch.ops import cuda_kernels
-from peritext_tpu_torch.ops.state import FIELDS, DocState, resolve_device
+from peritext_tpu_torch.ops.state import FIELDS, DocState, make_empty_state, resolve_device
+from peritext_tpu_torch.runtime import telemetry
 
 _U32 = 0xFFFFFFFF
 AXES = ("replica", "seq")
@@ -123,6 +137,15 @@ def _dim_of(spec: Spec, axis: str) -> Optional[int]:
     return spec.index(axis) if axis in spec else None
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _moved(nbytes: int) -> None:
+    """Count bytes moved from one mesh entry to another."""
+    telemetry.counter("mesh.p2p_bytes", nbytes)
+
+
 def _check_even(shape, mesh: Mesh, spec: Spec) -> None:
     for d, axis in enumerate(spec):
         if axis is not None and shape[d] % mesh.shape[axis]:
@@ -153,15 +176,19 @@ class ShardedTensor:
         _check_even(x.shape, mesh, spec)
         r_dim = _dim_of(spec, "replica")
         if r_dim is None:
-            return cls.from_groups([x] * mesh.shape["replica"], mesh, spec)
-        n = x.shape[r_dim] // mesh.shape["replica"]
-        return cls.from_groups([x.narrow(r_dim, i * n, n) for i in range(mesh.shape["replica"])], mesh, spec)
+            groups = [x] * mesh.shape["replica"]
+        else:
+            n = x.shape[r_dim] // mesh.shape["replica"]
+            groups = [x.narrow(r_dim, i * n, n) for i in range(mesh.shape["replica"])]
+        if telemetry.enabled:
+            _moved(sum(_nbytes(g) for g in groups[1:]))  # from the first entry to the other groups'
+        return cls.from_groups(groups, mesh, spec)
 
     @classmethod
     def from_groups(cls, groups: Sequence[torch.Tensor], mesh: Mesh, spec: Spec) -> "ShardedTensor":
         """Lay each replica group's block (``groups[i]``, all of its seq
-        extent) over the group's devices: split along the spec's ``seq``
-        dimension, else copied to each."""
+        extent, on the group's device) over the group's devices: split
+        along the spec's ``seq`` dimension, else copied to each."""
         s_dim = _dim_of(spec, "seq")
         n_seq = mesh.shape["seq"]
         shards = np.empty((mesh.shape["replica"], n_seq), dtype=object)
@@ -171,6 +198,8 @@ class ShardedTensor:
                 if s_dim is not None:
                     n = g.shape[s_dim] // n_seq
                     piece = g.narrow(s_dim, j * n, n)
+                if j and telemetry.enabled:
+                    _moved(_nbytes(piece))
                 shards[i, j] = piece.to(mesh.devices[i, j]).contiguous()
         shape = list(groups[0].shape)
         r_dim = _dim_of(spec, "replica")
@@ -178,22 +207,48 @@ class ShardedTensor:
             shape[r_dim] *= mesh.shape["replica"]
         return cls(mesh, spec, shards, tuple(shape))
 
+    def pieces(self, i: int) -> list:
+        """Replica group ``i``'s distinct blocks: one a seq entry where the
+        spec splits ``seq``, else the first entry's copy."""
+        split = _dim_of(self.spec, "seq") is not None and self.shards.shape[1] > 1
+        return list(self.shards[i] if split else self.shards[i, :1])
+
+    def join(self, pieces: Sequence[torch.Tensor], device: Any) -> torch.Tensor:
+        """``pieces`` of a group (as ``pieces`` gives them, or rows of them)
+        joined on ``device``."""
+        if len(pieces) == 1:
+            return pieces[0].to(device)
+        return torch.cat([p.to(device) for p in pieces], dim=_dim_of(self.spec, "seq"))
+
     def group(self, i: int, device: Optional[torch.device] = None) -> torch.Tensor:
         """Replica group ``i``'s block, its seq shards joined on ``device``
-        (default: the group's device)."""
-        device = self.mesh.group_device(i) if device is None else device
-        s_dim = _dim_of(self.spec, "seq")
-        if s_dim is None or self.shards.shape[1] == 1:
-            return self.shards[i, 0].to(device)
-        return torch.cat([s.to(device) for s in self.shards[i]], dim=s_dim)
+        (default: the group's device, the shards after the first counted
+        as moved)."""
+        pieces = self.pieces(i)
+        if device is None:
+            device = self.mesh.group_device(i)
+            if telemetry.enabled:
+                _moved(sum(_nbytes(p) for p in pieces[1:]))
+        return self.join(pieces, device)
 
     def full(self, device: Optional[torch.device] = None) -> torch.Tensor:
-        """The plain global tensor on ``device`` (default: the mesh's first)."""
+        """The plain global tensor on ``device`` (default: the mesh's first),
+        counted in ``mesh.gather_bytes``."""
         device = self.mesh.devices[0, 0] if device is None else device
         r_dim = _dim_of(self.spec, "replica")
         if r_dim is None:
-            return self.group(0, device)
-        return torch.cat([self.group(i, device) for i in range(self.mesh.shape["replica"])], dim=r_dim)
+            out = self.group(0, device)
+        else:
+            groups = [self.group(i, device) for i in range(self.mesh.shape["replica"])]
+            out = torch.cat(groups, dim=r_dim)
+        telemetry.counter("mesh.gather_bytes", _nbytes(out))
+        return out
+
+    def host_group(self, i: int, lo: int = 0, hi: Optional[int] = None) -> torch.Tensor:
+        """Rows [lo, hi) of replica group ``i``'s block (a tensor split over
+        ``replica`` along its first dimension) on the host, each seq shard
+        read from its own entry and joined there."""
+        return self.join([p[lo:hi].cpu() for p in self.pieces(i)], "cpu")
 
     def tensors(self):
         """Every local block (for version tokens)."""
@@ -248,6 +303,30 @@ def shard_states(states: DocState, mesh: Mesh, shard_seq: bool = True) -> DocSta
     return DocState(**{f: ShardedTensor.split(getattr(states, f), mesh, getattr(specs, f)) for f in FIELDS})
 
 
+def empty_states(
+    n: int, capacity: int, max_mark_ops: int, mesh: Mesh, shard_seq: bool = True
+) -> DocState:
+    """``n`` empty replicas laid over ``mesh`` as ``shard_states`` lays
+    them, each block made on its own entry: no entry holds more than its
+    share.  An uneven split raises ``ValueError``."""
+    specs = state_sharding(mesh, shard_seq)
+    ones = {dev: make_empty_state(capacity, max_mark_ops, dev) for dev in set(mesh.devices.flat)}
+    fields = {}
+    for f in FIELDS:
+        spec, s_dim = getattr(specs, f), _dim_of(getattr(specs, f), "seq")
+        shape = (n,) + tuple(getattr(ones[mesh.devices[0, 0]], f).shape)
+        _check_even(shape, mesh, spec)
+        shards = np.empty(mesh.devices.shape, dtype=object)
+        for (i, j), dev in np.ndenumerate(mesh.devices):
+            x = getattr(ones[dev], f).unsqueeze(0)
+            if s_dim is not None:
+                k = shape[s_dim] // mesh.shape["seq"]
+                x = x.narrow(s_dim, j * k, k)
+            shards[i, j] = x.expand(n // mesh.shape["replica"], *x.shape[1:]).contiguous()
+        fields[f] = ShardedTensor(mesh, spec, shards, shape)
+    return DocState(**fields)
+
+
 def group_state(states: DocState, i: int) -> DocState:
     """Replica group ``i``'s rows of a sharded state, whole, on its device."""
     return DocState(**{f: getattr(states, f).group(i) for f in FIELDS})
@@ -261,14 +340,46 @@ def from_group_states(groups: Sequence[DocState], mesh: Mesh, shard_seq: bool) -
     })
 
 
+def select_rows(states: DocState, i: int, rows: Sequence[int]) -> DocState:
+    """Rows ``rows`` (indices within replica group ``i``) of a sharded
+    state, on the group's device: each seq shard selects on its own entry
+    and the selections are joined there."""
+    mesh = states.elem_ctr.mesh
+    idx = torch.as_tensor(list(rows), dtype=torch.long)
+    out = {}
+    for f in FIELDS:
+        x = getattr(states, f)
+        picked = [p.index_select(0, idx.to(p.device)) for p in x.pieces(i)]
+        if telemetry.enabled:
+            _moved(sum(_nbytes(p) for p in picked[1:]))
+        out[f] = x.join(picked, mesh.group_device(i))
+    return DocState(**out)
+
+
 def group_rows(x: Any, mesh: Mesh, i: int) -> torch.Tensor:
     """Replica group ``i``'s rows of a per-replica [R, ...] input on its
-    device: a ``ShardedTensor``'s group, or a plain tensor's rows."""
+    device: a sequence's ``i``-th entry (already there), a
+    ``ShardedTensor``'s group, or a plain tensor's rows."""
+    if isinstance(x, (list, tuple)):
+        return x[i]
     if isinstance(x, ShardedTensor):
         return x.group(i)
     _check_even(x.shape, mesh, ("replica",))
     n = x.shape[0] // mesh.shape["replica"]
-    return x[i * n : (i + 1) * n].to(mesh.group_device(i))
+    rows = x[i * n : (i + 1) * n]
+    if i and telemetry.enabled:
+        _moved(_nbytes(rows))
+    return rows.to(mesh.group_device(i))
+
+
+def _replicated(x: Any, mesh: Mesh, i: int) -> torch.Tensor:
+    """Group ``i``'s copy of an input every group reads whole: a sequence's
+    ``i``-th entry (already there), or one tensor sent to the group."""
+    if isinstance(x, (list, tuple)):
+        return x[i]
+    if i and telemetry.enabled:
+        _moved(_nbytes(x))
+    return x.to(mesh.group_device(i))
 
 
 def sharded_merge_step(
@@ -282,31 +393,56 @@ def sharded_merge_step(
     (the text kernel, then the mark kernel as the tail) once per replica
     group on the group's device, each group's seq shards gathered before
     and split after.  The op rows are [R, ...] tensors, plain or sharded
-    over ``replica``."""
+    over ``replica``, or sequences of each group's rows already on its
+    device; ``ranks`` is one tensor or each group's copy.  Every group's
+    kernels are enqueued before anything waits on a card: given inputs on
+    the groups' devices and one seq shard a group, nothing crosses
+    between cards (span ``mesh.merge``)."""
     mesh = states.elem_ctr.mesh
     shard_seq = states.elem_ctr.spec[1] == "seq"
     outs = []
-    for i in range(mesh.shape["replica"]):
-        dev = mesh.group_device(i)
-        outs.append(cuda_kernels.merge_step_full(
-            group_state(states, i), group_rows(text_ops, mesh, i), group_rows(mark_ops, mesh, i),
-            ranks.to(dev), None if char_buf is None else group_rows(char_buf, mesh, i),
-        ))
-    return from_group_states(outs, mesh, shard_seq)
+    with telemetry.span("mesh.merge"):
+        for i in range(mesh.shape["replica"]):
+            outs.append(cuda_kernels.merge_step_full(
+                group_state(states, i),
+                group_rows(text_ops, mesh, i),
+                group_rows(mark_ops, mesh, i),
+                _replicated(ranks, mesh, i),
+                None if char_buf is None else group_rows(char_buf, mesh, i),
+            ))
+        return from_group_states(outs, mesh, shard_seq)
+
+
+def group_digests(states: DocState, ranks: Any, multi: Any):
+    """Each replica group's digests on its device, and their uint32 sum
+    (wrapping) on the mesh's first device, summed over the processes the
+    mesh spans (``Mesh.reduce_total``) before the wrap.  ``ranks`` and
+    ``multi``: one tensor or each group's copy."""
+    mesh = states.elem_ctr.mesh
+    groups = [cuda_kernels.convergence_digest(group_state(states, i), _replicated(ranks, mesh, i),
+                                              _replicated(multi, mesh, i))
+              for i in range(mesh.shape["replica"])]
+    first = mesh.devices[0, 0]
+    sums = [g.sum() for g in groups]
+    if telemetry.enabled:
+        _moved(sum(_nbytes(t) for t in sums[1:]))
+    total = mesh.reduce_total(sum(t.to(first) for t in sums)) & _U32
+    return groups, total
+
+
+def read_digests(states: DocState, ranks: Any, multi: Any) -> Tuple[np.ndarray, int]:
+    """Every replica's digest (uint32, read from each group's device and
+    joined on the host) and the global digest (span ``mesh.digest``)."""
+    with telemetry.span("mesh.digest"):
+        groups, total = group_digests(states, ranks, multi)
+        return np.concatenate([g.cpu().numpy() for g in groups]).astype(np.uint32), int(total)
 
 
 def _digests(states: DocState, ranks: torch.Tensor, multi: torch.Tensor):
-    """Per-replica digests (sharded over ``replica``) and their uint32 sum
-    (wrapping) on the mesh's first device, summed over the processes the
-    mesh spans (``Mesh.reduce_total``) before the wrap."""
-    mesh = states.elem_ctr.mesh
-    groups = []
-    for i in range(mesh.shape["replica"]):
-        dev = mesh.group_device(i)
-        groups.append(cuda_kernels.convergence_digest(group_state(states, i), ranks.to(dev), multi.to(dev)))
-    first = mesh.devices[0, 0]
-    total = mesh.reduce_total(sum(g.sum().to(first) for g in groups)) & _U32
-    return ShardedTensor.from_groups(groups, mesh, ("replica",)), total
+    """Per-replica digests (sharded over ``replica``) and their global
+    digest (``group_digests``)."""
+    groups, total = group_digests(states, ranks, multi)
+    return ShardedTensor.from_groups(groups, states.elem_ctr.mesh, ("replica",)), total
 
 
 def sharded_apply(mesh: Mesh, shard_seq: bool = True) -> Callable:
