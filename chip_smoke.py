@@ -24,7 +24,10 @@ Phases, in order; any failure exits non-zero:
    deletes and runs of up to 64 chars).
 3. The same at the 10k-character latency shape (``make_merge_workload(
    10_000, 64, 2)``; 1024 replicas, C = 16384, M = 128), insert-heavy
-   input included.
+   input included.  Here and in phases 5, 9, 15, 17, 21 and 22 every call
+   of the text kernel at C = 16384 must launch its piece form (each adds
+   one to ``cuda_kernels.PIECE_LAUNCHES``; ``piece_form``), and there must
+   be one.
 3b. Both kernels' cluster forms (a replica on 2, 4 or 8 blocks) at C =
    32768, 65536 and 131072 (M = 128): a 17,000-char ``make_merge_workload``
    document (2 writer streams) on 256 replicas, and 64 random states aimed
@@ -463,6 +466,35 @@ def merge_launches() -> dict:
     """The merge kernels' launch counts (``LAUNCHES`` also counts the
     digest kernel's)."""
     return {name: cuda_kernels.LAUNCHES[name] for name in MERGE_KERNELS}
+
+
+@contextlib.contextmanager
+def piece_form(label: str):
+    """Every text launch inside at C = LARGE_CAPACITY must take the text
+    kernel's piece form, and there must be one: each ``text_phase`` call at
+    that capacity adds one to ``PIECE_LAUNCHES`` (phases reset the counts,
+    so each call's own is read)."""
+    seen = {"calls": 0, "piece": 0}
+    real = cuda_kernels.text_phase
+
+    def spy(elem_ctr, *args, **kwargs):
+        before = cuda_kernels.PIECE_LAUNCHES["text_phase"]
+        out = real(elem_ctr, *args, **kwargs)
+        if elem_ctr.shape[1] == LARGE_CAPACITY:
+            seen["calls"] += 1
+            seen["piece"] += cuda_kernels.PIECE_LAUNCHES["text_phase"] - before
+        return out
+
+    cuda_kernels.text_phase = spy
+    try:
+        yield
+    finally:
+        cuda_kernels.text_phase = real
+    if seen["calls"] == 0 or seen["piece"] != seen["calls"]:
+        raise AssertionError(f"[{label}] {seen['piece']} piece-form launches of the text kernel for "
+                             f"{seen['calls']} calls at C = {LARGE_CAPACITY}")
+    log(f"  [{label}] the text kernel's {seen['calls']} calls at C = {LARGE_CAPACITY} all took the piece form "
+        f"(PIECE_LAUNCHES)")
 
 
 def measure_digest(label: str, st, ranks, runs: int) -> dict:
@@ -3351,7 +3383,7 @@ def main() -> int:
     with resilience("phase 2"):
         results, bench_shape = phase_bench_shape(REPLICAS, ROUNDS, runs=10)
     log_peak("phase 2")
-    with resilience("phase 3"):
+    with resilience("phase 3"), piece_form("phase 3"):
         _, large_shape = phase_large_shape(REPLICAS, runs=10)
     log_peak("phase 3")
     t = time.perf_counter()
@@ -3363,7 +3395,7 @@ def main() -> int:
         main = phase_main_path("phase 4", REPLICAS, DOC_LEN, WRITERS, ROUNDS, 2048, 1024,
                                samples=8, seed=1, scan=True)
     log_peak("phase 4")
-    with resilience("phase 5"):
+    with resilience("phase 5"), piece_form("phase 5"):
         past = phase_main_path("phase 5", 64, 8300, 2, 2, 8192, 256, samples=8, seed=2, scan=True)
     if past["capacity"] != LARGE_CAPACITY or past["growths"] < 1 or past["max_length"] <= 8192:
         raise AssertionError(f"phase 5 did not grow past 8192 elements: {past}")
@@ -3381,7 +3413,7 @@ def main() -> int:
     del main["uni"]
     torch.cuda.empty_cache()
     log_peak("phase 8")
-    with resilience("phase 9"):
+    with resilience("phase 9"), piece_form("phase 9"):
         window = phase_window(REPLICAS, 64, samples=8)
     log_peak("phase 9")
     with resilience("phase 10"):
@@ -3402,7 +3434,7 @@ def main() -> int:
     with resilience("phase 14"):
         served_sorted = phase_serving_sorted(serving, REPLICAS)
     log_peak("phase 14")
-    with resilience("phase 15"):
+    with resilience("phase 15"), piece_form("phase 15"):
         capacity = phase_capacity(CAPACITY_REPLICAS, samples=8)
     log_peak("phase 15")
     t = time.perf_counter()
@@ -3411,7 +3443,7 @@ def main() -> int:
     log_peak("phase 16")
     log(f"phase 16 took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    with resilience("phase 17"):
+    with resilience("phase 17"), piece_form("phase 17"):
         streamed = phase_stream()
     log_peak("phase 17")
     log(f"phase 17 took {time.perf_counter() - t:.1f} s")
@@ -3428,12 +3460,12 @@ def main() -> int:
     log_peak("phase 20")
     log(f"phase 20 took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    with resilience("phase 21"):
+    with resilience("phase 21"), piece_form("phase 21"):
         meshed = phase_mesh(bench_shape, large_shape, main, card, runs=5)
     log_peak("phase 21")
     log(f"phase 21 took {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    with resilience("phase 22"):
+    with resilience("phase 22"), piece_form("phase 22"):
         multihost = phase_multihost(bench_shape, serving, streamed, card)
     del streamed["pop"]
     torch.cuda.empty_cache()

@@ -18,7 +18,13 @@ it, as the merge's tail (``mark_tail`` on the planes before the permute),
 ``merge_step_full``'s ``call_ms``, and the digest's ``call_ms`` with a hash
 of its digests (equal on both sides when the two digests agree) on the
 merged states and on 1024 random short documents (C = 256) under a full
-mark table (M = 1024), written once by this checkout.  The digest is
+mark table (M = 1024), written once by this checkout.  Then the text
+kernel alone at C = 16384 on the resident fleet's three text batches
+(``workloads.RESIDENT_TEXT_SHAPES``: genesis runs from an empty document,
+a round, the all-to-all), 64 distinct replicas written once by this
+checkout and tiled to 4,096 on the card: per batch its ``device_ms``, the
+form the side launched (``text_form``, where the side has it) and, for the
+piece form, the blocks an SM holds.  The digest is
 ``cuda_kernels.convergence_digest`` (the digest kernel), or on a checkout
 from before that kernel the plain ``kernels.convergence_digest``.  Both
 sides are timed by this checkout's ``timing.py``, so they share one
@@ -42,6 +48,10 @@ HERE = Path(__file__).resolve()
 REPO = HERE.parents[2]
 INPUTS = REPO / "peritext_tpu_torch" / "build" / "kernel_ab_inputs.pt"
 FULL_TABLE = REPO / "peritext_tpu_torch" / "build" / "kernel_ab_full_table.npz"
+RESIDENT = REPO / "peritext_tpu_torch" / "build" / "kernel_ab_resident.pt"
+RESIDENT_DISTINCT = 64
+RESIDENT_REPLICAS = 4096
+TEXT_ARGS = ("elem_ctr", "elem_act", "deleted", "chars", "length", "text_ops", "ranks", "char_buf")
 
 
 def _timing():
@@ -98,6 +108,31 @@ def _digest_entry(digest_fn, states, ranks, multi, timing) -> dict:
     }
 
 
+def _resident_entries(cuda_kernels, K, timing) -> dict:
+    """The text kernel on the resident batches, tiled to RESIDENT_REPLICAS
+    on the card, byte-equal to the plain version on the distinct rows."""
+    import torch
+
+    out = {}
+    tiles = RESIDENT_REPLICAS // RESIDENT_DISTINCT
+    for shape, b in torch.load(RESIDENT).items():
+        small = [b[k].cuda() for k in TEXT_ARGS]
+        args = [x if k == "ranks" else x.repeat(tiles, *([1] * (x.dim() - 1))) for k, x in zip(TEXT_ARGS, small)]
+        want = K.text_phase_plain(*small)
+        got = cuda_kernels.text_phase(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w.repeat(tiles, *([1] * (w.dim() - 1)))) for g, w in zip(got, want)):
+            raise AssertionError(f"text_phase on the resident {shape} batch differs from its plain version")
+        c, num_ops = small[0].shape[1], small[5].shape[1]
+        form = cuda_kernels.text_form(c, num_ops) if hasattr(cuda_kernels, "text_form") else "plane"
+        out[f"text_phase_resident_{shape}"] = {
+            "replicas": RESIDENT_REPLICAS, "capacity": c, "rows": num_ops, "form": form,
+            "blocks_per_sm": cuda_kernels.text_piece_blocks_per_sm(c, num_ops) if form == "piece" else None,
+            "device_ms": timing.device_ms(lambda a=args: cuda_kernels.text_phase(*a), 20),
+        }
+    return out
+
+
 def worker(label: str) -> None:
     import numpy as np
     import torch
@@ -152,6 +187,7 @@ def worker(label: str) -> None:
     full = state_from_numpy(dict(np.load(FULL_TABLE)), device="cuda")
     ranks = torch.arange(4, dtype=torch.int32, device="cuda")
     out["convergence_digest_full_table"] = _digest_entry(digest_fn, full, ranks, multi, timing)
+    out.update(_resident_entries(cuda_kernels, K, timing))
     print(json.dumps(out), flush=True)
 
 
@@ -168,7 +204,7 @@ def main() -> int:
     import numpy as np
     import torch
 
-    from peritext_tpu_torch.bench.workloads import insert_heavy_text_ops
+    from peritext_tpu_torch.bench.workloads import RESIDENT_TEXT_SHAPES, insert_heavy_text_ops, resident_text_batch
 
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -177,6 +213,8 @@ def main() -> int:
     ops, buf = insert_heavy_text_ops(np.random.default_rng(0), _batch("cpu")["states"], 64, 128)
     torch.save({"text_ops": ops, "char_buf": buf}, INPUTS)
     np.savez(FULL_TABLE, **_full_table_state(np.random.default_rng(1)))
+    torch.save({shape: resident_text_batch(shape, RESIDENT_DISTINCT, seed)
+                for seed, shape in enumerate(RESIDENT_TEXT_SHAPES)}, RESIDENT)
     sides = {"other": Path(args.other).resolve(), "this": REPO}
     for _ in range(args.rounds):
         for label in ("other", "this", "this", "other"):

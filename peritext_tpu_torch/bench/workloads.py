@@ -7,7 +7,9 @@ same generator to chained rounds, ``build_device_batch`` encodes a
 workload into the stacked device batch the merge kernels take, and
 ``doc_session`` drives live document replicas through random edits, each
 held against an oracle twin.  ``slice_edge_batch`` makes random states and
-op rows aimed at the slice edges of the kernels' cluster form.  ``WireAuthor`` and ``wire_rounds`` write
+op rows aimed at the slice edges of the kernels' cluster form, and
+``resident_text_batch`` the text batches of a resident 10,000-char fleet's
+merges (genesis, a round, the all-to-all) at their row counts.  ``WireAuthor`` and ``wire_rounds`` write
 changes out in wire format with named element ids, for documents too long
 for the oracle's O(n) index walks to author quickly (past 16k chars).
 """
@@ -587,3 +589,125 @@ def text_row_mix(text_ops: torch.Tensor, char_buf: Optional[torch.Tensor]) -> st
     return (f"deletes {span((kind == K.KIND_DELETE).sum(1))}, inserts {span(inserts.sum(1))}, "
             f"runs {span(runs.sum(1))}, chars inserted {span(chars)} per replica; "
             f"most rows in a replica {int(rows.max().item())} of {text_ops.shape[1]}")
+
+
+# The text rows of a resident 10,000-char fleet's three merges at C = 16384
+# (a wire-format genesis, rounds of 4 writers' 64 ops, the all-to-all),
+# counted per replica: insert rows, run rows, delete rows, of L rows.
+RESIDENT_TEXT_SHAPES = {
+    "genesis": {"num_ops": 256, "inserts": 0, "runs": 157, "deletes": 0},
+    "round": {"num_ops": 64, "inserts": 4, "runs": 5, "deletes": 42},
+    "all_to_all": {"num_ops": 512, "inserts": 7, "runs": 23, "deletes": 259},
+}
+
+
+def document_planes(rng: np.random.Generator, replicas: int, capacity: int, doc_len: int):
+    """``replicas`` replicas of a ``doc_len``-char document: unique ids
+    (counters below 4 doc_len + 1, actors 0-3), a twentieth tombstoned,
+    random chars; slots past it zero.  Returns numpy ``(elem_ctr, elem_act,
+    deleted, chars, length)``."""
+    r, c, n = replicas, capacity, doc_len
+    ec, ea = np.zeros((r, c), np.int32), np.zeros((r, c), np.int32)
+    deleted, chars = np.zeros((r, c), bool), np.zeros((r, c), np.int32)
+    for i in range(r):
+        ec[i, :n] = rng.permutation(np.arange(1, 4 * n + 1))[:n]
+        ea[i, :n] = rng.integers(0, 4, n)
+        deleted[i, :n] = rng.random(n) < 0.05
+        chars[i, :n] = rng.integers(32, 0x10FFFF, n)
+    return ec, ea, deleted, chars, np.full(r, n, np.int32)
+
+
+def genesis_text_rows(rng: np.random.Generator, replicas: int, num_ops: int, chars: int) -> np.ndarray:
+    """A genesis as the wire format encodes it: runs of up to MAX_RUN_LEN
+    chars appended one after another to an empty document, the first after
+    HEAD and each after the last char of the one before, then pads."""
+    ops = np.zeros((replicas, num_ops, K.OP_FIELDS), np.int32)
+    fields = [K.K_KIND, K.K_CTR, K.K_ACT, K.K_REF_CTR, K.K_REF_ACT, K.K_PAYLOAD, K.K_RUN_LEN]
+    for i in range(replicas):
+        ctr, act, prev, left, l = 1, int(rng.integers(0, 4)), (0, 0), chars, 0
+        while left > 0:
+            k = min(K.MAX_RUN_LEN, left)
+            ops[i, l, fields] = (K.KIND_INSERT_RUN, ctr, act, prev[0], prev[1], int(rng.integers(0, 64)), k)
+            prev, ctr, left, l = (ctr + k - 1, act), ctr + k, left - k, l + 1
+    return ops
+
+
+def round_text_rows(rng: np.random.Generator, ec: np.ndarray, ea: np.ndarray, length: np.ndarray,
+                    num_ops: int, inserts: int, runs: int, deletes: int) -> np.ndarray:
+    """Text rows of a round or an all-to-all over the planes ``ec``/``ea``
+    [R, C] (``length`` >= 1): ``inserts`` single inserts, ``runs`` runs of
+    1..MAX_RUN_LEN chars and ``deletes`` deletes shuffled among pads.  A
+    reference is a live element, an element the batch inserts earlier,
+    HEAD, an absent id, or an earlier insert's reference at a lower
+    counter, so the RGA skip rule walks past that insert's elements.  A
+    delete target is a live element, an element the batch inserts earlier
+    or later, or an absent id."""
+    r = ec.shape[0]
+    ops = np.zeros((r, num_ops, K.OP_FIELDS), np.int32)
+    for i in range(r):
+        kinds = ([K.KIND_INSERT] * inserts + [K.KIND_INSERT_RUN] * runs + [K.KIND_DELETE] * deletes
+                 + [K.KIND_PAD] * (num_ops - inserts - runs - deletes))
+        kinds = [kinds[j] for j in rng.permutation(num_ops)]
+        ins = [l for l, kd in enumerate(kinds) if kd in (K.KIND_INSERT, K.KIND_INSERT_RUN)]
+        for l in ins:
+            run = kinds[l] == K.KIND_INSERT_RUN
+            ops[i, l, [K.K_KIND, K.K_CTR, K.K_ACT]] = (kinds[l], 200000 + 100 * l, rng.integers(0, 4))
+            ops[i, l, K.K_RUN_LEN] = rng.integers(1, K.MAX_RUN_LEN + 1) if run else 0
+            ops[i, l, K.K_PAYLOAD] = rng.integers(0, 200) if run else rng.integers(32, 127)
+
+        def element(before: int):
+            u = rng.random()
+            earlier = [l for l in ins if l < before]
+            if u < 0.3 and earlier:
+                l = earlier[rng.integers(0, len(earlier))]
+                return ops[i, l, K.K_CTR] + rng.integers(0, max(ops[i, l, K.K_RUN_LEN], 1)), ops[i, l, K.K_ACT]
+            if u < 0.35:
+                return 999999, 3
+            j = int(rng.integers(0, length[i]))
+            return ec[i, j], ea[i, j]
+
+        for n_ins, l in enumerate(ins):
+            u = rng.random()
+            if u < 0.1:
+                ref = (0, 0)
+            elif u < 0.25 and n_ins > 0:  # an earlier insert's place, at a lower counter
+                e = ins[rng.integers(0, n_ins)]
+                ref = (ops[i, e, K.K_REF_CTR], ops[i, e, K.K_REF_ACT])
+                ops[i, l, K.K_CTR] = ops[i, e, K.K_CTR] - 50
+            else:
+                ref = element(l)
+            ops[i, l, K.K_REF_CTR], ops[i, l, K.K_REF_ACT] = ref
+        for l in (l for l, kd in enumerate(kinds) if kd == K.KIND_DELETE):
+            later = [e for e in ins if e > l]
+            if later and rng.random() < 0.1:
+                e = later[rng.integers(0, len(later))]
+                tgt = (ops[i, e, K.K_CTR], ops[i, e, K.K_ACT])
+            else:
+                tgt = element(l)
+            ops[i, l, K.K_KIND] = K.KIND_DELETE
+            ops[i, l, K.K_REF_CTR], ops[i, l, K.K_REF_ACT] = tgt
+    return ops
+
+
+def resident_text_batch(shape: str, replicas: int, seed: int, capacity: int = 16384,
+                        doc_len: int = 10000, buf_len: int = 256) -> Dict[str, torch.Tensor]:
+    """One of ``RESIDENT_TEXT_SHAPES``' text batches on ``replicas``
+    replicas: the genesis on empty planes, a round or the all-to-all on a
+    ``doc_len``-char document.  CPU tensors ``elem_ctr``, ``elem_act``,
+    ``deleted``, ``chars``, ``length``, ``text_ops``, ``ranks`` [8] and
+    ``char_buf`` [R, buf_len], in ``text_phase``'s argument order."""
+    rng = np.random.default_rng(seed)
+    counts = RESIDENT_TEXT_SHAPES[shape]
+    if shape == "genesis":
+        empty = np.zeros((replicas, capacity), np.int32)
+        planes = (empty, empty, empty.astype(bool), empty, np.zeros(replicas, np.int32))
+        ops = genesis_text_rows(rng, replicas, counts["num_ops"], doc_len)
+    else:
+        planes = document_planes(rng, replicas, capacity, doc_len)
+        ops = round_text_rows(rng, planes[0], planes[1], planes[4], counts["num_ops"],
+                              counts["inserts"], counts["runs"], counts["deletes"])
+    names = ("elem_ctr", "elem_act", "deleted", "chars", "length", "text_ops")
+    out = {name: torch.from_numpy(x) for name, x in zip(names, (*planes, ops))}
+    out["ranks"] = torch.from_numpy(rng.permutation(8).astype(np.int32))
+    out["char_buf"] = torch.from_numpy(rng.integers(32, 0x10FFFF, (replicas, buf_len)).astype(np.int32))
+    return out

@@ -35,6 +35,14 @@ it can hold at once (``ACTIVE_CLUSTERS``) and raises if none.  Larger C
 raises.  ``kernel_capacity_limit`` gives that bound from the same
 footprints, so a caller can route a larger capacity elsewhere before it
 launches.
+
+The text kernel takes one of three forms, fixed by C and the op rows L
+alone (``text_form``): the plane form (``text_phase_kernel``, the planes
+in one block's shared memory) at C <= 8192; past it, up to C = 16384, the
+piece form (``text_phase_piece_kernel``: a piece table sized by L, at
+least four replicas an SM) wherever its table fits a quarter of an SM's
+shared memory, else the plane form; the cluster form past C = 16384.  A
+piece launch counts once in ``LAUNCHES`` and once in ``PIECE_LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -56,10 +64,17 @@ MAX_CLUSTER = 8
 _SCRATCH_INTS = 64
 # A cluster's block: two areas of cluster-min slots, [MAX_CLUSTER][2] ints.
 _CLUSTER_SLOT_INTS = 2 * 2 * MAX_CLUSTER
+# The text kernel's piece form: past C = 8192 up to one block's 16384, where
+# its shared memory leaves room for four blocks an SM.
+_PIECE_CAPACITIES = (8192, 16384)  # (exclusive, inclusive)
+PIECE_SMEM_LIMIT = MAX_SHARED_BYTES // 4
+_PIECE_SCRATCH_INTS = 64
 
 LAUNCHES: Dict[str, int] = {"text_phase": 0, "mark_phase": 0, "digest": 0}
 # The launches of LAUNCHES that ran a kernel's cluster form.
 CLUSTER_LAUNCHES: Dict[str, int] = {"text_phase": 0, "mark_phase": 0}
+# The launches of LAUNCHES that ran the text kernel's piece form.
+PIECE_LAUNCHES: Dict[str, int] = {"text_phase": 0}
 # cudaOccupancyMaxActiveClusters of each cluster shape launched so far, by
 # (kernel, blocks, shared bytes a block, device index).
 ACTIVE_CLUSTERS: Dict[Tuple[str, int, int, int], int] = {}
@@ -68,7 +83,7 @@ _LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, CLUSTER_LAUNCHES):
+    for counts in (LAUNCHES, CLUSTER_LAUNCHES, PIECE_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -86,6 +101,38 @@ def text_phase_smem_bytes(capacity: int, blocks: int = 1) -> int:
     cs = capacity // blocks
     extra = K.MAX_RUN_LEN * 12 + 4 * _CLUSTER_SLOT_INTS if blocks > 1 else 0
     return 12 * cs + _text_tile_rows(cs) * (2 * 6 * 4 + 4 * 12) + 2 * 32 * 4 + extra
+
+
+def _piece_hash_slots(num_ops: int) -> int:
+    slots = 32
+    while slots < 2 * num_ops:
+        slots *= 2
+    return slots
+
+
+def text_piece_smem_bytes(capacity: int, num_ops: int) -> int:
+    """Shared memory of one block of the text kernel's piece form: 2L + 4
+    pieces and max(L, 1) insert records (16 B each), a key table of twice
+    the rows rounded up to a power of two (at least 32) plus one slot (8 B
+    key, 4 B first input slot, 4 B last delete), a tombstone bit a slot
+    plus a spare word, the pieces' starts (2L + 5 ints) and 64 scratch
+    ints (``csrc/text_phase.cu``, ``piece_smem_bytes``)."""
+    pieces = 2 * num_ops + 4
+    return (16 * pieces + 16 * max(num_ops, 1) + 16 * (_piece_hash_slots(num_ops) + 1)
+            + 4 * ((capacity + 31) // 32 + 1) + 4 * (pieces + 1) + 4 * _PIECE_SCRATCH_INTS)
+
+
+def text_form(capacity: int, num_ops: int) -> str:
+    """The text kernel's form at ``capacity`` and ``num_ops`` op rows:
+    ``"plane"`` (the planes in one block), ``"piece"`` (8192 < C <= 16384
+    and a piece table within ``PIECE_SMEM_LIMIT``) or ``"cluster"`` (past
+    one block)."""
+    if _text_blocks(capacity) != 1:
+        return "cluster"
+    low, high = _PIECE_CAPACITIES
+    if low < capacity <= high and text_piece_smem_bytes(capacity, num_ops) <= PIECE_SMEM_LIMIT:
+        return "piece"
+    return "plane"
 
 
 def mark_phase_smem_bytes(capacity: int, words: int, blocks: int = 1) -> int:
@@ -168,6 +215,8 @@ _ARGTYPES = {
     "pt_mark_phase": [_P] * 7 + [_I, _P, _P, _I, _I, _I, _I, _P],
     "pt_mark_tail": [_P] * 7 + [_I] + [_P] * 14 + [_I] * 5 + [_P],
     "pt_text_phase_max_clusters": [_I, _I, _P],
+    "pt_text_phase_piece": [_P] * 6 + [_I, _P, _I, _P, _I] + [_P] * 6 + [_I, _I, _P],
+    "pt_text_phase_piece_blocks_per_sm": [_I, _I, _P],
     "pt_mark_phase_max_clusters": [_I, _I, _I, _P],
     "pt_digest": [_P] * 12 + [_I, _P, _I, _P] + [_I] * 4 + [_P],
 }
@@ -282,17 +331,33 @@ def text_phase(
     ch = torch.empty_like(chars)
     oi = torch.empty_like(elem_ctr)
     ln = torch.empty_like(length)
-    if blocks > 1:
-        _check_clusters("text_phase", elem_ctr.device, blocks, text_phase_smem_bytes(c, blocks), c)
-    _launch(
-        "text_phase", "pt_text_phase", elem_ctr.device, blocks,
+    args = (
         elem_ctr.data_ptr(), elem_act.data_ptr(), deleted.data_ptr(), chars.data_ptr(),
         length.data_ptr(), text_ops.data_ptr(), num_ops, ranks.data_ptr(), ranks.shape[0],
         char_buf.data_ptr() if char_buf is not None else None, buf_len,
         ec.data_ptr(), ea.data_ptr(), dl.data_ptr(), ch.data_ptr(), oi.data_ptr(), ln.data_ptr(),
         r, c,
     )
+    if text_form(c, num_ops) == "piece":
+        _launch("text_phase", "pt_text_phase_piece", elem_ctr.device, None, *args)
+        with _LAUNCHES_LOCK:
+            PIECE_LAUNCHES["text_phase"] += 1
+        return ec, ea, dl, ch, oi, ln
+    if blocks > 1:
+        _check_clusters("text_phase", elem_ctr.device, blocks, text_phase_smem_bytes(c, blocks), c)
+    _launch("text_phase", "pt_text_phase", elem_ctr.device, blocks, *args)
     return ec, ea, dl, ch, oi, ln
+
+
+def text_piece_blocks_per_sm(capacity: int, num_ops: int, device: Optional[torch.device] = None) -> int:
+    """Blocks of the text kernel's piece form an SM of the card holds at
+    once at ``capacity`` and ``num_ops`` op rows
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device or torch.device("cuda")):
+        err = _fn("text_phase", "pt_text_phase_piece_blocks_per_sm")(capacity, num_ops, ctypes.byref(count))
+    _raise_on_error("text_phase", err)
+    return count.value
 
 
 def mark_phase(

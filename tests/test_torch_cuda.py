@@ -30,13 +30,16 @@ JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from peritext_tpu_torch import TorchDoc, TorchUniverse, state_to_numpy
 from peritext_tpu_torch.bench.workloads import (
-    build_device_batch, doc_session, make_merge_workload, make_writer_rounds, wire_rounds,
+    RESIDENT_TEXT_SHAPES, build_device_batch, doc_session, document_planes, make_merge_workload,
+    make_writer_rounds, resident_text_batch, round_text_rows, wire_rounds,
 )
 from peritext_tpu_torch.ids import ActorRegistry
 from peritext_tpu_torch.ops import cuda_kernels
@@ -181,17 +184,20 @@ def test_text_kernel_matches_plain(card, r, c, fill, num_ops, seed, delete_runs)
         cuda_kernels.reset_launch_counts()
         got = cuda_kernels.text_phase(*args, ranks, buf)
         assert cuda_kernels.LAUNCHES["text_phase"] == 1
+        # Past C = 8192 the rows' piece table fits: the piece form runs.
+        assert cuda_kernels.PIECE_LAUNCHES["text_phase"] == (1 if c > 8192 else 0)
         torch.cuda.synchronize()
         _same(got, want)
     if delete_runs:
         assert not torch.equal(want[2], args[2])  # the runs tombstoned something
 
 
-@pytest.mark.parametrize("c,offset", [(99, 0), (96, 1)])
+@pytest.mark.parametrize("c,offset", [(99, 0), (96, 1), (9001, 0), (16384, 1)])
 def test_text_kernel_scalar_paths(card, c, offset):
     """C not a multiple of 4, and planes that start 4 bytes past a 16-byte
     boundary: the kernel moves slots one by one instead of in 16-byte
-    words, with the same result."""
+    words, with the same result (the plane form at C = 99 and 96, the
+    piece form at 9001 and 16384)."""
     rng = np.random.default_rng(10 + c)
     r, num_ops = 3, 60
     ec, ea, deleted, chars, length, _, _ = _random_state(rng, r, c, 1, c - 10)
@@ -213,6 +219,139 @@ def test_text_kernel_scalar_paths(card, c, offset):
     got = cuda_kernels.text_phase(*args, ranks, char_buf)
     torch.cuda.synchronize()
     _same(got, want)
+
+
+PIECE_C = 16384
+
+
+def _piece_same(card, ec, ea, deleted, chars, length, ops, seed, buf_len=256):
+    """The text kernel at C = 16384 in its piece form, byte-equal to the
+    plain version with and without a run buffer; returns the plain
+    outputs with the buffer."""
+    rng = np.random.default_rng(seed)
+    r, c = ec.shape
+    assert cuda_kernels.text_form(c, ops.shape[1]) == "piece"
+    args = [torch.from_numpy(x).to(card) for x in (ec, ea, deleted, chars, length, ops)]
+    ranks = torch.from_numpy(rng.permutation(8).astype(np.int32)).to(card)
+    char_buf = torch.from_numpy(rng.integers(32, 0x10FFFF, (r, buf_len)).astype(np.int32)).to(card)
+    first = None
+    for buf in (char_buf, None):
+        want = K.text_phase_plain(*args, ranks, buf)
+        cuda_kernels.reset_launch_counts()
+        got = cuda_kernels.text_phase(*args, ranks, buf)
+        assert cuda_kernels.LAUNCHES["text_phase"] == cuda_kernels.PIECE_LAUNCHES["text_phase"] == 1
+        torch.cuda.synchronize()
+        _same(got, want)
+        first = first or want
+    return first
+
+
+@pytest.mark.parametrize("shape,r", [("genesis", 13), ("round", 13), ("all_to_all", 13), ("all_to_all", 1)])
+def test_piece_kernel_matches_plain_on_the_resident_shapes(card, shape, r):
+    """The resident cell's three merges at C = 16384 (``RESIDENT_TEXT_SHAPES``):
+    157 runs appended to an empty document (L = 256), a round of 4
+    inserts, 5 runs and 42 deletes (L = 64), the all-to-all of 7 inserts,
+    23 runs and 259 deletes (L = 512) on a 10,000-char document."""
+    b = resident_text_batch(shape, r, 40 + r, capacity=PIECE_C)
+    ops = b["text_ops"].numpy()
+    assert ops.shape[1] == RESIDENT_TEXT_SHAPES[shape]["num_ops"]
+    planes = [b[k].numpy() for k in ("elem_ctr", "elem_act", "deleted", "chars", "length")]
+    want = _piece_same(card, *planes, ops, r)
+    if shape == "genesis":
+        assert (want[5] == 10000).all() and (want[4][:, :10000] == -1).all()
+    else:  # deletes landed
+        assert (want[2].sum(dim=1) > torch.from_numpy(planes[2].sum(axis=1)).to(card)).all()
+
+
+@pytest.mark.parametrize("case,r", [
+    ("deletes_around_inserts", 13), ("deletes_around_inserts", 1), ("absent_and_head", 13),
+    ("duplicates", 13), ("nearly_full", 13), ("lengths", 13),
+])
+def test_piece_kernel_edge_cases(card, case, r):
+    """The twin's rules in the piece form: deletes of elements the batch
+    inserts, before and after the insert; absent and HEAD references;
+    duplicate ids (the first live match is the reference, a delete takes
+    every copy, an insert may repeat a live id); a nearly full document
+    (16,300) whose runs push slots past C; empty, negative and past-C
+    lengths (nothing is live until the length reaches 1); each with and
+    without a run buffer."""
+    rng = np.random.default_rng(sum(map(ord, case)) + r)
+    num_ops = 128
+    if case == "lengths":
+        ec, ea, deleted, chars, length = document_planes(rng, r, PIECE_C, 3000)
+        length[:] = rng.choice([0, -3, 1, PIECE_C + 100, 2], size=r)
+        length[:5] = (0, 0, -3, PIECE_C + 100, 1)
+    else:
+        n = 16300 if case == "nearly_full" else 3000
+        ec, ea, deleted, chars, length = document_planes(rng, r, PIECE_C, n)
+    ops = round_text_rows(rng, ec, ea, np.clip(length, 1, 3000), num_ops, 20, 30, 40)
+    for i in range(r):
+        rows = [l for l in range(num_ops) if ops[i, l, K.K_KIND] in (K.KIND_INSERT, K.KIND_INSERT_RUN)]
+        dels = [l for l in range(num_ops) if ops[i, l, K.K_KIND] == K.KIND_DELETE]
+        if case == "deletes_around_inserts":
+            for d in dels:  # each delete's target: one the batch inserts, earlier or later
+                l = rows[rng.integers(0, len(rows))]
+                ops[i, d, K.K_REF_CTR] = ops[i, l, K.K_CTR] + rng.integers(0, max(ops[i, l, K.K_RUN_LEN], 1))
+                ops[i, d, K.K_REF_ACT] = ops[i, l, K.K_ACT]
+        elif case == "absent_and_head":
+            for l in rows[::2]:
+                ops[i, l, K.K_REF_CTR], ops[i, l, K.K_REF_ACT] = (0, 0) if rng.random() < 0.5 else (777777, 2)
+        elif case == "duplicates":
+            for j in rng.integers(0, length[i], 12):  # copies of the id at slot 7
+                ec[i, j], ea[i, j] = ec[i, 7], ea[i, 7]
+            for l in rows[::3]:
+                ops[i, l, K.K_REF_CTR], ops[i, l, K.K_REF_ACT] = ec[i, 7], ea[i, 7]
+            for d in dels[::3]:
+                ops[i, d, K.K_REF_CTR], ops[i, d, K.K_REF_ACT] = ec[i, 7], ea[i, 7]
+            for l in rows[1::4]:  # an insert repeats a live id, and one another insert's
+                ops[i, l, K.K_CTR], ops[i, l, K.K_ACT] = ec[i, 11], ea[i, 11]
+            ops[i, rows[-1], K.K_CTR], ops[i, rows[-1], K.K_ACT] = ops[i, rows[0], K.K_CTR], ops[i, rows[0], K.K_ACT]
+        elif case == "nearly_full":
+            for l in rows:  # references near the end, long runs
+                j = int(length[i]) - 1 - int(rng.integers(0, 200))
+                ops[i, l, K.K_REF_CTR], ops[i, l, K.K_REF_ACT] = ec[i, j], ea[i, j]
+                if ops[i, l, K.K_KIND] == K.KIND_INSERT_RUN:
+                    ops[i, l, K.K_RUN_LEN] = K.MAX_RUN_LEN
+        elif case == "lengths" and length[i] < 1:
+            if rng.random() < 0.5 and rows:  # the first insert's reference is absent
+                ops[i, rows[0], K.K_REF_CTR], ops[i, rows[0], K.K_REF_ACT] = 999999, 3
+            ec[i, 0], ea[i, 0] = ops[i, dels[0], K.K_REF_CTR], ops[i, dels[0], K.K_REF_ACT]
+    want = _piece_same(card, ec, ea, deleted, chars, length, ops, r + 7)
+    if case == "nearly_full":
+        assert (want[5] > PIECE_C).all()  # runs went past the end
+    if case == "deletes_around_inserts":
+        assert (want[2] & (want[4] == -1)).any()  # an inserted element tombstoned
+
+
+def test_piece_form_falls_back_past_its_table(card):
+    """At C = 16384, L = 1024 rows make a piece table past a quarter of an
+    SM: the plane form runs, counted in LAUNCHES alone, byte-equal."""
+    rng = np.random.default_rng(50)
+    r, num_ops = 3, 1024
+    assert cuda_kernels.text_form(PIECE_C, num_ops) == "plane"
+    ec, ea, deleted, chars, length = document_planes(rng, r, PIECE_C, 9000)
+    ops = round_text_rows(rng, ec, ea, length, num_ops, 40, 60, 500)
+    args = [torch.from_numpy(x).to(card) for x in (ec, ea, deleted, chars, length, ops)]
+    ranks = torch.from_numpy(rng.permutation(8).astype(np.int32)).to(card)
+    char_buf = torch.from_numpy(rng.integers(32, 0x10FFFF, (r, 256)).astype(np.int32)).to(card)
+    want = K.text_phase_plain(*args, ranks, char_buf)
+    cuda_kernels.reset_launch_counts()
+    got = cuda_kernels.text_phase(*args, ranks, char_buf)
+    assert cuda_kernels.LAUNCHES["text_phase"] == 1 and cuda_kernels.PIECE_LAUNCHES["text_phase"] == 0
+    torch.cuda.synchronize()
+    _same(got, want)
+
+
+def test_piece_form_shared_memory_and_occupancy(card):
+    """The library's piece-form footprint equals the wrapper's, and at L <=
+    512 the card holds at least four replicas an SM."""
+    lib = cuda_kernels._build.load("text_phase")
+    lib.pt_text_phase_piece_smem.restype = ctypes.c_size_t
+    lib.pt_text_phase_piece_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    for num_ops in (0, 8, 64, 256, 512, 1024):
+        assert lib.pt_text_phase_piece_smem(PIECE_C, num_ops) == cuda_kernels.text_piece_smem_bytes(PIECE_C, num_ops)
+    for num_ops in (64, 256, 512):
+        assert cuda_kernels.text_piece_blocks_per_sm(PIECE_C, num_ops, card) >= 4
 
 
 @pytest.mark.parametrize("r,c,words,fill,num_ops,seed,near_full", [
